@@ -1,0 +1,86 @@
+"""Weights into the port: flax variables or a reference state_dict.
+
+The port's parameter names are the reference torch layout (the layout of
+``deflow_tpu/convert.py`` ``export_state_dict`` without its ``model.``
+prefix): Conv HWIO → OIHW, Dense → Linear ``[O, I]``, GRU gates as Conv1d
+``[O, I, 1]``, BatchNorm scale/bias → weight/bias and batch_stats →
+running_mean/running_var, and the module renames below.  So one loader takes
+both the JAX package's variables (via :func:`state_dict_from_flax`) and a
+reference Lightning ``state_dict``.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+# flax path → torch path, applied as ONE regex pass (sequential substring
+# replacement would re-match inside its own output, e.g. "u2" in "u1_u2")
+_REVERSE_MAP = {
+    "feature_net.linear": "feature_net.pfn_layers.0.0",
+    "feature_net.norm": "feature_net.pfn_layers.0.1",
+    "u1": "u1_u2.0",
+    "u2": "u1_u2.2",
+    "u4": "u4_u5.0",
+    "u5": "u4_u5.1",
+    "decoder.fc1": "decoder.0",
+    "decoder.fc2": "decoder.2",
+}
+_REVERSE_RE = re.compile(
+    r"(?<!\w)(" + "|".join(re.escape(k) for k in sorted(
+        _REVERSE_MAP, key=len, reverse=True)) + r")(?!\w)")
+_GRU_GATES = ("convz", "convr", "convq")
+
+
+def _torch_key(flax_path) -> str:
+    return _REVERSE_RE.sub(lambda m: _REVERSE_MAP[m.group(1)],
+                           ".".join(flax_path))
+
+
+def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """``{"params", "batch_stats"}`` nested dicts of numpy arrays → the
+    port's ``state_dict`` (f32 tensors, zero ``num_batches_tracked``)."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(tree, path, collection):
+        for k, v in tree.items():
+            p = path + [k]
+            if hasattr(v, "items"):
+                walk(v, p, collection)
+                continue
+            arr = np.asarray(v, np.float32)
+            leaf = p[-1]
+            if collection == "batch_stats":
+                leaf = {"mean": "running_mean", "var": "running_var"}[leaf]
+            elif leaf in ("scale", "kernel"):
+                if leaf == "kernel" and arr.ndim == 4:      # HWIO → OIHW
+                    arr = arr.transpose(3, 2, 0, 1)
+                elif leaf == "kernel" and arr.ndim == 2:    # Dense → Linear
+                    arr = arr.T
+                    if p[-2] in _GRU_GATES:                 # Conv1d(k=1)
+                        arr = arr[:, :, None]
+                leaf = "weight"
+            key = _torch_key(p[:-1] + [leaf])
+            out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+
+    walk(variables.get("params", {}), [], "params")
+    walk(variables.get("batch_stats", {}), [], "batch_stats")
+    for key in [k for k in out if k.endswith("running_mean")]:
+        out[key.replace("running_mean", "num_batches_tracked")] = torch.zeros(
+            (), dtype=torch.int64)
+    return out
+
+
+def load_reference_state_dict(model: torch.nn.Module,
+                              state_dict: Mapping, prefix: str = "model.") -> None:
+    """Load a reference-layout ``state_dict`` (keys optionally prefixed, as
+    in a Lightning checkpoint) into ``model``; every key must match."""
+    sd = {}
+    for k, v in state_dict.items():
+        k = k[len(prefix):] if prefix and k.startswith(prefix) else k
+        sd[k] = v if isinstance(v, torch.Tensor) else torch.from_numpy(
+            np.asarray(v))
+    model.load_state_dict(sd, strict=True)

@@ -1,0 +1,65 @@
+"""DynamicEmbedder on the host sorted-record path (eval).
+
+Counterpart of ``deflow_tpu/models/embedder.py``: the host ships the 9-lane
+PFN input ``[xyz | p−centroid | p−center]`` in ascending pillar-id order, a
+bias-free Linear(9→C) + BatchNorm (eps 1e-3) + ReLU makes the per-point
+features, and ONE sorted segment-sum over the C feature lanes plus a count
+lane (C + 1 = 33 lanes) gives the pillar means, ``sum / max(count, 1)``.
+Empty pillars are exact zeros.
+
+The parameter names follow the reference layout
+(``feature_net.pfn_layers.0.{0,1}``).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from deflow_tpu_torch.ops.voxel import TRASH_PAD, VoxelConfig, segment_sum_batched
+
+
+def masked_batch_norm_eval(x: torch.Tensor, bn: nn.BatchNorm1d) -> torch.Tensor:
+    """``MaskedBatchNorm`` in eval mode: running statistics, computed in f32
+    (the valid-only batch statistics matter in training only)."""
+    inv = torch.rsqrt(bn.running_var + bn.eps)
+    return (x.float() - bn.running_mean) * inv * bn.weight + bn.bias
+
+
+class PillarFeatureNet(nn.Module):
+    """Linear(9→C, bias-free) + BN(eps 1e-3, momentum 0.01) + ReLU per point;
+    invalid points output zeros."""
+
+    def __init__(self, feat_channels: int = 32):
+        super().__init__()
+        self.pfn_layers = nn.ModuleList([nn.Sequential(
+            nn.Linear(9, feat_channels, bias=False),
+            nn.BatchNorm1d(feat_channels, eps=1e-3, momentum=0.01),
+            nn.ReLU())])
+
+    def forward(self, feats9: torch.Tensor, mask: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+        linear, bn, _ = self.pfn_layers[0]
+        x = feats9.to(dtype) @ linear.weight.to(dtype).t()
+        x = torch.relu(masked_batch_norm_eval(x, bn).to(dtype))
+        return torch.where(mask[..., None], x, 0)
+
+
+class DynamicEmbedder(nn.Module):
+    """Host sorted record [B, N, 9] + sorted ids [B, N] → pillar table
+    [B, P, C] (id order) in the compute dtype."""
+
+    def __init__(self, voxel_cfg: VoxelConfig, feat_channels: int = 32):
+        super().__init__()
+        self.voxel_cfg = voxel_cfg
+        self.feature_net = PillarFeatureNet(feat_channels)
+
+    def forward(self, sorted_rec: torch.Tensor, sorted_id: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+        p = self.voxel_cfg.num_pillars
+        valid = sorted_id < p
+        feats = self.feature_net(sorted_rec, valid, dtype)
+        c = feats.shape[-1]
+        data = torch.cat([feats, valid.to(dtype)[..., None]], dim=-1)
+        sums = segment_sum_batched(data, sorted_id, p + TRASH_PAD)
+        return sums[:, :p, :c] / sums[:, :p, c:].clamp(min=1.0)

@@ -1,0 +1,108 @@
+"""FastFlow3D siamese U-Net in plain NCHW (eval).
+
+Counterpart of ``deflow_tpu/models/unet.py`` as the reference lineage writes
+it: k8/s2/p3 stems, ``ConvWithNorms`` (conv + BN eps 1e-5 + exact-erf GELU,
+BN skipped on a 1x1 map), ``UpsampleSkip`` with a 2x bilinear upsample
+(align_corners=False) and a final 3x3 conv.  The JAX package's space-to-depth
+rewrites are TPU layout tricks over the same parameters and are not ported.
+
+Channel plan: enc 32 →(s2) 64 ×4 →(s2) 128 ×4 →(s2) 256 ×2, pair-concat
+skips, dec 512→256, 256→128, 128→64, final 3x3 conv 64→64.
+
+Compute dtype: convolutions run in ``dtype`` (weights cast per call); BN and
+GELU of ``ConvWithNorms`` run in f32, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return F.conv2d(x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype),
+                    conv.stride, conv.padding)
+
+
+class ConvWithNorms(nn.Module):
+    def __init__(self, cin: int, cout: int, k: int, s: int, p: int):
+        super().__init__()
+        self.conv = nn.Conv2d(cin, cout, k, s, p)
+        self.batchnorm = nn.BatchNorm2d(cout)
+        self.nonlinearity = nn.GELU()
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        y = _conv(self.conv, x, dtype).float()
+        if not (y.shape[2] == 1 and y.shape[3] == 1):
+            bn = self.batchnorm
+            shape = (1, -1, 1, 1)
+            inv = torch.rsqrt(bn.running_var + bn.eps).view(shape)
+            y = ((y - bn.running_mean.view(shape)) * inv * bn.weight.view(shape)
+                 + bn.bias.view(shape))
+        return F.gelu(y)
+
+
+class UpsampleSkip(nn.Module):
+    """1x1 bottleneck, 2x bilinear upsample, 1x1; fuse with the skip tensor
+    through two more 1x1 convs."""
+
+    def __init__(self, skip_c: int, latent_c: int, out_c: int):
+        super().__init__()
+        self.u1_u2 = nn.Sequential(
+            nn.Conv2d(skip_c, skip_c // 4, 1),
+            nn.Upsample(scale_factor=2, mode="bilinear", align_corners=False),
+            nn.Conv2d(skip_c // 4, skip_c // 8, 1))
+        self.u3 = nn.Conv2d(latent_c, skip_c // 8, 1)
+        self.u4_u5 = nn.Sequential(
+            nn.Conv2d(skip_c // 4, skip_c // 8, 1),
+            nn.Conv2d(skip_c // 8, out_c, 1))
+
+    def forward(self, a: torch.Tensor, b: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+        u1 = _conv(self.u1_u2[0], a, dtype)
+        up = F.interpolate(u1, scale_factor=2, mode="bilinear",
+                           align_corners=False)
+        u2 = _conv(self.u1_u2[2], up, dtype)
+        u3 = _conv(self.u3, b, dtype)
+        u4 = _conv(self.u4_u5[0], torch.cat([u2, u3], dim=1), dtype)
+        return _conv(self.u4_u5[1], u4, dtype)
+
+
+_ENCODER = ((64, 8, 2, 3), (64, 3, 1, 1), (64, 3, 1, 1), (64, 3, 1, 1),
+            (128, 8, 2, 3), (128, 3, 1, 1), (128, 3, 1, 1), (128, 3, 1, 1),
+            (256, 8, 2, 3), (256, 3, 1, 1))
+
+
+class FastFlow3DUNet(nn.Module):
+    """Two [B, C, H, W] pseudoimages → the 64-ch flow pseudoimage.  The
+    encoder weights are shared: both images run as one 2B batch."""
+
+    def __init__(self, stem_cin: int = 32):
+        super().__init__()
+        cin = stem_cin
+        for i, (cout, k, s, p) in enumerate(_ENCODER, start=1):
+            setattr(self, f"encoder_step_{i}", ConvWithNorms(cin, cout, k, s, p))
+            cin = cout
+        self.decoder_step1 = UpsampleSkip(512, 256, 256)
+        self.decoder_step2 = UpsampleSkip(256, 128, 128)
+        self.decoder_step3 = UpsampleSkip(128, 2 * stem_cin, 64)
+        self.decoder_step4 = nn.Conv2d(64, 64, 3, 1, 1)
+
+    def _encode(self, x: torch.Tensor, dtype: torch.dtype):
+        taps = []
+        for i in range(1, 11):
+            x = getattr(self, f"encoder_step_{i}")(x, dtype)
+            if i in (4, 8, 10):
+                taps.append(x)
+        return taps
+
+    def forward(self, img0: torch.Tensor, img1: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+        b = img0.shape[0]
+        n_all, r_all, t_all = self._encode(torch.cat([img0, img1]), dtype)
+        pair = lambda z: torch.cat([z[:b], z[b:]], dim=1)
+        s = self.decoder_step1(pair(t_all), pair(r_all), dtype)
+        l = self.decoder_step2(s, pair(n_all), dtype)
+        u = self.decoder_step3(l, torch.cat([img0, img1], dim=1), dtype)
+        return _conv(self.decoder_step4, u, dtype)

@@ -1,0 +1,74 @@
+"""Sorted row gather: the decoder's unpillar step.
+
+``sorted_rows_gather`` launches ``csrc/sorted_gather.cu`` on CUDA tensors
+and takes the plain PyTorch version, ``gather_plain``, only for CPU tensors.
+Counterpart of ``deflow_tpu/ops/pallas_gather.py``
+(``sorted_rows_gather_pallas``).
+
+Contract: ``table[ids]`` with ids ≥ ``num_rows`` (the ``2**30`` sentinel,
+padding) reading exact zeros; a bit-exact copy in any dtype.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from deflow_tpu_torch.ops import _build
+
+
+def gather_plain(table: torch.Tensor, ids: torch.Tensor,
+                 num_rows: int) -> torch.Tensor:
+    """Masked ``index_select``."""
+    ok = (ids >= 0) & (ids < num_rows)
+    rows = table.index_select(0, torch.where(ok, ids, 0).long())
+    return torch.where(ok[:, None], rows, 0)
+
+
+def _setup(lib):
+    vp, i64 = ctypes.c_void_p, ctypes.c_longlong
+    lib.sorted_gather.restype = ctypes.c_int
+    lib.sorted_gather.argtypes = [vp, vp, i64, i64, i64, vp, ctypes.c_int, vp]
+
+
+def _vec_bytes(row_bytes: int, *ptrs: int) -> int:
+    for v in (16, 8, 4, 2):
+        if row_bytes % v == 0 and all(p % v == 0 for p in ptrs):
+            return v
+    raise ValueError(f"row of {row_bytes} bytes: no supported vector width")
+
+
+def sorted_rows_gather(table: torch.Tensor, ids: torch.Tensor,
+                       num_rows: Optional[int] = None) -> torch.Tensor:
+    """``table [R, C]`` rows at ``ids [M]`` → ``[M, C]``; ids ≥ ``num_rows``
+    (default R) read zeros."""
+    num_rows = table.shape[0] if num_rows is None else num_rows
+    if table.dim() != 2 or ids.dim() != 1 or num_rows > table.shape[0]:
+        raise ValueError(f"table {tuple(table.shape)} / ids {tuple(ids.shape)}"
+                         f" / num_rows {num_rows}")
+    if table.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"table dtype {table.dtype}: f32 or bf16 only")
+    if ids.dtype != torch.int32 or ids.device != table.device:
+        raise ValueError("ids must be int32 on the table's device")
+    if table.device.type == "cpu":
+        return gather_plain(table, ids, num_rows)
+    if table.device.type != "cuda":
+        raise ValueError(f"unsupported device {table.device}")
+    if not (table.is_contiguous() and ids.is_contiguous()):
+        raise ValueError("table and ids must be contiguous")
+    lib = _build.load("sorted_gather", _setup)
+    out = torch.empty(ids.shape[0], table.shape[1], dtype=table.dtype,
+                      device=table.device)
+    row_bytes = table.shape[1] * table.element_size()
+    vec = _vec_bytes(row_bytes, table.data_ptr(), out.data_ptr())
+    rc = lib.sorted_gather(table.data_ptr(), ids.data_ptr(), ids.shape[0],
+                           row_bytes, num_rows, out.data_ptr(), vec,
+                           _build.stream_ptr(table))
+    _build.check(lib, rc, "sorted_gather")
+    sorted_rows_gather.launches += 1
+    return out
+
+
+sorted_rows_gather.launches = 0

@@ -1,0 +1,81 @@
+"""Sorted segment-sum: the embedder's pillar scatter.
+
+``sorted_segment_sum`` launches ``csrc/segment_sum.cu`` on CUDA tensors and
+takes the plain PyTorch version, ``segment_sum_plain``, only for CPU
+tensors.  Counterpart of ``deflow_tpu/ops/pallas_scatter.py``
+(``pillar_sum_scatter_pallas`` with a presorted plan).
+
+Contract: ``feats [N, C]`` (f32 or bf16) in ascending-id order, ``ids [N]``
+int32; ids ≥ ``num_segments`` (the sentinel) add nothing; empty rows are
+exact zeros; f32 accumulation, output in the input dtype.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from deflow_tpu_torch.ops import _build
+
+# the JAX package's sentinel rule (its scatter tile, TILE_P = 1024)
+_SENTINEL_ROUND = 1024
+
+
+def sentinel_for(num_segments: int) -> int:
+    """The beyond-table id of a point that must add nothing."""
+    return -(-num_segments // _SENTINEL_ROUND) * _SENTINEL_ROUND + 1
+
+
+def segment_sum_plain(feats: torch.Tensor, ids: torch.Tensor,
+                      num_segments: int) -> torch.Tensor:
+    """index_add_ into an f32 table with one extra row that takes the
+    sentinels; rounded once to the input dtype."""
+    s = num_segments
+    idx = torch.where((ids >= 0) & (ids < s), ids, s).long()
+    out = torch.zeros(s + 1, feats.shape[1], dtype=torch.float32,
+                      device=feats.device)
+    out.index_add_(0, idx, feats.float())
+    return out[:s].to(feats.dtype)
+
+
+def _setup(lib):
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.segment_sum.restype = i32
+    lib.segment_sum.argtypes = [vp, vp, i32, i32, i32, vp, vp, i32, vp]
+
+
+def sorted_segment_sum(feats: torch.Tensor, ids: torch.Tensor,
+                       num_segments: int) -> torch.Tensor:
+    """Segment-sum of ``feats [N, C]`` by ascending ``ids [N]`` into
+    ``[num_segments, C]``."""
+    if feats.dim() != 2 or ids.dim() != 1 or ids.shape[0] != feats.shape[0]:
+        raise ValueError(f"feats {tuple(feats.shape)} / ids {tuple(ids.shape)}")
+    if feats.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"feats dtype {feats.dtype}: f32 or bf16 only")
+    if ids.dtype != torch.int32 or ids.device != feats.device:
+        raise ValueError("ids must be int32 on the features' device")
+    if feats.device.type == "cpu":
+        return segment_sum_plain(feats, ids, num_segments)
+    if feats.device.type != "cuda":
+        raise ValueError(f"unsupported device {feats.device}")
+    if not (feats.is_contiguous() and ids.is_contiguous()):
+        raise ValueError("feats and ids must be contiguous")
+    n, c = feats.shape
+    if max(n * c, num_segments * c) >= 2 ** 31:
+        raise ValueError("sizes beyond int32 indexing")
+    lib = _build.load("segment_sum", _setup)
+    out = torch.empty(num_segments, c, dtype=feats.dtype, device=feats.device)
+    # per-row run bounds, zeroed and filled by the kernel's marking pass
+    scratch = torch.empty(2 * num_segments, dtype=torch.int32,
+                          device=feats.device)
+    rc = lib.segment_sum(feats.data_ptr(), ids.data_ptr(), n, c, num_segments,
+                         scratch.data_ptr(), out.data_ptr(),
+                         int(feats.dtype == torch.bfloat16),
+                         _build.stream_ptr(feats))
+    _build.check(lib, rc, "segment_sum")
+    sorted_segment_sum.launches += 1
+    return out
+
+
+sorted_segment_sum.launches = 0

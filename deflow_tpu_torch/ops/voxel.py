@@ -1,0 +1,216 @@
+"""Dynamic pillar voxelization on static-shaped, host-sorted batches.
+
+Counterpart of ``deflow_tpu/ops/voxel.py``.  Every point keeps its slot in a
+fixed ``[B, N]`` buffer with a validity mask; invalid points carry the trash
+id ``num_pillars``.  The per-sample pillar tables are ``num_pillars +
+TRASH_PAD`` rows long for the scatter (flattened over the batch with a
+per-sample offset) and ``num_pillars`` rows long for the gather.
+
+Layout: a pillar table ``[B, P, C]`` is in pillar-id order; on even grids the
+ids are s2d-ordered, ``((y>>1)·W/2 + (x>>1))·4 + (y&1)·2 + (x&1)``, so the
+table unfolds to the NCHW image through ``[B, H/2, W/2, 2, 2, C]``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple, Tuple
+
+import torch
+
+from deflow_tpu_torch.ops import gather as _gather
+from deflow_tpu_torch.ops import scatter as _scatter
+
+# Rows reserved past ``num_pillars`` for the trash segment of each sample
+# (kept from the JAX package so the flattened segment count is the same).
+TRASH_PAD = 8
+# Flat id of a point that must not reach the gather (any id ≥ B·P reads 0).
+GATHER_SENTINEL = 2 ** 30
+
+
+@dataclass(frozen=True)
+class VoxelConfig:
+    """Static voxel-grid geometry."""
+
+    voxel_size: Tuple[float, float, float] = (0.2, 0.2, 6.0)
+    point_cloud_range: Tuple[float, float, float, float, float, float] = (
+        -51.2, -51.2, -3.0, 51.2, 51.2, 3.0,
+    )
+
+    @property
+    def grid_size(self) -> Tuple[int, int, int]:
+        """(W_x, H_y, D_z) derived from range / voxel size."""
+        lo = self.point_cloud_range[:3]
+        hi = self.point_cloud_range[3:]
+        return tuple(
+            int(round((h - l) / v)) for l, h, v in zip(lo, hi, self.voxel_size))
+
+    @property
+    def num_pillars(self) -> int:
+        w, h, _ = self.grid_size
+        return w * h
+
+    @property
+    def pseudoimage_hw(self) -> Tuple[int, int]:
+        w, h, _ = self.grid_size
+        return (h, w)
+
+    @property
+    def use_s2d(self) -> bool:
+        """Space-to-depth pillar-id order (even grids)."""
+        w, h, _ = self.grid_size
+        return w % 2 == 0 and h % 2 == 0
+
+
+def encode_pillar_id(cy: torch.Tensor, cx: torch.Tensor, cfg: VoxelConfig):
+    """Cell coords → pillar id under the config's id order."""
+    w, _, _ = cfg.grid_size
+    if cfg.use_s2d:
+        cell = (cy // 2) * (w // 2) + cx // 2
+        return cell * 4 + (cy % 2) * 2 + (cx % 2)
+    return cy * w + cx
+
+
+def decode_pillar_id(pid: torch.Tensor, cfg: VoxelConfig):
+    """Pillar id → (cy, cx) under the config's id order."""
+    w, _, _ = cfg.grid_size
+    if cfg.use_s2d:
+        ph = pid % 4
+        cell = pid // 4
+        return (cell // (w // 2)) * 2 + ph // 2, (cell % (w // 2)) * 2 + ph % 2
+    return pid // w, pid % w
+
+
+class PillarInfo(NamedTuple):
+    """Per-point pillar assignment, arrays [..., N]."""
+
+    pillar_id: torch.Tensor   # int32 in [0, num_pillars]; num_pillars = trash
+    valid: torch.Tensor       # bool: in range AND not padding
+    coords_yx: torch.Tensor   # [..., N, 2] int32; zeros where invalid
+    offsets: torch.Tensor     # [..., N, 3] f32 point − pillar center
+    points: torch.Tensor      # [..., N, 3] f32, zeroed where invalid
+
+
+def _lo_vsz(points: torch.Tensor, cfg: VoxelConfig):
+    vsz = torch.tensor(cfg.voxel_size, dtype=points.dtype, device=points.device)
+    lo = torch.tensor(cfg.point_cloud_range[:3], dtype=points.dtype,
+                      device=points.device)
+    return lo, vsz
+
+
+def _center(cx, cy, cz, lo, vsz):
+    return (torch.stack([cx, cy, cz], dim=-1).to(lo.dtype) + 0.5) * vsz + lo
+
+
+def compute_pillar_info(points: torch.Tensor, mask: torch.Tensor,
+                        cfg: VoxelConfig) -> PillarInfo:
+    """Bin points ([..., N, 3]) into pillars on the device; ``mask`` marks
+    real points.  True f32 division, as the reference voxelizer bins."""
+    w, h, d = cfg.grid_size
+    lo, vsz = _lo_vsz(points, cfg)
+    safe = torch.where(mask[..., None], points, 0.0)
+    coords = torch.floor((safe - lo) / vsz).to(torch.int32)
+    in_range = (
+        mask
+        & (coords[..., 0] >= 0) & (coords[..., 0] < w)
+        & (coords[..., 1] >= 0) & (coords[..., 1] < h)
+        & (coords[..., 2] >= 0) & (coords[..., 2] < d)
+        & torch.isfinite(points).all(dim=-1)
+    )
+    cx = coords[..., 0].clamp(0, w - 1)
+    cy = coords[..., 1].clamp(0, h - 1)
+    cz = coords[..., 2].clamp(0, d - 1)
+    pid = torch.where(in_range, encode_pillar_id(cy, cx, cfg),
+                      cfg.num_pillars).to(torch.int32)
+    offsets = torch.where(in_range[..., None],
+                          safe - _center(cx, cy, cz, lo, vsz), 0.0)
+    coords_yx = torch.where(in_range[..., None], torch.stack([cy, cx], -1),
+                            0).to(torch.int32)
+    clean = torch.where(in_range[..., None], safe, 0.0)
+    return PillarInfo(pid, in_range, coords_yx, offsets, clean)
+
+
+def pillar_info_from_ids(points: torch.Tensor, mask: torch.Tensor,
+                         ids: torch.Tensor, cfg: VoxelConfig) -> PillarInfo:
+    """PillarInfo from HOST-computed pillar ids (the single source of truth).
+
+    The z bin, which only shapes the continuous center-offset feature, is
+    recomputed from z with true f32 division."""
+    _, _, d = cfg.grid_size
+    lo, vsz = _lo_vsz(points, cfg)
+    valid = mask & (ids < cfg.num_pillars)
+    safe_ids = torch.where(valid, ids, 0)
+    cy, cx = decode_pillar_id(safe_ids, cfg)
+    safe = torch.where(valid[..., None], points, 0.0)
+    cz = torch.floor((safe[..., 2] - lo[2]) / vsz[2]).to(torch.int32).clamp(0, d - 1)
+    offsets = torch.where(valid[..., None],
+                          safe - _center(cx, cy, cz, lo, vsz), 0.0)
+    coords_yx = torch.where(valid[..., None], torch.stack([cy, cx], -1),
+                            0).to(torch.int32)
+    pid = torch.where(valid, ids, cfg.num_pillars).to(torch.int32)
+    return PillarInfo(pid, valid, coords_yx, offsets, safe)
+
+
+def make_presorted_plan(sorted_id: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Flat ids [B·N] for the sorted segment-sum over B·num_segments rows.
+
+    Per-sample ids arrive ascending; sample b is offset by b·num_segments.
+    Trash points (id ≥ num_segments − TRASH_PAD) go to the beyond-table
+    sentinel, so no output row accumulates them."""
+    b, _ = sorted_id.shape
+    trash = num_segments - TRASH_PAD
+    boff = (torch.arange(b, dtype=torch.int32, device=sorted_id.device)
+            * num_segments)[:, None]
+    sentinel = _scatter.sentinel_for(b * num_segments)
+    flat = torch.where(sorted_id < trash, sorted_id.to(torch.int32) + boff,
+                       sentinel)
+    return flat.reshape(-1).to(torch.int32)
+
+
+def segment_sum_batched(data: torch.Tensor, sorted_id: torch.Tensor,
+                        num_segments: int) -> torch.Tensor:
+    """[B, N, C] × ascending [B, N] ids → [B, num_segments, C].
+
+    The batch is flattened into ONE sorted segment-sum over B·num_segments
+    rows (one kernel launch)."""
+    b, n, c = data.shape
+    flat = _scatter.sorted_segment_sum(
+        data.reshape(b * n, c), make_presorted_plan(sorted_id, num_segments),
+        b * num_segments)
+    return flat.reshape(b, num_segments, c)
+
+
+def table_to_image(table: torch.Tensor, cfg: VoxelConfig) -> torch.Tensor:
+    """Id-ordered pillar table [B, P, C] → NCHW pseudoimage [B, C, H, W]."""
+    b, _, c = table.shape
+    h, w = cfg.pseudoimage_hw
+    if cfg.use_s2d:
+        img = table.reshape(b, h // 2, w // 2, 2, 2, c).permute(0, 5, 1, 3, 2, 4)
+    else:
+        img = table.reshape(b, h, w, c).permute(0, 3, 1, 2)
+    return img.reshape(b, c, h, w)
+
+
+def image_to_table(image: torch.Tensor, cfg: VoxelConfig) -> torch.Tensor:
+    """NCHW pseudoimage [B, C, H, W] → id-ordered pillar table [B, P, C]."""
+    b, c, h, w = image.shape
+    if cfg.use_s2d:
+        t = image.reshape(b, c, h // 2, 2, w // 2, 2).permute(0, 2, 4, 3, 5, 1)
+    else:
+        t = image.permute(0, 2, 3, 1)
+    return t.reshape(b, h * w, c)
+
+
+def pseudoimage_gather_batched(table: torch.Tensor, info: PillarInfo) -> torch.Tensor:
+    """Unpillar gather from flat pillar tables [B, P, C] → [B, N, C].
+
+    Flat ids use the B·P stride (no TRASH_PAD rows); invalid slots take the
+    sentinel and read exact zeros."""
+    b, p, c = table.shape
+    n = info.pillar_id.shape[1]
+    boff = (torch.arange(b, dtype=torch.int32, device=table.device) * p)[:, None]
+    flat_ids = torch.where(info.valid & (info.pillar_id < p),
+                           info.pillar_id + boff, GATHER_SENTINEL)
+    out = _gather.sorted_rows_gather(
+        table.reshape(b * p, c), flat_ids.reshape(b * n).to(torch.int32), b * p)
+    return out.reshape(b, n, c)

@@ -1,0 +1,94 @@
+"""The port stands alone and never hides the device or the kernel.
+
+- no module of ``deflow_tpu_torch`` nor ``chip_smoke.py`` imports JAX, flax,
+  optax or the JAX package;
+- without a visible card, the entry points raise unless asked for the CPU;
+- CPU tensors take the plain versions without building any kernel; tensors
+  on any other non-CUDA device are refused, not computed.
+"""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "deflow_tpu")
+
+
+def _port_files():
+    return sorted((ROOT / "deflow_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    files = _port_files()
+    assert len(files) > 15
+    bad = [(p.relative_to(ROOT).as_posix(), m) for p in files
+           for m in _imports(p) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_a_card(no_cuda):
+    from deflow_tpu_torch.device import resolve_device
+    from deflow_tpu_torch.models import build_model
+    from deflow_tpu_torch.trainer import device_batch, make_eval_step
+
+    small = {"voxel_size": [12.8, 12.8, 6.0], "num_iters": 1}
+    for call in (lambda: resolve_device(), lambda: build_model(small),
+                 lambda: device_batch({"pc0": torch.zeros(1, 4, 3)})):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    model = build_model(small, device="cpu", seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_eval_step(model)
+    assert resolve_device("cpu") == torch.device("cpu")
+    make_eval_step(model, device="cpu")
+
+
+def _wrapper_calls(device):
+    from deflow_tpu_torch.ops.gather import sorted_rows_gather
+    from deflow_tpu_torch.ops.gru import fused_gru
+    from deflow_tpu_torch.ops.scatter import sorted_segment_sum
+
+    f = lambda *s: torch.zeros(*s, device=device)
+    ids = torch.tensor([0, 1, 1, 2 ** 30], dtype=torch.int32, device=device)
+    return {
+        "segment_sum": lambda: sorted_segment_sum(f(4, 33), ids, 3),
+        "sorted_gather": lambda: sorted_rows_gather(f(3, 128), ids, 3),
+        "fused_gru": lambda: fused_gru(f(4, 128), f(4, 64), f(192, 256),
+                                       f(256), f(192, 128), f(128), 4),
+    }
+
+
+def test_cpu_tensors_never_build_a_kernel(monkeypatch):
+    from deflow_tpu_torch.ops import _build
+
+    def refuse(*a, **k):
+        raise AssertionError("a CPU call reached the kernel build")
+
+    monkeypatch.setattr(_build, "build_all", refuse)
+    monkeypatch.setattr(_build, "load", refuse)
+    for name, call in _wrapper_calls("cpu").items():
+        out = call()
+        assert out.device.type == "cpu", name
+
+
+def test_other_devices_are_refused():
+    for name, call in _wrapper_calls("meta").items():
+        with pytest.raises(ValueError, match="unsupported device"):
+            call()

@@ -1,0 +1,140 @@
+"""Each kernel's plain PyTorch version vs the JAX Pallas kernel it replaces
+(``pl.pallas_call`` in interpret mode on the CPU).
+
+Tolerances: f32 sums differ only in summation order (1e-5); bf16 outputs are
+one f32-accumulated sum rounded once on both sides, so they may differ by
+one bf16 rounding (relative 2^-8); the gather is a copy and must be exact.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from deflow_tpu_torch.ops.gather import sorted_rows_gather
+from deflow_tpu_torch.ops.gru import fused_gru
+from deflow_tpu_torch.ops import voxel as tv
+from deflow_tpu_torch.ops.voxel import TRASH_PAD, segment_sum_batched
+
+
+@pytest.fixture
+def interpret_pallas(monkeypatch):
+    from jax.experimental import pallas as pl
+
+    import deflow_tpu.ops.voxel as V
+    from deflow_tpu.ops import pallas_scatter as ps
+
+    orig = pl.pallas_call
+    monkeypatch.setattr(pl, "pallas_call",
+                        lambda *a, **k: orig(*a, **{**k, "interpret": True}))
+    monkeypatch.setattr(V, "_use_pallas", lambda: True)
+    ps._sorted_scatter.clear_cache()
+    yield
+    ps._sorted_scatter.clear_cache()
+
+
+def _bf16_round(a):
+    """f32 array holding bf16-representable values."""
+    return np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+
+
+def _to_torch(a, dtype):
+    return torch.from_numpy(np.array(a, np.float32)).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_segment_sum_matches_pallas(interpret_pallas, dtype):
+    from deflow_tpu.ops.voxel import make_presorted_plan
+    from deflow_tpu.ops.voxel import segment_sum_batched as jax_seg
+
+    rng = np.random.default_rng(0)
+    b, n, p, c = 3, 1500, 1024, 33
+    s = p + TRASH_PAD
+    # ascending per-sample ids with trash (== p) tails and empty pillars
+    ids = np.sort(rng.integers(0, p + 1, (b, n)), axis=1)
+    ids[:, -200:] = p
+    ids[:, :100] = np.sort(rng.integers(0, 50, (b, 100)), axis=1)
+    ids = np.sort(ids, axis=1).astype(np.int32)
+    data = rng.normal(size=(b, n, c)).astype(np.float32)
+    if dtype == "bf16":
+        data = _bf16_round(data)
+    jdt, tdt = ((jnp.float32, torch.float32) if dtype == "f32"
+                else (jnp.bfloat16, torch.bfloat16))
+
+    jids = jnp.asarray(ids)
+    plan = make_presorted_plan(jids, s)
+    # the same flat ids, sentinel rule included
+    np.testing.assert_array_equal(
+        tv.make_presorted_plan(torch.from_numpy(ids), s).numpy(),
+        np.asarray(plan.pid))
+    want = np.asarray(jax_seg(jnp.asarray(data, jdt), jids, s,
+                              plan).astype(jnp.float32))
+    got = segment_sum_batched(_to_torch(data, tdt), torch.from_numpy(ids), s)
+    assert got.shape == (b, s, c) and got.dtype == tdt
+    got = got.float().numpy()
+
+    occupied = np.zeros((b, s), bool)
+    for i in range(b):
+        occupied[i, ids[i][ids[i] < p]] = True
+    assert (~occupied[:, :p]).any()
+    assert (got[~occupied] == 0).all() and (want[~occupied] == 0).all()
+    if dtype == "f32":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        np.testing.assert_allclose(got, want, rtol=2 ** -8, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype,c", [("f32", 33), ("bf16", 128)])
+def test_gather_matches_pallas_exactly(interpret_pallas, dtype, c):
+    from deflow_tpu.ops.pallas_gather import sorted_rows_gather_pallas
+
+    rng = np.random.default_rng(1)
+    num_rows, m = 3000, 1200
+    table = rng.normal(size=(num_rows, c)).astype(np.float32)
+    if dtype == "bf16":
+        table = _bf16_round(table)
+    half = m // 2
+    ids = np.concatenate([
+        np.sort(rng.integers(0, num_rows // 2, half - 7)), np.full(7, 2 ** 30),
+        np.sort(rng.integers(num_rows // 2, num_rows, m - half - 9)),
+        np.full(9, 2 ** 30)]).astype(np.int32)
+    jdt, tdt = ((jnp.float32, torch.float32) if dtype == "f32"
+                else (jnp.bfloat16, torch.bfloat16))
+    want = np.asarray(sorted_rows_gather_pallas(
+        jnp.asarray(table, jdt), jnp.asarray(ids), num_rows).astype(jnp.float32))
+    got = sorted_rows_gather(_to_torch(table, tdt), torch.from_numpy(ids),
+                             num_rows)
+    assert got.dtype == tdt
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    assert (got[ids >= num_rows] == 0).all()
+
+
+def _gru_inputs(seed, m=700, xdim=64):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(0, 0.5, (m, 128)), rng.normal(0, 0.5, (m, xdim)),
+            rng.normal(0, 0.1, (128 + xdim, 256)), rng.normal(0, 0.1, 256),
+            rng.normal(0, 0.1, (128 + xdim, 128)), rng.normal(0, 0.1, 128))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("iters", [1, 4])
+def test_gru_matches_pallas(interpret_pallas, iters, dtype):
+    from deflow_tpu.ops.pallas_gru import fused_gru as jax_fused_gru
+
+    args = [a.astype(np.float32) for a in _gru_inputs(0)]
+    if dtype == "bf16":
+        args = [_bf16_round(a) for a in args]
+    jdt, tdt = ((jnp.float32, torch.float32) if dtype == "f32"
+                else (jnp.bfloat16, torch.bfloat16))
+    want = np.asarray(jax_fused_gru(*(jnp.asarray(a, jdt) for a in args),
+                                    iters).astype(jnp.float32))
+    got = fused_gru(*(_to_torch(a, tdt) for a in args), iters)
+    assert got.dtype == tdt and got.shape == (700, 128)
+    if dtype == "f32":
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    else:
+        # f32 state on both sides; only the final bf16 rounding (and rare
+        # flips of an intermediate bf16 operand) differ
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=2 ** -7,
+                                   atol=2e-3)

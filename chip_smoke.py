@@ -6,18 +6,28 @@
 Phases (any failure exits non-zero):
 1. the card's name and power limit (nvidia-smi);
 2. build every kernel from ``deflow_tpu_torch/csrc`` with nvcc (sm_90a);
-3. each kernel at the main path's shapes, in bf16 and in f32 (TF32 off):
-   its error against its plain PyTorch version, its time, the plain
-   version's time, one library call's time, and the bound;
-4. the main path: leaderboard DeFlow (512x512 grid, ConvGRU, 4 iterations,
-   bf16 compute, random weights from a seed) evaluates 3 synthetic batches
+3. each kernel at its path's shapes, in bf16 and in f32 (TF32 off): its
+   error against its plain PyTorch version, its time, the plain version's
+   time, a library call's (or call sequence's) time, and the bound; the
+   segment-sum and the row gather also as each other's backward on the
+   train path's ids; the fused conv3x3+BN+GELU kernels at both chain widths;
+4. the eval path: leaderboard DeFlow (512x512 grid, ConvGRU, 4 iterations,
+   bf16 compute, random weights from a seed) evaluates 5 synthetic batches
    of 4 x 98,304 point slots (86,016 valid) through ``run_validation``; the
    launch counters must show 2 scatters, 1 gather and 1 GRU per batch;
    then one more step under torch.profiler: device time by kernel and the
    device's idle share;
-5. a reference check: the same model in f32 on a small input, on the card
-   against the CPU (plain PyTorch versions);
-6. one JSON line of kernels, the card line, and the result line.
+5. the train path: the same model in train mode takes 5 Adam steps (lr
+   2e-4, deflowLoss) on synthetic batches of 2 x 98,304 slots through
+   ``make_train_step``; per step 3 scatters, 3 gathers, 1 GRU forward and
+   1 backward, 6 fused-block forwards and 6 backwards; then one more step
+   under torch.profiler;
+6. reference checks in f32 on small inputs, the card against the CPU
+   (plain PyTorch versions): the eval output, and one train step's loss,
+   gradient norm, per-parameter gradients and updated parameters;
+7. one JSON line of kernels, the card line, and the result line.
+Step times are medians of the steady steps (all but the first, which warms
+cuDNN up); the eval phase also prints their mean.
 Needs one CUDA card; exits non-zero without one.
 """
 
@@ -29,12 +39,15 @@ import time
 import numpy as np
 
 B, N, VALID = 4, 98304, 86016
+TRAIN_B = 2          # per card: the JAX package trains 2 per chip
+TRAIN_STEPS = 5
+LR = 2e-4
 VOXEL = [0.2, 0.2, 6.0]
 RANGE = [-51.2, -51.2, -3.0, 51.2, 51.2, 3.0]
 LEADERBOARD = {"voxel_size": VOXEL, "point_cloud_range": RANGE,
                "grid_feature_size": [512, 512], "feat_channels": 32,
                "decoder_option": "gru", "num_iters": 4}
-NUM_BATCHES = 3
+NUM_BATCHES = 5
 # H100 SXM data sheet: HBM 3.35 TB/s, dense bf16 tensor cores 989 TFLOP/s
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
@@ -96,12 +109,98 @@ def bound(nbytes: float, flops: float, flop_rate: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def hold_segment_sum(what: str, feats32, ids, s: int) -> dict:
+    """The segment-sum of ``feats32 [n, c]`` (zero at sentinel ids) by the
+    flat ``ids`` into ``s`` rows, in f32 and bf16, against its plain
+    version; returns the bf16 measurements."""
+    import torch
+
+    from deflow_tpu_torch.ops import scatter
+
+    for dt in (torch.float32, torch.bfloat16):
+        f = feats32.to(dt)
+        k = scatter.sorted_segment_sum(f, ids, s)
+        ref = scatter.segment_sum_plain(f, ids, s)
+        torch.cuda.synchronize()
+        err = (k.float() - ref.float()).abs().max().item()
+        rtol, atol = ((1e-5, 1e-5) if dt == torch.float32 else (2 ** -7, 1e-6))
+        ok = torch.allclose(k.float(), ref.float(), rtol=rtol, atol=atol)
+        print(f"segment_sum {what} {dt}: max_abs_err {err:.3e} "
+              f"(tol rtol {rtol:g} atol {atol:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"segment_sum ({what}) disagrees with its plain version")
+    n, c = f.shape
+    isz = f.element_size()
+    nv = int((ids < s).sum())          # rows at a sentinel id are not read
+    b_ms, b_by = bound(nv * c * isz + n * 4 + s * c * isz, nv * c,
+                       BF16_FLOP_PER_S)
+    idx_lib = torch.where(ids < s, ids, s).long()
+    return {
+        "max_abs_err": err, "shape": f"{n}x{c}->{s}",
+        "ms": cuda_ms(lambda: scatter.sorted_segment_sum(f, ids, s), 50),
+        "plain_ms": cuda_ms(lambda: scatter.segment_sum_plain(f, ids, s), 10),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(lambda: torch.zeros(
+            s + 1, c, dtype=f.dtype, device=f.device).index_add_(0, idx_lib, f), 10),
+    }
+
+
+def hold_gather(what: str, table32, ids, rows: int) -> dict:
+    """The row gather of ``table32 [rows, c]`` at the ascending flat ``ids``
+    (ids >= rows read zeros), in f32 and bf16, bit-exact against its plain
+    version; returns the bf16 measurements."""
+    import torch
+
+    from deflow_tpu_torch.ops import gather
+
+    for dt in (torch.float32, torch.bfloat16):
+        t = table32.to(dt)
+        k = gather.sorted_rows_gather(t, ids, rows)
+        ref = gather.gather_plain(t, ids, rows)
+        torch.cuda.synchronize()
+        exact = torch.equal(k, ref)
+        err = (k.float() - ref.float()).abs().max().item()
+        print(f"sorted_gather {what} {dt}: max_abs_err {err:.3e} (tol: bit-exact) "
+              f"{'ok' if exact else 'FAIL'}")
+        if not exact:
+            raise SystemExit(f"sorted_gather ({what}) is not bit-exact")
+    c = t.shape[1]
+    t_lib = torch.cat([t, t.new_zeros(1, c)])
+    idx_lib = torch.where(ids < rows, ids, rows).long()
+    m = ids.shape[0]
+    read = torch.unique(ids[ids < rows]).numel()
+    row_bytes = c * t.element_size()
+    b_ms, b_by = bound(m * 4 + read * row_bytes + m * row_bytes, 0,
+                       BF16_FLOP_PER_S)
+    return {
+        "max_abs_err": err, "shape": f"{rows}x{c}@{m}",
+        "ms": cuda_ms(lambda: gather.sorted_rows_gather(t, ids, rows), 50),
+        "plain_ms": cuda_ms(lambda: gather.gather_plain(t, ids, rows), 10),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(lambda: torch.index_select(t_lib, 0, idx_lib), 50),
+    }
+
+
+def gather_ids(db, cfg, b: int):
+    """pc0's PillarInfo and the decoder gather's flat ids over B·P rows."""
+    import torch
+
+    from deflow_tpu_torch.ops import voxel
+
+    info = voxel.pillar_info_from_ids(db["pc0_transformed"], db["pc0_mask"],
+                                      db["pc0_ids"], cfg)
+    boff = (torch.arange(b, dtype=torch.int32, device=info.valid.device)
+            * cfg.num_pillars)[:, None]
+    ids = torch.where(info.valid, info.pillar_id + boff, voxel.GATHER_SENTINEL)
+    return info, ids.reshape(-1).to(torch.int32)
+
+
 def check_kernels(model, host_batch):
-    """Phase 3: every kernel against its plain version at the main path's
+    """Phase 3: every kernel against its plain version at the eval path's
     shapes; returns the bf16 (main path) measurements per kernel."""
     import torch
 
-    from deflow_tpu_torch.ops import gather, gru, scatter, voxel
+    from deflow_tpu_torch.ops import gru, voxel
     from deflow_tpu_torch.trainer import device_batch
 
     dev = torch.device("cuda")
@@ -114,71 +213,15 @@ def check_kernels(model, host_batch):
     # -- segment-sum: the embedder's 32 feature lanes + count lane, real ids
     seg = p + voxel.TRASH_PAD
     ids = voxel.make_presorted_plan(db["pc0_sorted"], seg)
-    s = B * seg
-    valid = (ids < s)[:, None]
     feats32 = torch.relu(torch.randn(ids.shape[0], 33, generator=g, device=dev))
     feats32[:, 32] = 1.0
-    feats32 = torch.where(valid, feats32, 0.0)
-    idx_lib = torch.where(ids < s, ids, s).long()
-    for dt in (torch.float32, torch.bfloat16):
-        f = feats32.to(dt)
-        k = scatter.sorted_segment_sum(f, ids, s)
-        ref = scatter.segment_sum_plain(f, ids, s)
-        torch.cuda.synchronize()
-        err = (k.float() - ref.float()).abs().max().item()
-        rtol, atol = ((1e-5, 1e-5) if dt == torch.float32 else (2 ** -7, 1e-6))
-        ok = torch.allclose(k.float(), ref.float(), rtol=rtol, atol=atol)
-        print(f"segment_sum {dt}: max_abs_err {err:.3e} "
-              f"(tol rtol {rtol:g} atol {atol:g}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise SystemExit("segment_sum disagrees with its plain version")
-    f = feats32.to(torch.bfloat16)
-    n, c = f.shape
-    isz = f.element_size()
-    b_ms, b_by = bound(n * c * isz + n * 4 + s * c * isz, n * c,
-                       BF16_FLOP_PER_S)
-    results["segment_sum"] = {
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda: scatter.sorted_segment_sum(f, ids, s), 50),
-        "plain_ms": cuda_ms(lambda: scatter.segment_sum_plain(f, ids, s), 10),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(lambda: torch.zeros(
-            s + 1, c, dtype=f.dtype, device=dev).index_add_(0, idx_lib, f), 10),
-    }
+    feats32 = torch.where((ids < B * seg)[:, None], feats32, 0.0)
+    results["segment_sum"] = hold_segment_sum("(embedder)", feats32, ids, B * seg)
 
     # -- row gather: the decoder's [B*P, 128] table at pc0's real ids
-    info = voxel.pillar_info_from_ids(db["pc0_transformed"], db["pc0_mask"],
-                                      db["pc0_ids"], cfg)
-    boff = (torch.arange(B, dtype=torch.int32, device=dev) * p)[:, None]
-    gids = torch.where(info.valid, info.pillar_id + boff,
-                       voxel.GATHER_SENTINEL).reshape(-1).to(torch.int32)
-    table32 = torch.randn(B * p, 128, generator=g, device=dev)
-    for dt in (torch.float32, torch.bfloat16):
-        t = table32.to(dt)
-        k = gather.sorted_rows_gather(t, gids, B * p)
-        ref = gather.gather_plain(t, gids, B * p)
-        torch.cuda.synchronize()
-        exact = torch.equal(k, ref)
-        err = (k.float() - ref.float()).abs().max().item()
-        print(f"sorted_gather {dt}: max_abs_err {err:.3e} (tol: bit-exact) "
-              f"{'ok' if exact else 'FAIL'}")
-        if not exact:
-            raise SystemExit("sorted_gather is not bit-exact")
-    t = table32.to(torch.bfloat16)
-    t_lib = torch.cat([t, t.new_zeros(1, 128)])
-    idx_lib = torch.where(gids < B * p, gids, B * p).long()
-    m = gids.shape[0]
-    rows = torch.unique(gids[gids < B * p]).numel()
-    row_bytes = 128 * t.element_size()
-    b_ms, b_by = bound(m * 4 + rows * row_bytes + m * row_bytes, 0,
-                       BF16_FLOP_PER_S)
-    results["sorted_gather"] = {
-        "max_abs_err": err,
-        "ms": cuda_ms(lambda: gather.sorted_rows_gather(t, gids, B * p), 50),
-        "plain_ms": cuda_ms(lambda: gather.gather_plain(t, gids, B * p), 10),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(lambda: torch.index_select(t_lib, 0, idx_lib), 50),
-    }
+    _, gids = gather_ids(db, cfg, B)
+    results["sorted_gather"] = hold_gather(
+        "(decoder)", torch.randn(B * p, 128, generator=g, device=dev), gids, B * p)
 
     # -- fused GRU: [B*N, 128] hidden, [B*N, 64] input, the model's weights
     iters = model.head.num_iters
@@ -211,9 +254,202 @@ def check_kernels(model, host_batch):
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     }
     for name, r in results.items():
-        print(f"{name}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
-              f"{r['bound_by']}, plain {r['plain_ms']:.4f} ms, library "
-              f"{r['library_ms']} ms)")
+        print(f"{name} {r.get('shape', '')}: {r['ms']:.4f} ms (bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']}, plain {r['plain_ms']:.4f} ms, "
+              f"library {r['library_ms']} ms)")
+    return results
+
+
+def _rel_err(k, ref) -> float:
+    """max |k - ref| over max(1, max |ref|)."""
+    k, ref = k.float(), ref.float()
+    return ((k - ref).abs().max() / ref.abs().max().clamp(min=1.0)).item()
+
+
+# kernel vs plain at the path's shapes, relative to the largest reference
+# element: f32 differs in summation order only; bf16 by one rounding of an
+# f32 sum (2^-8) plus rare flips of a rounded operand
+TRAIN_TOL = {"float32": 1e-4, "bfloat16": 2 ** -6}
+
+
+def _hold(name, dt, pairs):
+    """Check (what, kernel, plain) triples against TRAIN_TOL; returns the
+    largest error."""
+    import torch
+
+    tol = TRAIN_TOL[str(dt).split(".")[-1]]
+    worst = 0.0
+    for what, k, ref in pairs:
+        if k.shape != ref.shape or not torch.isfinite(k.float()).all():
+            raise SystemExit(f"{name} {what}: shape {tuple(k.shape)} or not finite")
+        worst = max(worst, _rel_err(k, ref))
+    ok = worst <= tol
+    print(f"{name} {dt}: max rel err {worst:.3e} (tol {tol:g} of max |ref|) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{name} disagrees with its plain version")
+    return worst
+
+
+def check_train_kernels(model, host_batch):
+    """Phase 3, training kernels at the train path's shapes (B = TRAIN_B):
+    the segment-sum and the row gather as each other's backward, on the ids
+    the autograd functions build from ``host_batch``; the GRU backward at
+    [B*N] points; the fused conv3x3+BN+GELU forward and backward at both
+    chain widths of the siamese 2B batch; each against its plain version.
+    Returns the bf16 measurements: the backward uses of the segment-sum and
+    the gather under "as_gather_bwd" / "as_scatter_bwd", the fused blocks'
+    256^2 width first and the 128^2 width under "width_128"."""
+    import torch
+    import torch.nn.functional as F
+
+    from deflow_tpu_torch.ops import cbg, gru, voxel
+    from deflow_tpu_torch.trainer import device_batch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    results = {}
+    cfg = model.voxel_cfg
+    p, seg = cfg.num_pillars, cfg.num_pillars + voxel.TRASH_PAD
+    db = device_batch(host_batch, dev)
+
+    # -- the scatter's backward (voxel._SegmentSum): a row gather of the
+    # [B*(P+8), 33] cotangent at the scatter's flat ids, whose sentinel
+    # (sentinel_for) runs sit between the samples
+    sids = voxel.make_presorted_plan(db["pc0_sorted"], seg)
+    scatter_bwd = hold_gather("(the scatter's backward)",
+                              torch.randn(TRAIN_B * seg, 33, generator=g, device=dev),
+                              sids, TRAIN_B * seg)
+    # -- the gather's backward (voxel._Gather): a segment-sum of the [B*N,
+    # 128] per-point cotangent, invalid slots zeroed and sent to the trash row
+    info, _ = gather_ids(db, cfg, TRAIN_B)
+    gplan = voxel.make_presorted_plan(torch.where(info.valid, info.pillar_id, p), seg)
+    cot = torch.where(info.valid.reshape(-1, 1),
+                      torch.randn(TRAIN_B * N, 128, generator=g, device=dev), 0.0)
+    gather_bwd = hold_segment_sum("(the gather's backward)", cot, gplan, TRAIN_B * seg)
+
+    # -- GRU backward: M = B*N points, the model's weights
+    iters = model.head.num_iters
+    m, xdim, hd = TRAIN_B * N, 64, 128
+    h32 = torch.randn(m, hd, generator=g, device=dev) * 0.5
+    x32 = torch.randn(m, xdim, generator=g, device=dev) * 0.5
+    g32 = torch.randn(m, hd, generator=g, device=dev)
+    w32 = [w.detach().float().contiguous() for w in model.head.gru.merged_weights()]
+    for dt in (torch.float32, torch.bfloat16):
+        args = [h32.to(dt), x32.to(dt)] + [w.to(dt).contiguous() for w in w32] + [g32.to(dt)]
+        k = gru.fused_gru_bwd(*args, iters)
+        ref = gru.fused_gru_bwd_plain(*args, iters)
+        torch.cuda.synchronize()
+        err = _hold("fused_gru_bwd", dt, zip(("dh0", "dx", "dw_zr", "db_zr", "dw_q", "db_q"),
+                                            k, ref))
+
+    def library_bf16():
+        # the forward recomputed and its VJP through torch autograd, with
+        # bf16 operands to every matmul (cuBLAS, f32 accumulation)
+        leaves = [a.detach().requires_grad_() for a in args[:6]]
+        h0, x, wzr, bzr, wq, bq = leaves
+        h = h0.float()
+        for _ in range(iters):
+            zr = torch.sigmoid((torch.cat([h.to(h0.dtype), x], -1) @ wzr).float()
+                               + bzr.float())
+            z, r = zr[:, :hd], zr[:, hd:]
+            q = torch.tanh((torch.cat([(r * h).to(h0.dtype), x], -1) @ wq).float()
+                           + bq.float())
+            h = (1.0 - z) * h + z * q
+        return torch.autograd.grad(h.to(h0.dtype), leaves, args[6])
+
+    flops = 3 * 2.0 * m * (hd + xdim) * (3 * hd) * iters
+    nbytes = 2 * m * (hd + xdim + hd) * 2 + 2 * (hd + xdim) * 3 * hd * 2
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+    results["fused_gru_bwd"] = {
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: gru.fused_gru_bwd(*args, iters), 5),
+        "plain_ms": cuda_ms(lambda: gru.fused_gru_bwd_plain(*args, iters), 3),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(library_bf16, 3),
+        "library_call": "call sequence: torch autograd of the GRU loop with bf16 "
+                        "matmul operands (cuBLAS, f32 accumulation)",
+    }
+
+    # -- fused blocks at the two chain widths of the siamese batch
+    net = model.backbone
+    hw = model.voxel_cfg.pseudoimage_hw
+    for (name, step, res) in (("256", 2, hw[0] // 2), ("128", 6, hw[0] // 4)):
+        wm, bias, gamma, beta = (t.detach() for t in
+                                 getattr(net, f"encoder_step_{step}").chain_params(torch.float32))
+        c, o = wm.shape[2], wm.shape[3]
+        shape = (2 * TRAIN_B, res, res)
+        x32 = torch.randn(*shape, c, generator=g, device=dev)
+        si32 = torch.randn(*shape, o, generator=g, device=dev)
+        dz32 = torch.randn(*shape, o, generator=g, device=dev)
+        scal = cbg.scal_slab(0.1 * torch.randn(c, generator=g, device=dev),
+                             torch.rand(c, generator=g, device=dev) + 0.5, torch.full((c,), 1.05, device=dev),
+                             torch.full((c,), 0.02, device=dev))
+        scal_in = cbg.scal_slab(0.1 * torch.randn(o, generator=g, device=dev),
+                                torch.rand(o, generator=g, device=dev) + 0.5, gamma, beta,
+                                0.01 * torch.randn(o, generator=g, device=dev),
+                                0.01 * torch.randn(o, generator=g, device=dev))
+        for dt in (torch.float32, torch.bfloat16):
+            fa = (x32.to(dt), wm.to(dt).contiguous(), bias.to(dt), scal)
+            kf = cbg.cbg_block_fwd(*fa)
+            rf = cbg.cbg_block_fwd_plain(*fa)
+            ba = (dz32.to(dt), si32.to(dt), x32.to(dt), wm.to(dt).contiguous(), scal_in, scal)
+            kb = cbg.cbg_block_bwd(*ba)
+            rb = cbg.cbg_block_bwd_plain(*ba)
+            torch.cuda.synchronize()
+            ef = _hold(f"cbg_fwd {name}^2x{c}->{o}", dt,
+                       [("s", kf[0], rf[0]), ("stats", kf[1].sum(0), rf[1].sum(0))])
+            eb = _hold(f"cbg_bwd {name}^2x{c}->{o}", dt,
+                       [("dz_prev", kb[0], rb[0]), ("dw", kb[1], rb[1]),
+                        ("db", kb[2].sum(0), rb[2].sum(0)),
+                        ("stats", kb[3].sum(0), rb[3].sum(0))])
+        npix = shape[0] * res * res
+        flops = 2.0 * npix * 9 * c * o
+        w_bf, b_bf = wm.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(), bias.to(torch.bfloat16)
+        x_cl = fa[0].permute(0, 3, 1, 2)           # NCHW view, channels-last
+
+        def lib_fwd():
+            u = F.gelu(cbg.bn_apply(x_cl.float().permute(0, 2, 3, 1), scal)).to(torch.bfloat16)
+            s_ = F.conv2d(u.permute(0, 3, 1, 2), w_bf, b_bf, padding=1).float()
+            return s_.sum((0, 2, 3)), (s_ * s_).sum((0, 2, 3))
+
+        def lib_bwd():
+            zh = (ba[1].float() - scal_in[0]) * scal_in[1]
+            ds = (scal_in[2] * scal_in[1] * (ba[0].float() - scal_in[4] - zh * scal_in[5])
+                  ).to(torch.bfloat16).permute(0, 3, 1, 2)
+            zp = cbg.bn_apply(ba[2].float(), scal)
+            xa = F.gelu(zp).to(torch.bfloat16).permute(0, 3, 1, 2)
+            dx = torch.nn.grad.conv2d_input(xa.shape, w_bf, ds, padding=1)
+            dw = torch.nn.grad.conv2d_weight(xa, w_bf.shape, ds, padding=1)
+            dzp = dx.float().permute(0, 2, 3, 1) * cbg.gelu_grad(zp)
+            return dzp.sum((0, 1, 2)), dw, ds.float().sum((0, 2, 3))
+
+        bf = bound(npix * (c + o) * 2 + 9 * c * o * 2, flops, BF16_FLOP_PER_S)
+        bb = bound(npix * (2 * o + c) * 2 + npix * c * 2 + 9 * c * o * 4,
+                   2 * flops, BF16_FLOP_PER_S)
+        for kname, err, fn, plain, lib, (b_ms, b_by) in (
+                ("cbg_fwd", ef, lambda: cbg.cbg_block_fwd(*fa),
+                 lambda: cbg.cbg_block_fwd_plain(*fa), lib_fwd, bf),
+                ("cbg_bwd", eb, lambda: cbg.cbg_block_bwd(*ba),
+                 lambda: cbg.cbg_block_bwd_plain(*ba), lib_bwd, bb)):
+            r = {"max_abs_err": err, "ms": cuda_ms(fn, 10), "plain_ms": cuda_ms(plain, 3),
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(lib, 5),
+                 "library_call": "call sequence: torch BN+GELU, F.conv2d / "
+                                 "torch.nn.grad.conv2d_* (cuDNN, bf16)",
+                 "shape": f"{shape[0]}x{res}x{res}x{c}->{o}"}
+            if name == "256":
+                results[kname] = r
+            else:
+                results[kname]["width_128"] = r
+    results["sorted_gather"] = {"as_scatter_bwd": scatter_bwd}
+    results["segment_sum"] = {"as_gather_bwd": gather_bwd}
+    for name, r in results.items():
+        for rr in (r, *(r.get(k) for k in ("width_128", "as_scatter_bwd",
+                                            "as_gather_bwd"))):
+            if rr and "ms" in rr:
+                print(f"{name} {rr.get('shape', '')}: {rr['ms']:.4f} ms (bound "
+                      f"{rr['bound_ms']:.4f} ms by {rr['bound_by']}, plain "
+                      f"{rr['plain_ms']:.4f} ms, library {rr['library_ms']:.4f} ms)")
     return results
 
 
@@ -245,22 +481,74 @@ def run_main_path(model, batches):
                 raise SystemExit(f"eval output {k} not finite / wrong shape")
         return out
 
-    wrappers = (scatter.sorted_segment_sum, gather.sorted_rows_gather,
-                gru.fused_gru)
-    for w in wrappers:
-        w.launches = 0
+    reset_launches()
     three = ThreewayEPE()
     metrics = run_validation(timed_step, batches, three)
-    launches = {"segment_sum": scatter.sorted_segment_sum.launches,
-                "sorted_gather": gather.sorted_rows_gather.launches,
-                "fused_gru": gru.fused_gru.launches}
-    profile_step(eval_step, batches[0])
+    launches = read_launches()
+    db = device_batch(batches[0])
+    profile_step(lambda: eval_step(db))
     return metrics, three, device_ms, launches
+
+
+def _wrappers():
+    from deflow_tpu_torch.ops import cbg, gather, gru, scatter
+
+    return {"segment_sum": scatter.sorted_segment_sum,
+            "sorted_gather": gather.sorted_rows_gather,
+            "fused_gru": gru.fused_gru, "fused_gru_bwd": gru.fused_gru_bwd,
+            "cbg_fwd": cbg.cbg_block_fwd, "cbg_bwd": cbg.cbg_block_bwd}
+
+
+def reset_launches() -> None:
+    for w in _wrappers().values():
+        w.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: w.launches for name, w in _wrappers().items()}
+
+
+def run_train_path(model, batches):
+    """Phase 5: ``make_train_step`` over the batches (one Adam step each);
+    returns per-step aux, device ms per step and the launch counts."""
+    import torch
+
+    from deflow_tpu_torch.trainer import (TRAIN_KEYS, device_batch,
+                                          init_train_state, make_train_step)
+
+    state = init_train_state(model, {"lr": LR, "optimizer": "adam"})
+    train_step = make_train_step(model, "deflowLoss")
+    device_batches = [device_batch(hb, keys=TRAIN_KEYS) for hb in batches]
+    torch.cuda.synchronize()
+    device_ms, auxes = [], []
+    reset_launches()
+    for db in device_batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, aux = train_step(state, db)
+        end.record()
+        end.synchronize()
+        device_ms.append(start.elapsed_time(end))
+        auxes.append({k: float(v) for k, v in aux.items()})
+    launches = read_launches()
+    for i, (a, ms) in enumerate(zip(auxes, device_ms)):
+        print(f"train step {i + 1}: loss {a['loss']:.6f} epe {a['epe']:.6f} "
+              f"grad_norm {a['grad_norm']:.6f} valid {a['valid_points']:.0f} "
+              f"device {ms:.3f} ms")
+    bad = [k for a in auxes for k, v in a.items() if not np.isfinite(v)]
+    if bad or not all(torch.isfinite(p).all() for p in model.parameters()):
+        raise SystemExit(f"train step gave non-finite values {bad}")
+    profile_step(lambda: train_step(state, device_batches[0]))
+    return auxes, device_ms, launches
 
 
 def _category(name: str) -> str:
     n = name.lower()
-    for cat, keys in (("segment_sum", ("segment_sum", "mark_runs")),
+    for cat, keys in (("fused_gru_bwd", ("gru_bwd", "atb_kernel", "reduce_partials")),
+                      ("cbg_fwd", ("cbg_fwd",)),
+                      ("cbg_bwd", ("cbg_dgrad", "cbg_wgrad", "wgrad_reduce")),
+                      ("segment_sum", ("segment_sum", "mark_runs")),
                       ("sorted_gather", ("gather_kernel",)),
                       ("fused_gru", ("gru_bf16", "gru_f32")),
                       ("conv/matmul (cuDNN, cuBLAS)",
@@ -269,27 +557,29 @@ def _category(name: str) -> str:
                       ("copy/memset", ("memcpy", "memset"))):
         if any(k in n for k in keys):
             return cat
-    return "other (elementwise, cat, permute, interpolate)"
+    return "other (elementwise, cat, permute, interpolate, optimizer)"
 
 
-def profile_step(eval_step, host_batch) -> None:
-    """Phase 4b: one more eval step under torch.profiler; device time by
-    kernel category and name, and the device's idle share of the step."""
+def profile_step(step) -> None:
+    """One more step (``step()``, its batch already on the card) under
+    torch.profiler; device time by kernel category and name, and the
+    device's idle share of the step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from deflow_tpu_torch.trainer import device_batch
-
-    db = device_batch(host_batch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eval_step(db)
+        step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # annotation ranges (e.g. "Optimizer.step#Adam.step") span kernels that
+    # are listed on their own; counting them too would count time twice
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
+                   and not e.name.startswith("Optimizer."))
     if not spans:
         print("profile: the profiler recorded no device time")
         return
@@ -310,7 +600,7 @@ def profile_step(eval_step, host_batch) -> None:
 
 
 def reference_check(seed: int) -> float:
-    """Phase 5: f32 model on a small input, card vs CPU; max |Δ pred_flow|."""
+    """Phase 6: f32 model on a small input, card vs CPU; max |Δ pred_flow|."""
     import torch
 
     from deflow_tpu_torch.data.host_prep import attach_host_prep
@@ -326,6 +616,62 @@ def reference_check(seed: int) -> float:
         model = build_model(small, precision="fp32", device=dev, seed=seed)
         outs.append(make_eval_step(model, device=dev)(hb)["pred_flow"].cpu())
     return (outs[0] - outs[1]).abs().max().item()
+
+
+def _zero_grad_bias(key: str) -> bool:
+    """A conv bias before a train-mode BN: its gradient is zero in exact
+    arithmetic, so card and CPU each hold rounding noise."""
+    return key.startswith("backbone.encoder_step_") and key.endswith("conv.bias")
+
+
+def train_reference_check(seed: int) -> dict:
+    """Phase 6b: one f32 train step on a small input (64^2 grid), card vs
+    CPU.  Returns each quantity's largest difference over its tolerance
+    (<= 1 passes): loss and grad_norm 1e-4 relative; each parameter's
+    gradient 1e-3 of its largest CPU element (a zero-gradient conv bias:
+    both sides below 1e-3 of the largest gradient of the conv's weight);
+    parameters after the Adam step 1e-6 + lr*1e-2, since Adam's first step
+    is +-lr for any gradient that is not tiny this checks the signs, and
+    2*lr for the zero-gradient biases; the BN running statistics 1e-5."""
+    from deflow_tpu_torch.data.host_prep import attach_host_prep
+    from deflow_tpu_torch.models import build_model
+    from deflow_tpu_torch.trainer import init_train_state, make_train_step
+
+    small = dict(LEADERBOARD, voxel_size=[1.6, 1.6, 6.0],
+                 grid_feature_size=[64, 64])
+    hb = attach_host_prep(make_batch(seed, b=2, n=4096, valid=3500),
+                          small["voxel_size"], RANGE)
+    auxes, grads, states = [], [], []
+    for dev in ("cuda", "cpu"):
+        model = build_model(small, precision="fp32", device=dev, seed=seed)
+        state = init_train_state(model, {"lr": LR}, device=dev)
+        state, aux = make_train_step(model, "deflowLoss", device=dev)(state, hb)
+        auxes.append({k: float(v) for k, v in aux.items()})
+        grads.append({k: p.grad.detach().cpu() for k, p in model.named_parameters()})
+        states.append({k: v.detach().cpu() for k, v in model.state_dict().items()})
+    ratio = {k: abs(auxes[0][k] - auxes[1][k]) / abs(auxes[1][k]) / 1e-4
+             for k in ("loss", "grad_norm")}
+    ratio["grad"] = ratio["param"] = 0.0
+    for key, ref in grads[1].items():
+        if _zero_grad_bias(key):
+            scale = grads[1][key[:-4] + "weight"].abs().max().item()
+            err = max(grads[0][key].abs().max().item(), ref.abs().max().item())
+        else:
+            scale = ref.abs().max().item()
+            err = (grads[0][key] - ref).abs().max().item()
+        ratio["grad"] = max(ratio["grad"], err / (1e-3 * scale))
+    for key, ref in states[1].items():
+        if "num_batches" in key:
+            continue
+        if "running" in key:
+            tol = 1e-5
+        elif _zero_grad_bias(key):
+            tol = 2 * LR
+        else:
+            tol = 1e-6 + LR * 1e-2
+        ratio["param"] = max(ratio["param"],
+                             (states[0][key] - ref).abs().max().item() / tol)
+    return ratio
 
 
 def main() -> int:
@@ -355,44 +701,84 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     model = build_model(LEADERBOARD, precision="bf16", seed=0)
-    host_ms, batches = [], []
-    for i in range(NUM_BATCHES):
-        hb = make_batch(100 + i)
-        t0 = time.perf_counter()
-        batches.append(attach_host_prep(hb, VOXEL, RANGE))
-        host_ms.append((time.perf_counter() - t0) * 1e3)
-    print("host prep ms per batch: " + ", ".join(f"{t:.1f}" for t in host_ms))
+
+    def prep(seeds, b):
+        out, ms = [], []
+        for sd in seeds:
+            hb = make_batch(sd, b=b)
+            t0 = time.perf_counter()
+            out.append(attach_host_prep(hb, VOXEL, RANGE))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return out, ms
+
+    batches, host_ms = prep(range(100, 100 + NUM_BATCHES), B)
+    print("eval host prep ms per batch: " + ", ".join(f"{t:.1f}" for t in host_ms))
+    train_batches, train_host_ms = prep(range(200, 200 + TRAIN_STEPS), TRAIN_B)
+    print("train host prep ms per batch: "
+          + ", ".join(f"{t:.1f}" for t in train_host_ms))
 
     kernels = check_kernels(model, batches[0])
+    for name, r in check_train_kernels(model, train_batches[0]).items():
+        kernels.setdefault(name, {}).update(r)
 
-    metrics, three, device_ms, launches = run_main_path(model, batches)
+    metrics, three, device_ms, eval_launches = run_main_path(model, batches)
     want = {"segment_sum": 2 * NUM_BATCHES, "sorted_gather": NUM_BATCHES,
-            "fused_gru": NUM_BATCHES}
-    print(f"launches on the main path: {launches} (want {want})")
-    if launches != want:
-        raise SystemExit("the main path did not launch every kernel as expected")
+            "fused_gru": NUM_BATCHES, "fused_gru_bwd": 0, "cbg_fwd": 0, "cbg_bwd": 0}
+    print(f"launches on the eval path: {eval_launches} (want {want})")
+    if eval_launches != want:
+        raise SystemExit("the eval path did not launch every kernel as expected")
     print(three.table())
-    steady = float(np.mean(device_ms[1:]))
+    med, mean = float(np.median(device_ms[1:])), float(np.mean(device_ms[1:]))
     print("eval step device ms per batch: "
           + ", ".join(f"{t:.3f}" for t in device_ms)
-          + f"; steady {steady:.3f} ms = {B / steady * 1e3:.2f} pairs/s")
+          + f"; steady median {med:.3f} ms = {B / med * 1e3:.2f} pairs/s"
+          + f" (mean {mean:.3f} ms = {B / mean * 1e3:.2f} pairs/s)")
     if not np.isfinite(metrics["EPE_3way_mean"]):
         raise SystemExit("3-way EPE is not finite")
+
+    auxes, train_ms, launches = run_train_path(model, train_batches)
+    per_step = {"segment_sum": 3, "sorted_gather": 3, "fused_gru": 1,
+                "fused_gru_bwd": 1, "cbg_fwd": 6, "cbg_bwd": 6}
+    want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    print(f"launches on the train path: {launches} (want {want})")
+    if launches != want:
+        raise SystemExit("the train path did not launch every kernel as expected")
+    med = float(np.median(train_ms[1:]))
+    print("train step device ms: " + ", ".join(f"{t:.3f}" for t in train_ms)
+          + f"; steady median {med:.3f} ms = {TRAIN_B / med * 1e3:.2f} pairs/s; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     ref_err = reference_check(seed=7)
     print(f"reference check (f32, 64x64 grid, card vs CPU): max |d pred_flow| "
           f"{ref_err:.3e} (tol 2e-4)")
     if not ref_err < 2e-4:
         raise SystemExit("card and CPU disagree on the small f32 input")
+    ratio = train_reference_check(seed=7)
+    print("train reference check (f32, 64x64 grid, one Adam step, card vs CPU): "
+          "largest difference over its tolerance: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ratio.items()))
+    if not all(v <= 1.0 for v in ratio.values()):
+        raise SystemExit("card and CPU disagree on the small f32 train step")
 
     sources = {"segment_sum": ("deflow_tpu_torch/csrc/segment_sum.cu",
                                "deflow_tpu/ops/pallas_scatter.py:211"),
                "sorted_gather": ("deflow_tpu_torch/csrc/sorted_gather.cu",
                                  "deflow_tpu/ops/pallas_gather.py:129"),
                "fused_gru": ("deflow_tpu_torch/csrc/fused_gru.cu",
-                             "deflow_tpu/ops/pallas_gru.py:196")}
+                             "deflow_tpu/ops/pallas_gru.py:196"),
+               "fused_gru_bwd": ("deflow_tpu_torch/csrc/fused_gru_bwd.cu",
+                                 "deflow_tpu/ops/pallas_gru.py:224"),
+               "cbg_fwd": ("deflow_tpu_torch/csrc/cbg.cu",
+                           "deflow_tpu/ops/pallas_cbg.py:241"),
+               "cbg_bwd": ("deflow_tpu_torch/csrc/cbg.cu",
+                           "deflow_tpu/ops/pallas_cbg.py:414")}
+    # launches: the train path's run (all six kernels are on it); the eval
+    # path's counts of the first three are kept beside them
     rows = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-             "launches": launches[name], **kernels[name]}
+             "launches": launches[name],
+             "launches_per_train_step": launches[name] / TRAIN_STEPS,
+             **({"eval_launches": eval_launches[name]} if eval_launches[name] else {}),
+             **kernels[name]}
             for name, (src, rep) in sources.items()]
     print(json.dumps({"kernels": rows}))
     print(card)

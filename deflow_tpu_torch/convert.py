@@ -41,8 +41,12 @@ def _torch_key(flax_path) -> str:
 
 
 def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """``{"params", "batch_stats"}`` nested dicts of numpy arrays → the
-    port's ``state_dict`` (f32 tensors, zero ``num_batches_tracked``)."""
+    """``{"params", "batch_stats"}`` nested dicts of arrays → the port's
+    ``state_dict`` (f32 tensors, copied; zero ``num_batches_tracked``).
+
+    Either collection may be missing, so the same mapping carries a
+    gradient tree (``{"params": grads}``) or the state after a JAX train
+    step onto the port's parameter names."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(tree, path, collection):
@@ -51,7 +55,7 @@ def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
             if hasattr(v, "items"):
                 walk(v, p, collection)
                 continue
-            arr = np.asarray(v, np.float32)
+            arr = np.array(v, np.float32)
             leaf = p[-1]
             if collection == "batch_stats":
                 leaf = {"mean": "running_mean", "var": "running_var"}[leaf]

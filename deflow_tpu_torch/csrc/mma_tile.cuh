@@ -1,0 +1,103 @@
+// Warp-level 16x16 tile products, one interface for both compute types.
+//
+//   Acc<bf16>:  tensor cores through WMMA (16x16x16 bf16, f32 accumulate);
+//   Acc<float>: plain FFMA (each lane holds row lane/2, columns
+//               (lane%2)*8 .. +8), for the f32 parity runs.
+//
+// acc.mma<A_ROW, B_ROW>(a, lda, b, ldb) adds the 16x16 product of one
+// 16-deep step: A(m, k) = a[m*lda + k] when A_ROW, a[k*lda + m] otherwise;
+// B(k, n) = b[k*ldb + n] when B_ROW, b[n*ldb + k] otherwise.  For bf16 the
+// pointers must be 32-byte aligned and lda/ldb multiples of 8 (WMMA's rule);
+// acc.store writes the f32 tile row-major with ldc a multiple of 4.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <mma.h>
+
+#include <type_traits>
+
+namespace tile {
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) {
+  return __float2bfloat16(v);
+}
+
+template <typename T> struct Acc;
+
+template <> struct Acc<bf16> {
+  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> f;
+  __device__ __forceinline__ void zero() { nvcuda::wmma::fill_fragment(f, 0.f); }
+  template <bool A_ROW, bool B_ROW>
+  __device__ __forceinline__ void mma(const bf16* a, int lda, const bf16* b, int ldb) {
+    using namespace nvcuda::wmma;
+    using LA = typename std::conditional<A_ROW, row_major, col_major>::type;
+    using LB = typename std::conditional<B_ROW, row_major, col_major>::type;
+    fragment<matrix_a, 16, 16, 16, bf16, LA> fa;
+    fragment<matrix_b, 16, 16, 16, bf16, LB> fb;
+    load_matrix_sync(fa, a, lda);
+    load_matrix_sync(fb, b, ldb);
+    mma_sync(f, fa, fb, f);
+  }
+  __device__ __forceinline__ void store(float* c, int ldc) {
+    nvcuda::wmma::store_matrix_sync(c, f, ldc, nvcuda::wmma::mem_row_major);
+  }
+};
+
+template <> struct Acc<float> {
+  float v[8];
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = 0.f;
+  }
+  template <bool A_ROW, bool B_ROW>
+  __device__ __forceinline__ void mma(const float* a, int lda, const float* b, int ldb) {
+    const int lane = threadIdx.x & 31, r = lane >> 1, c0 = (lane & 1) * 8;
+#pragma unroll 4
+    for (int k = 0; k < 16; ++k) {
+      const float av = A_ROW ? a[r * lda + k] : a[k * lda + r];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float bv = B_ROW ? b[k * ldb + c0 + j] : b[(c0 + j) * ldb + k];
+        v[j] = fmaf(av, bv, v[j]);
+      }
+    }
+  }
+  __device__ __forceinline__ void store(float* c, int ldc) {
+    const int lane = threadIdx.x & 31, r = lane >> 1, c0 = (lane & 1) * 8;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) c[r * ldc + c0 + j] = v[j];
+    __syncwarp();
+  }
+};
+
+// out[i] = sum_s part[s * stride + i] for i < n, summed in slice order (so
+// the result does not depend on scheduling), rounded once to T.
+template <typename T>
+__global__ void reduce_partials(const float* __restrict__ part, int slices,
+                                long long stride, long long n, T* __restrict__ out) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    float s = 0.f;
+    for (int k = 0; k < slices; ++k) s += part[k * stride + i];
+    out[i] = from_f<T>(s);
+  }
+}
+
+template <typename T>
+cudaError_t launch_reduce(const float* part, int slices, long long stride,
+                          long long n, T* out, cudaStream_t st) {
+  if (n <= 0) return cudaSuccess;
+  long long blocks = (n + 255) / 256;
+  if (blocks > 4096) blocks = 4096;
+  reduce_partials<T><<<(int)blocks, 256, 0, st>>>(part, slices, stride, n, out);
+  return cudaGetLastError();
+}
+
+}  // namespace tile

@@ -1,9 +1,9 @@
-"""Decoder heads: per-point flow from the pillar tables (eval).
+"""Decoder heads: per-point flow from the pillar tables.
 
 Counterpart of ``deflow_tpu/models/decoder.py``: the unpillar gather of the
 [before | flow] tables (64 + 64 = 128 = GRU hidden), the 64-wide offset
 embedding (= GRU input), ``num_iters`` ConvGRU steps through the fused
-kernel, and the flow MLP 192 → 32 → GELU → 3.  ``LinearDecoder`` is the
+kernels (``FusedGRU``: forward and backward), and the flow MLP 192 → 32 → GELU → 3.  ``LinearDecoder`` is the
 FastFlow3D head.  Parameter names follow the reference layout (GRU gates as
 Conv1d(k=1), ``decoder.{0,2}``).
 """
@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from deflow_tpu_torch.ops.gru import fused_gru
+from deflow_tpu_torch.ops.gru import FusedGRU
 from deflow_tpu_torch.ops.voxel import PillarInfo, pseudoimage_gather_batched
 
 
@@ -70,10 +70,11 @@ class ConvGRUDecoder(nn.Module):
         voxel = gather_voxel_features(before_tab, after_tab, info).to(dtype)
         off = _linear(self.offset_encoder, info.offsets, dtype)
         b, n, hd = voxel.shape
-        h = fused_gru(voxel.reshape(b * n, hd), off.reshape(b * n, -1),
-                      *(t.to(dtype).contiguous()
-                        for t in self.gru.merged_weights()),
-                      self.num_iters).reshape(b, n, hd)
+        h = FusedGRU.apply(voxel.reshape(b * n, hd).contiguous(),
+                           off.reshape(b * n, -1).contiguous(),
+                           *(t.to(dtype).contiguous()
+                             for t in self.gru.merged_weights()),
+                           self.num_iters).reshape(b, n, hd)
         flow = _flow_mlp(self.decoder, torch.cat([h, off], dim=-1), dtype)
         return torch.where(info.valid[..., None], flow, 0)
 

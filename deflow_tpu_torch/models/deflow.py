@@ -1,10 +1,12 @@
-"""DeFlow / FastFlow3D scene-flow model, 2-frame eval path.
+"""DeFlow / FastFlow3D scene-flow model, 2-frame.
 
 Counterpart of ``deflow_tpu/models/deflow.py``: ego-motion compensation →
 two pillar embeddings (host sorted-record path) → siamese U-Net → per-point
 decoder head.  Needs the fully sorted host prep
 (``data/host_prep.attach_host_prep``); every per-point array and output is in
-ascending pillar-id order.
+ascending pillar-id order.  ``model.train()`` selects the training
+forward: batch-statistics BatchNorm (with running-stat updates, pc0's
+embedding first) and the fused encoder chains.
 
 Returns, as the JAX model does:
     flow        [B, N, 3] f32  net flow at pc0 slots (zero where invalid)
@@ -62,8 +64,6 @@ class DeFlow(nn.Module):
     def forward(self, pc0, pc1, pose0, pose1, pc0_mask, pc1_mask,
                 ego_motion: Optional[torch.Tensor] = None,
                 host_prep: Optional[Dict[str, torch.Tensor]] = None):
-        if self.training:
-            raise NotImplementedError("the port runs the eval path only")
         if host_prep is None or "pc0_sorted_rec" not in host_prep:
             raise ValueError("DeFlow needs the sorted host prep "
                              "(data.host_prep.attach_host_prep)")
@@ -122,10 +122,12 @@ def init_random_(model: nn.Module, seed: int) -> nn.Module:
 
 
 def build_model(model_cfg: Optional[Mapping] = None, precision: str = "fp32",
-                device=None, seed: Optional[int] = None) -> DeFlow:
+                device=None, seed: Optional[int] = None,
+                train: bool = False) -> DeFlow:
     """DeFlow from a model-group mapping (``conf/model/*.yaml`` keys, bare or
     under ``target``), on ``device`` (the card unless ``"cpu"``), in eval
-    mode.  ``seed`` gives random weights; load real ones with
+    mode, or train mode with ``train=True``.  ``seed`` gives random weights;
+    load real ones with
     :func:`deflow_tpu_torch.convert.load_reference_state_dict`."""
     dev = resolve_device(device)
     target = dict(model_cfg or {})
@@ -144,4 +146,4 @@ def build_model(model_cfg: Optional[Mapping] = None, precision: str = "fp32",
                    dtype=dtype)
     if seed is not None:
         init_random_(model, seed)
-    return model.to(dev).eval()
+    return model.to(dev).train(train)

@@ -1,11 +1,13 @@
-"""DynamicEmbedder on the host sorted-record path (eval).
+"""DynamicEmbedder on the host sorted-record path.
 
 Counterpart of ``deflow_tpu/models/embedder.py``: the host ships the 9-lane
 PFN input ``[xyz | p−centroid | p−center]`` in ascending pillar-id order, a
 bias-free Linear(9→C) + BatchNorm (eps 1e-3) + ReLU makes the per-point
 features, and ONE sorted segment-sum over the C feature lanes plus a count
 lane (C + 1 = 33 lanes) gives the pillar means, ``sum / max(count, 1)``.
-Empty pillars are exact zeros.
+Empty pillars are exact zeros.  The count lane carries no gradient (the
+JAX package's ``stop_gradient``); the feature lanes' gradient flows back
+through the scatter's backward (a sorted gather) into ``feature_net``.
 
 The parameter names follow the reference layout
 (``feature_net.pfn_layers.0.{0,1}``).
@@ -19,11 +21,29 @@ from torch import nn
 from deflow_tpu_torch.ops.voxel import TRASH_PAD, VoxelConfig, segment_sum_batched
 
 
-def masked_batch_norm_eval(x: torch.Tensor, bn: nn.BatchNorm1d) -> torch.Tensor:
-    """``MaskedBatchNorm`` in eval mode: running statistics, computed in f32
-    (the valid-only batch statistics matter in training only)."""
-    inv = torch.rsqrt(bn.running_var + bn.eps)
-    return (x.float() - bn.running_mean) * inv * bn.weight + bn.bias
+def masked_batch_norm(x: torch.Tensor, mask: torch.Tensor,
+                      bn: nn.BatchNorm1d) -> torch.Tensor:
+    """``MaskedBatchNorm`` in f32 (``deflow_tpu/models/embedder.py``).
+
+    Eval: the running statistics.  Train: mean and (biased, two-pass)
+    variance over the ``mask``-true rows only, as torch BatchNorm1d sees the
+    compacted points; the running statistics then move the torch way,
+    ``ra = (1 − momentum)·ra + momentum·batch``, with the UNBIASED variance."""
+    xf = x.float()
+    if bn.training:
+        m = mask.float()[..., None]
+        n = m.sum().clamp(min=1.0)
+        dims = tuple(range(x.dim() - 1))
+        mean = (xf * m).sum(dims) / n
+        diff = (xf - mean) * m
+        var = (diff * diff).sum(dims) / n
+        with torch.no_grad():
+            unbiased = var * n / (n - 1.0).clamp(min=1.0)
+            bn.running_mean.mul_(1 - bn.momentum).add_(bn.momentum * mean)
+            bn.running_var.mul_(1 - bn.momentum).add_(bn.momentum * unbiased)
+    else:
+        mean, var = bn.running_mean, bn.running_var
+    return (xf - mean) * torch.rsqrt(var + bn.eps) * bn.weight + bn.bias
 
 
 class PillarFeatureNet(nn.Module):
@@ -41,7 +61,7 @@ class PillarFeatureNet(nn.Module):
                 dtype: torch.dtype) -> torch.Tensor:
         linear, bn, _ = self.pfn_layers[0]
         x = feats9.to(dtype) @ linear.weight.to(dtype).t()
-        x = torch.relu(masked_batch_norm_eval(x, bn).to(dtype))
+        x = torch.relu(masked_batch_norm(x, mask, bn).to(dtype))
         return torch.where(mask[..., None], x, 0)
 
 
@@ -62,4 +82,4 @@ class DynamicEmbedder(nn.Module):
         c = feats.shape[-1]
         data = torch.cat([feats, valid.to(dtype)[..., None]], dim=-1)
         sums = segment_sum_batched(data, sorted_id, p + TRASH_PAD)
-        return sums[:, :p, :c] / sums[:, :p, c:].clamp(min=1.0)
+        return sums[:, :p, :c] / sums[:, :p, c:].detach().clamp(min=1.0)

@@ -1,4 +1,4 @@
-"""FastFlow3D siamese U-Net in plain NCHW (eval).
+"""FastFlow3D siamese U-Net in NCHW.
 
 Counterpart of ``deflow_tpu/models/unet.py`` as the reference lineage writes
 it: k8/s2/p3 stems, ``ConvWithNorms`` (conv + BN eps 1e-5 + exact-erf GELU,
@@ -11,6 +11,15 @@ skips, dec 512→256, 256→128, 128→64, final 3x3 conv 64→64.
 
 Compute dtype: convolutions run in ``dtype`` (weights cast per call); BN and
 GELU of ``ConvWithNorms`` run in f32, as in the JAX package.
+
+Training (``module.train()``): BN takes the batch statistics of the siamese
+2B batch with flax ``BatchNorm`` semantics (fast variance E[x²] − E[x]²
+clipped at 0; running ``ra = 0.9·ra + 0.1·batch`` with the BIASED variance).
+When :func:`~deflow_tpu_torch.ops.cbg.use_fused_cbg` allows it, each of the
+256 and 128 encoder groups (stem + three 3x3 blocks) runs as one fused
+``cbg_chain``, with the stem's BN + GELU deferred into the chain's first
+block (``StemHeadCBG`` in the JAX package); the stems' k8/s2 convolutions
+stay ``F.conv2d``.  Parameter names do not change.
 """
 
 from __future__ import annotations
@@ -18,6 +27,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from deflow_tpu_torch.ops.cbg import cbg_chain, use_fused_cbg
 
 
 def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -32,15 +43,34 @@ class ConvWithNorms(nn.Module):
         self.batchnorm = nn.BatchNorm2d(cout)
         self.nonlinearity = nn.GELU()
 
+    def update_stats(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """flax BatchNorm's running update (momentum 0.9, biased var)."""
+        bn = self.batchnorm
+        with torch.no_grad():
+            bn.running_mean.mul_(0.9).add_(0.1 * mean)
+            bn.running_var.mul_(0.9).add_(0.1 * var)
+
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         y = _conv(self.conv, x, dtype).float()
         if not (y.shape[2] == 1 and y.shape[3] == 1):
             bn = self.batchnorm
+            if self.training:
+                mean = y.mean((0, 2, 3))
+                var = ((y * y).mean((0, 2, 3)) - mean * mean).clamp(min=0.0)
+                self.update_stats(mean, var)
+            else:
+                mean, var = bn.running_mean, bn.running_var
             shape = (1, -1, 1, 1)
-            inv = torch.rsqrt(bn.running_var + bn.eps).view(shape)
-            y = ((y - bn.running_mean.view(shape)) * inv * bn.weight.view(shape)
-                 + bn.bias.view(shape))
+            mul = (torch.rsqrt(var + bn.eps) * bn.weight).view(shape)
+            y = (y - mean.view(shape)) * mul + bn.bias.view(shape)
         return F.gelu(y)
+
+    def chain_params(self, dtype: torch.dtype):
+        """(wmat [3, 3, C, O], bias [O] in ``dtype``; gamma, beta f32) for
+        :func:`cbg_chain`."""
+        return (self.conv.weight.to(dtype).permute(2, 3, 1, 0).contiguous(),
+                self.conv.bias.to(dtype), self.batchnorm.weight,
+                self.batchnorm.bias)
 
 
 class UpsampleSkip(nn.Module):
@@ -89,11 +119,33 @@ class FastFlow3DUNet(nn.Module):
         self.decoder_step3 = UpsampleSkip(128, 2 * stem_cin, 64)
         self.decoder_step4 = nn.Conv2d(64, 64, 3, 1, 1)
 
+    def _chain_group(self, stem: ConvWithNorms, blocks, x: torch.Tensor,
+                     dtype: torch.dtype) -> torch.Tensor:
+        """Stem conv (cuDNN, channels-last) + one fused chain applying the
+        stem's BN + GELU and the three 3x3 blocks."""
+        s = _conv(stem.conv, x.contiguous(memory_format=torch.channels_last),
+                  dtype).permute(0, 2, 3, 1)
+        y, means, variances = cbg_chain(
+            s, [m.chain_params(dtype) for m in blocks],
+            (stem.batchnorm.weight, stem.batchnorm.bias), stem.batchnorm.eps)
+        for m, mean, var in zip([stem, *blocks], means, variances):
+            m.update_stats(mean, var)
+        return y.float().permute(0, 3, 1, 2)
+
     def _encode(self, x: torch.Tensor, dtype: torch.dtype):
-        taps = []
-        for i in range(1, 11):
-            x = getattr(self, f"encoder_step_{i}")(x, dtype)
-            if i in (4, 8, 10):
+        stems = use_fused_cbg(x.shape[0]) if self.training else ()
+        taps, i = [], 1
+        while i <= 10:
+            if i in stems:
+                x = self._chain_group(
+                    getattr(self, f"encoder_step_{i}"),
+                    [getattr(self, f"encoder_step_{j}") for j in (i + 1, i + 2, i + 3)],
+                    x, dtype)
+                i += 4
+            else:
+                x = getattr(self, f"encoder_step_{i}")(x, dtype)
+                i += 1
+            if i - 1 in (4, 8, 10):
                 taps.append(x)
         return taps
 

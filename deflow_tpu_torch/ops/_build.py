@@ -23,7 +23,7 @@ from typing import Callable, Dict
 
 import torch
 
-KERNELS = ("segment_sum", "sorted_gather", "fused_gru")
+KERNELS = ("segment_sum", "sorted_gather", "fused_gru", "fused_gru_bwd", "cbg")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -48,9 +48,12 @@ def _lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """Missing, or older than its source or any shared header."""
     lib = _lib_path(name)
-    return (not lib.exists()
-            or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime)
+    if not lib.exists():
+        return True
+    srcs = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in srcs)
 
 
 def build_all(force: bool = False) -> Dict[str, dict]:

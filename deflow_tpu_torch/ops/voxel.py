@@ -167,16 +167,33 @@ def make_presorted_plan(sorted_id: torch.Tensor, num_segments: int) -> torch.Ten
     return flat.reshape(-1).to(torch.int32)
 
 
+class _SegmentSum(torch.autograd.Function):
+    """Sorted segment-sum whose backward is the sorted row gather of the
+    cotangent at the same flat ids (``pallas_scatter._planned_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, data, flat_ids, num_rows):
+        ctx.save_for_backward(flat_ids)
+        ctx.num_rows = num_rows
+        return _scatter.sorted_segment_sum(data, flat_ids, num_rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        (flat_ids,) = ctx.saved_tensors
+        return (_gather.sorted_rows_gather(g.contiguous(), flat_ids, ctx.num_rows),
+                None, None)
+
+
 def segment_sum_batched(data: torch.Tensor, sorted_id: torch.Tensor,
                         num_segments: int) -> torch.Tensor:
     """[B, N, C] × ascending [B, N] ids → [B, num_segments, C].
 
     The batch is flattened into ONE sorted segment-sum over B·num_segments
-    rows (one kernel launch)."""
+    rows (one kernel launch); its gradient is one sorted gather."""
     b, n, c = data.shape
-    flat = _scatter.sorted_segment_sum(
-        data.reshape(b * n, c), make_presorted_plan(sorted_id, num_segments),
-        b * num_segments)
+    flat = _SegmentSum.apply(data.reshape(b * n, c),
+                             make_presorted_plan(sorted_id, num_segments),
+                             b * num_segments)
     return flat.reshape(b, num_segments, c)
 
 
@@ -201,16 +218,39 @@ def image_to_table(image: torch.Tensor, cfg: VoxelConfig) -> torch.Tensor:
     return t.reshape(b, h * w, c)
 
 
+class _Gather(torch.autograd.Function):
+    """Unpillar gather whose backward is a sorted segment-sum of the
+    per-point cotangent over the scatter's B·(P + TRASH_PAD) rows, invalid
+    slots routed to the trash row (``voxel._gather_planned_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, table, flat_ids, pillar_id, valid):
+        b, p, c = table.shape
+        ctx.save_for_backward(pillar_id, valid)
+        ctx.p = p
+        n = pillar_id.shape[1]
+        return _gather.sorted_rows_gather(table.reshape(b * p, c), flat_ids,
+                                          b * p).reshape(b, n, c)
+
+    @staticmethod
+    def backward(ctx, g):
+        pillar_id, valid = ctx.saved_tensors
+        p = ctx.p
+        g = torch.where(valid[..., None], g, 0).contiguous()
+        pid = torch.where(valid, pillar_id, p)
+        d = segment_sum_batched(g, pid, p + TRASH_PAD)[:, :p]
+        return d, None, None, None
+
+
 def pseudoimage_gather_batched(table: torch.Tensor, info: PillarInfo) -> torch.Tensor:
     """Unpillar gather from flat pillar tables [B, P, C] → [B, N, C].
 
     Flat ids use the B·P stride (no TRASH_PAD rows); invalid slots take the
     sentinel and read exact zeros."""
-    b, p, c = table.shape
-    n = info.pillar_id.shape[1]
+    b, p, _ = table.shape
     boff = (torch.arange(b, dtype=torch.int32, device=table.device) * p)[:, None]
     flat_ids = torch.where(info.valid & (info.pillar_id < p),
                            info.pillar_id + boff, GATHER_SENTINEL)
-    out = _gather.sorted_rows_gather(
-        table.reshape(b * p, c), flat_ids.reshape(b * n).to(torch.int32), b * p)
-    return out.reshape(b, n, c)
+    return _Gather.apply(table.contiguous(),
+                         flat_ids.reshape(-1).to(torch.int32),
+                         info.pillar_id, info.valid)

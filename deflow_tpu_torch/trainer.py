@@ -1,31 +1,44 @@
-"""Eval step of the port (training arrives with a later slice).
+"""Train and eval steps of the port.
 
-Counterpart of ``deflow_tpu/trainer.py`` ``make_eval_step`` and
-``device_batch``: the final predicted flow is the rigid ego flow everywhere
-plus the network flow at voxel-valid points.
+Counterpart of ``deflow_tpu/trainer.py``: ``make_optimizer``,
+``init_train_state`` (here a :class:`TrainState` holding the model with its
+parameters and BN running statistics, the optimizer with its state, and the
+step counter), ``make_train_step`` (the supervised step), ``make_eval_step``
+and ``device_batch``.  In eval, the final predicted flow is the rigid ego
+flow everywhere plus the network flow at voxel-valid points.
+
+Optimizer semantics follow optax: Adam (b1 0.9, b2 0.999, eps 1e-8), AdamW
+with optax's default weight decay 1e-4, SGD with momentum 0.9; a global-norm
+clip that scales the gradients by clip/norm only when norm >= clip; every
+parameter is stepped, a parameter the loss does not reach with a zero
+gradient.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Iterable, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from deflow_tpu_torch.data.host_prep import HOST_PREP_KEYS, host_prep_from_batch
 from deflow_tpu_torch.device import resolve_device
+from deflow_tpu_torch.losses import get_loss
 
-# the host-batch keys the model reads
+# the host-batch keys the model reads, and those the supervised loss adds
 MODEL_KEYS = ("pc0", "pc1", "pose0", "pose1", "pc0_mask", "pc1_mask",
               "ego_motion") + HOST_PREP_KEYS
+TRAIN_KEYS = MODEL_KEYS + ("flow", "flow_is_valid", "flow_category_indices")
 
 
-def device_batch(batch: Dict, device=None) -> Dict[str, torch.Tensor]:
-    """Move the model's keys of a host batch onto ``device`` (the card
-    unless ``"cpu"``)."""
+def device_batch(batch: Dict, device=None,
+                 keys: Sequence[str] = MODEL_KEYS) -> Dict[str, torch.Tensor]:
+    """Move ``keys`` of a host batch onto ``device`` (the card unless
+    ``"cpu"``)."""
     dev = resolve_device(device)
     out = {}
-    for k in MODEL_KEYS:
+    for k in keys:
         if k in batch:
             v = batch[k]
             if isinstance(v, np.ndarray):
@@ -38,10 +51,11 @@ def make_eval_step(model: torch.nn.Module, device=None) -> Callable:
     """``eval_step(host_or_device_batch) -> dict`` on ``device`` (the card
     unless ``"cpu"``).  Outputs stay in the batch's sorted point order."""
     dev = resolve_device(device)
-    model.to(dev).eval()
+    model.to(dev)
 
     @torch.inference_mode()
     def eval_step(batch: Dict) -> Dict[str, torch.Tensor]:
+        model.eval()
         b = device_batch(batch, dev)
         out = model(b["pc0"], b["pc1"], b["pose0"], b["pose1"],
                     b["pc0_mask"], b["pc1_mask"],
@@ -53,3 +67,115 @@ def make_eval_step(model: torch.nn.Module, device=None) -> Callable:
                 "pose_flow": out["pose_flow"], "pc0_valid": out["pc0_valid"]}
 
     return eval_step
+
+
+def _cfg(cfg: Any, key: str, default=None):
+    if isinstance(cfg, dict):
+        return cfg.get(key, default)
+    return getattr(cfg, key, default)
+
+
+@dataclass(frozen=True)
+class Optimizer:
+    """An optimizer recipe: ``build(params)`` makes the torch optimizer;
+    ``clip`` > 0 is the global-norm clip."""
+
+    name: str
+    lr: float
+    clip: float = 0.0
+
+    def build(self, params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
+        params = list(params)
+        if self.name == "adam":
+            return torch.optim.Adam(params, lr=self.lr, eps=1e-8)
+        if self.name == "adamw":
+            return torch.optim.AdamW(params, lr=self.lr, eps=1e-8,
+                                     weight_decay=1e-4)
+        return torch.optim.SGD(params, lr=self.lr, momentum=0.9)
+
+
+def make_optimizer(cfg) -> Optimizer:
+    """From the config keys ``lr``, ``optimizer`` (adam | adamw | sgd,
+    default adam) and ``gradient_clip`` (0 = off)."""
+    name = str(_cfg(cfg, "optimizer", "adam") or "adam").lower()
+    if name not in ("adam", "adamw", "sgd"):
+        raise ValueError(f"unknown optimizer {name!r}")
+    return Optimizer(name, float(_cfg(cfg, "lr")),
+                     float(_cfg(cfg, "gradient_clip", 0.0) or 0.0))
+
+
+def apply_gradients(optimizer: torch.optim.Optimizer,
+                    params: Iterable[torch.nn.Parameter],
+                    clip: float = 0.0) -> torch.Tensor:
+    """One optimizer step on the gradients in ``.grad`` (None counts as
+    zero).  Returns the global gradient norm BEFORE clipping."""
+    params = list(params)
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    grads = [p.grad for p in params]
+    norm = torch.stack([g.float().pow(2).sum() for g in grads]).sum().sqrt()
+    if clip > 0:
+        keep = norm < clip
+        for g in grads:
+            g.copy_(torch.where(keep, g, g / norm * clip))
+    optimizer.step()
+    return norm
+
+
+@dataclass
+class TrainState:
+    """The model (parameters and BN running statistics), its optimizer
+    (with the optimizer state) and the step counter."""
+
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    clip: float = 0.0
+    step: int = 0
+
+
+def init_train_state(model: torch.nn.Module, cfg, device=None) -> TrainState:
+    """The model on ``device`` (the card unless ``"cpu"``) with a fresh
+    optimizer from ``cfg``."""
+    dev = resolve_device(device)
+    model.to(dev)
+    opt = make_optimizer(cfg)
+    return TrainState(model, opt.build(model.parameters()), opt.clip)
+
+
+def make_train_step(model: torch.nn.Module, loss_name: str,
+                    device=None) -> Callable:
+    """``train_step(state, host_or_device_batch) -> (state, aux)`` on
+    ``device`` (the card unless ``"cpu"``): the supervised step on target =
+    flow − pose_flow over mask = pc0_valid & flow_is_valid.  ``aux`` holds
+    device scalars ``loss``, ``epe`` (masked mean L2 of flow − target),
+    ``valid_points`` and ``grad_norm`` (before clipping).  Each step runs the
+    model in train mode and each eval step in eval mode, so the two may
+    alternate."""
+    dev = resolve_device(device)
+    model.to(dev)
+    loss_fn = get_loss(loss_name)
+
+    def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
+        if state.model is not model:
+            raise ValueError("the state holds another model than the step")
+        model.train()
+        b = device_batch(batch, dev, TRAIN_KEYS)
+        state.optimizer.zero_grad(set_to_none=True)
+        out = model(b["pc0"], b["pc1"], b["pose0"], b["pose1"],
+                    b["pc0_mask"], b["pc1_mask"], ego_motion=b.get("ego_motion"),
+                    host_prep=host_prep_from_batch(b))
+        target = b["flow"] - out["pose_flow"]
+        mask = out["pc0_valid"] & b["flow_is_valid"]
+        loss = loss_fn(out["flow"], target, mask, b.get("flow_category_indices"))
+        loss.backward()
+        grad_norm = apply_gradients(state.optimizer, model.parameters(), state.clip)
+        state.step += 1
+        with torch.no_grad():
+            err = torch.linalg.vector_norm(out["flow"] - target, dim=-1)
+            n = mask.sum()
+            epe = torch.where(mask, err, 0.0).sum() / n.clamp(min=1)
+        return state, {"loss": loss.detach(), "epe": epe, "valid_points": n,
+                       "grad_norm": grad_norm}
+
+    return train_step

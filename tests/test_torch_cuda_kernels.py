@@ -8,7 +8,9 @@ conftest imports JAX, which the card's machine does not have, so run:
 
 Tolerances are chip_smoke's: the gather is bit-exact; the f32 segment-sum
 1e-5; bf16 one rounding of an f32 sum (rtol 2^-7); the GRU f32 1e-4 and
-bf16 rtol 2^-6 / atol 4e-3.
+bf16 rtol 2^-6 / atol 4e-3.  The backward kernels (GRU backward, CBG
+forward and backward) are held relative to the largest reference element:
+2e-5 in f32, 2^-6 in bf16.
 """
 
 import pytest
@@ -122,3 +124,229 @@ def test_wrappers_count_launches(dev):
     gather.sorted_rows_gather(feats, ids, 4)
     assert (scatter.sorted_segment_sum.launches,
             gather.sorted_rows_gather.launches) == (before[0] + 1, before[1] + 1)
+
+
+def _rel_err(k, ref):
+    """max |k − ref| over max(1, max |ref|)."""
+    k, ref = k.float(), ref.float()
+    return ((k - ref).abs().max() / ref.abs().max().clamp(min=1.0)).item()
+
+
+# f32: summation order only; bf16: one rounding of an f32 sum (a bf16 ulp is
+# 2^-8 relative) plus rare flips of a rounded operand.
+GRAD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2 ** -6}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("xdim", [16, 64])
+@pytest.mark.parametrize("m", [1, 31, 33, 1000])
+@pytest.mark.parametrize("iters", [0, 1, 4])
+def test_fused_gru_bwd(dev, dtype, xdim, m, iters):
+    g = torch.Generator().manual_seed(m * 11 + xdim + iters)
+    k_in = 128 + xdim
+    args = [torch.randn(m, 128, generator=g) * 0.5,
+            torch.randn(m, xdim, generator=g) * 0.5,
+            torch.randn(k_in, 256, generator=g) * 0.1,
+            torch.randn(256, generator=g) * 0.1,
+            torch.randn(k_in, 128, generator=g) * 0.1,
+            torch.randn(128, generator=g) * 0.1,
+            torch.randn(m, 128, generator=g)]
+    args = [a.to(dev, dtype).contiguous() for a in args]
+    got = gru.fused_gru_bwd(*args, iters)
+    want = gru.fused_gru_bwd_plain(*args, iters)
+    torch.cuda.synchronize()
+    for name, k, ref in zip(("dh0", "dx", "dw_zr", "db_zr", "dw_q", "db_q"),
+                            got, want):
+        assert k.shape == ref.shape and k.dtype == ref.dtype, name
+        assert _rel_err(k, ref) <= GRAD_TOL[dtype], (name, _rel_err(k, ref))
+
+
+def test_fused_gru_autograd_launches(dev):
+    g = torch.Generator().manual_seed(3)
+    args = [(torch.randn(s, generator=g) * 0.1).to(dev).requires_grad_()
+            for s in [(40, 128), (40, 64), (192, 256), (256,), (192, 128), (128,)]]
+    before = (gru.fused_gru.launches, gru.fused_gru_bwd.launches)
+    gru.FusedGRU.apply(*args, 2).square().sum().backward()
+    assert (gru.fused_gru.launches, gru.fused_gru_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = gru.fused_gru_bwd_plain(*[a.detach() for a in args],
+                                   2 * gru.fused_gru_plain(
+                                       *[a.detach() for a in args], 2), 2)
+    for a, w in zip(args, want):
+        assert _rel_err(a.grad, w) <= GRAD_TOL[torch.float32]
+
+
+CBG_SHAPES = [  # (B, H, W, C, O): ragged row segments, C != O, 8..128 lanes
+    (1, 5, 70, 8, 64), (2, 9, 64, 64, 64), (2, 7, 33, 128, 64),
+    (1, 6, 130, 64, 128), (2, 4, 16, 128, 128), (1, 3, 8, 8, 8)]
+
+
+def _cbg_inputs(g, shape, dtype, dev, head, zero=False):
+    b, h, w, c, o = shape
+    x = torch.zeros(b, h, w, c) if zero else torch.randn(b, h, w, c, generator=g)
+    wm = torch.randn(3, 3, c, o, generator=g) * (9 * c) ** -0.5
+    bias = torch.randn(o, generator=g) * 0.1
+    scal = None
+    if head:
+        scal = torch.stack([torch.randn(c, generator=g) * 0.1,
+                            torch.rand(c, generator=g) + 0.5,
+                            1 + 0.1 * torch.randn(c, generator=g),
+                            0.1 * torch.randn(c, generator=g),
+                            torch.zeros(c), torch.zeros(c)]).to(dev)
+    return (x.to(dev, dtype), wm.to(dev, dtype), bias.to(dev, dtype), scal)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("head", [False, True])
+@pytest.mark.parametrize("shape", CBG_SHAPES)
+def test_cbg_block_fwd(dev, dtype, head, shape):
+    from deflow_tpu_torch.ops import cbg
+
+    g = torch.Generator().manual_seed(sum(shape) + head)
+    x, wm, bias, scal = _cbg_inputs(g, shape, dtype, dev, head)
+    s, ps = cbg.cbg_block_fwd(x, wm, bias, scal)
+    s_ref, ps_ref = cbg.cbg_block_fwd_plain(x, wm, bias, scal)
+    torch.cuda.synchronize()
+    assert s.shape == s_ref.shape and s.dtype == dtype
+    assert _rel_err(s, s_ref) <= (2 ** -7 if dtype == torch.bfloat16 else 1e-5)
+    assert _rel_err(ps.sum(0), ps_ref.sum(0)) <= GRAD_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("head", [False, True])
+@pytest.mark.parametrize("shape", CBG_SHAPES)
+def test_cbg_block_bwd(dev, dtype, head, shape):
+    from deflow_tpu_torch.ops import cbg
+
+    g = torch.Generator().manual_seed(sum(shape) * 3 + head)
+    b, h, w, c, o = shape
+    sp, wm, _, scal_out = _cbg_inputs(g, shape, dtype, dev, head)
+    si = torch.randn(b, h, w, o, generator=g).to(dev, dtype)
+    dz = torch.randn(b, h, w, o, generator=g).to(dev, dtype)
+    scal_in = torch.stack([torch.randn(o, generator=g) * 0.1,
+                           torch.rand(o, generator=g) + 0.5,
+                           1 + 0.1 * torch.randn(o, generator=g),
+                           0.1 * torch.randn(o, generator=g),
+                           0.1 * torch.randn(o, generator=g),
+                           0.1 * torch.randn(o, generator=g)]).to(dev)
+    got = cbg.cbg_block_bwd(dz, si, sp, wm, scal_in, scal_out)
+    want = cbg.cbg_block_bwd_plain(dz, si, sp, wm, scal_in, scal_out)
+    torch.cuda.synchronize()
+    tol = GRAD_TOL[dtype]
+    assert got[0].shape == (b, h, w, c) and got[0].dtype == dtype
+    assert _rel_err(got[0], want[0]) <= tol
+    assert got[1].shape == (3, 3, c, o) and _rel_err(got[1], want[1]) <= tol
+    assert _rel_err(got[2].sum(0), want[2].sum(0)) <= tol
+    assert _rel_err(got[3].sum(0), want[3].sum(0)) <= tol
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cbg_all_zero_input(dev, dtype):
+    from deflow_tpu_torch.ops import cbg
+
+    g = torch.Generator().manual_seed(1)
+    x, wm, bias, _ = _cbg_inputs(g, (2, 8, 40, 64, 64), dtype, dev, False, zero=True)
+    s, ps = cbg.cbg_block_fwd(x, wm, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(s, bias.expand_as(s))
+    torch.testing.assert_close(ps.sum(0)[0], 640 * bias.float(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("head", [False, True])
+@pytest.mark.parametrize("b", [1, 2])
+def test_cbg_chain_card_vs_cpu(dev, head, b):
+    """The whole chain with its VJP in f32: card (kernels) vs CPU (plain)."""
+    from deflow_tpu_torch.ops import cbg
+
+    g = torch.Generator().manual_seed(b + 2 * head)
+    x = torch.randn(b, 12, 20, 16, generator=g)
+    params = [(torch.randn(3, 3, ci, co, generator=g) * (9 * ci) ** -0.5,
+               torch.randn(co, generator=g) * 0.1,
+               1 + 0.1 * torch.randn(co, generator=g),
+               0.1 * torch.randn(co, generator=g))
+              for ci, co in ((16, 32), (32, 32), (32, 24))]
+    head_gb = ((1 + 0.1 * torch.randn(16, generator=g),
+                0.1 * torch.randn(16, generator=g)) if head else ())
+    tgt = torch.randn(b, 12, 20, 24, generator=g)
+    leaves = {}
+    for d in ("cpu", dev):
+        leaf = lambda t: t.detach().to(d).clone().requires_grad_()
+        xs = leaf(x)
+        ps = [tuple(leaf(t) for t in p) for p in params]
+        hs = tuple(leaf(t) for t in head_gb)
+        y, means, _ = cbg.cbg_chain(xs, ps, hs)
+        ((y - tgt.to(d)) ** 2).sum().backward()
+        leaves[str(d)] = ([y, *means, xs.grad, *[t.grad for t in hs]]
+                          + [t.grad for p in ps for t in (p[0], p[2], p[3])])
+        # every block feeds a train-mode BN, so its conv bias has a zero
+        # gradient in exact arithmetic: both sides hold rounding noise only
+        scale = max(p[0].grad.abs().max().item() for p in ps)
+        assert all(p[1].grad.abs().max().item() <= 1e-3 * scale for p in ps)
+    for k, ref in zip(leaves[str(dev)], leaves["cpu"]):
+        assert _rel_err(k.detach().cpu(), ref.detach()) <= 1e-4
+
+
+def test_scatter_gather_autograd_launches(dev):
+    from deflow_tpu_torch.ops import voxel
+
+    cfg = voxel.VoxelConfig((12.8, 12.8, 6.0))        # 8 x 8 grid, P = 64
+    p = cfg.num_pillars
+    ids = torch.tensor([[0, 0, 3, 9, 63, p, p], [1, 2, 2, 5, p, p, p]],
+                       dtype=torch.int32)
+    data = torch.randn(2, 7, 33).to(dev).requires_grad_()
+    before = (scatter.sorted_segment_sum.launches, gather.sorted_rows_gather.launches)
+    voxel.segment_sum_batched(data, ids.to(dev), p + voxel.TRASH_PAD).sum().backward()
+    assert (scatter.sorted_segment_sum.launches,
+            gather.sorted_rows_gather.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(data.grad[ids.to(dev) < p],
+                       torch.ones_like(data.grad[ids.to(dev) < p]))
+    assert (data.grad[ids.to(dev) >= p] == 0).all()
+
+    valid = ids < p
+    info = voxel.PillarInfo(ids.to(dev), valid.to(dev), None, None, None)
+    table = torch.randn(2, p, 128).to(dev).requires_grad_()
+    before = (scatter.sorted_segment_sum.launches, gather.sorted_rows_gather.launches)
+    out = voxel.pseudoimage_gather_batched(table, info)
+    out.sum().backward()
+    assert (scatter.sorted_segment_sum.launches,
+            gather.sorted_rows_gather.launches) == (before[0] + 1, before[1] + 1)
+    counts = torch.zeros(2, p)
+    for bi in range(2):
+        for i in ids[bi][valid[bi]].tolist():
+            counts[bi, i] += 1
+    torch.testing.assert_close(table.grad.cpu(), counts[..., None].expand(2, p, 128))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_scatter_gather_autograd_vs_cpu(dev, dtype):
+    """The gradients of the embedder scatter and the decoder gather on a
+    B = 2 plan whose trash tails put sentinel runs between the samples, as
+    the train step builds them: card kernels vs the CPU's plain versions."""
+    from deflow_tpu_torch.ops import voxel
+
+    g = torch.Generator().manual_seed(5)
+    cfg = voxel.VoxelConfig((3.2, 3.2, 6.0))          # 32 x 32 grid, P = 1024
+    p, n = cfg.num_pillars, 3000
+    ids = torch.full((2, n), p, dtype=torch.int32)
+    for bi, nv in enumerate((2600, 2100)):
+        ids[bi, :nv] = torch.randint(0, p, (nv,), generator=g).sort().values
+    valid = ids < p
+    data = torch.randn(2, n, 33, generator=g)
+    table = torch.randn(2, p, 128, generator=g)
+    w_seg = torch.randn(2, p + voxel.TRASH_PAD, 33, generator=g)
+    w_out = torch.randn(2, n, 128, generator=g)
+    grads = {}
+    for d in (dev, torch.device("cpu")):
+        x = data.to(d, dtype).requires_grad_()
+        t = table.to(d, dtype).requires_grad_()
+        seg = voxel.segment_sum_batched(x, ids.to(d), p + voxel.TRASH_PAD)
+        info = voxel.PillarInfo(ids.to(d), valid.to(d), None, None, None)
+        out = voxel.pseudoimage_gather_batched(t, info)
+        ((seg.float() * w_seg.to(d)).sum() + (out.float() * w_out.to(d)).sum()).backward()
+        grads[d.type] = (x.grad.cpu(), t.grad.cpu())
+    # the scatter's backward is a gather: bit-exact; the gather's backward
+    # is a segment-sum: f32 summation order, or one bf16 rounding
+    assert torch.equal(grads["cuda"][0], grads["cpu"][0])
+    rtol, atol = (1e-5, 1e-5) if dtype == torch.float32 else (2 ** -7, 1e-6)
+    torch.testing.assert_close(grads["cuda"][1].float(), grads["cpu"][1].float(),
+                               rtol=rtol, atol=atol)

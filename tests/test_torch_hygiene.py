@@ -46,23 +46,31 @@ def no_cuda(monkeypatch):
 def test_entry_points_raise_without_a_card(no_cuda):
     from deflow_tpu_torch.device import resolve_device
     from deflow_tpu_torch.models import build_model
-    from deflow_tpu_torch.trainer import device_batch, make_eval_step
+    from deflow_tpu_torch.trainer import (device_batch, init_train_state,
+                                          make_eval_step, make_train_step)
 
     small = {"voxel_size": [12.8, 12.8, 6.0], "num_iters": 1}
     for call in (lambda: resolve_device(), lambda: build_model(small),
+                 lambda: build_model(small, train=True),
                  lambda: device_batch({"pc0": torch.zeros(1, 4, 3)})):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     model = build_model(small, device="cpu", seed=0)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        make_eval_step(model)
+    for call in (lambda: make_eval_step(model),
+                 lambda: make_train_step(model, "deflowLoss"),
+                 lambda: init_train_state(model, {"lr": 2e-4})):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
     assert resolve_device("cpu") == torch.device("cpu")
     make_eval_step(model, device="cpu")
+    make_train_step(model, "deflowLoss", device="cpu")
+    init_train_state(model, {"lr": 2e-4}, device="cpu")
 
 
 def _wrapper_calls(device):
+    from deflow_tpu_torch.ops.cbg import cbg_block_bwd, cbg_block_fwd
     from deflow_tpu_torch.ops.gather import sorted_rows_gather
-    from deflow_tpu_torch.ops.gru import fused_gru
+    from deflow_tpu_torch.ops.gru import fused_gru, fused_gru_bwd
     from deflow_tpu_torch.ops.scatter import sorted_segment_sum
 
     f = lambda *s: torch.zeros(*s, device=device)
@@ -72,6 +80,14 @@ def _wrapper_calls(device):
         "sorted_gather": lambda: sorted_rows_gather(f(3, 128), ids, 3),
         "fused_gru": lambda: fused_gru(f(4, 128), f(4, 64), f(192, 256),
                                        f(256), f(192, 128), f(128), 4),
+        "fused_gru_bwd": lambda: fused_gru_bwd(f(4, 128), f(4, 64), f(192, 256),
+                                               f(256), f(192, 128), f(128),
+                                               f(4, 128), 4)[0],
+        "cbg_fwd": lambda: cbg_block_fwd(f(1, 4, 4, 8), f(3, 3, 8, 8), f(8),
+                                         f(6, 8))[0],
+        "cbg_bwd": lambda: cbg_block_bwd(f(1, 4, 4, 8), f(1, 4, 4, 8),
+                                         f(1, 4, 4, 8), f(3, 3, 8, 8), f(6, 8),
+                                         f(6, 8))[0],
     }
 
 

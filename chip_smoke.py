@@ -11,6 +11,11 @@ Phases (any failure exits non-zero):
    time, a library call's (or call sequence's) time, and the bound; the
    segment-sum and the row gather also as each other's backward on the
    train path's ids; the fused conv3x3+BN+GELU kernels at both chain widths;
+   the SSL kernels on an SSL batch: the cell sweep (both directions), the
+   lane segment-sum of the chamfer VJP (beside the pillar segment-sum at the
+   same shape) and the brute search at 2 x 16,384; then the full-width
+   sweep against the brute search (truncated distances, both directions,
+   all and dynamic candidates);
 4. the eval path: leaderboard DeFlow (512x512 grid, ConvGRU, 4 iterations,
    bf16 compute, random weights from a seed) evaluates 5 synthetic batches
    of 4 x 98,304 point slots (86,016 valid) through ``run_validation``; the
@@ -22,10 +27,17 @@ Phases (any failure exits non-zero):
    ``make_train_step``; per step 3 scatters, 3 gathers, 1 GRU forward and
    1 backward, 6 fused-block forwards and 6 backwards; then one more step
    under torch.profiler;
-6. reference checks in f32 on small inputs, the card against the CPU
+6. the SSL path: 5 Adam steps of seflowLoss (truncate 2 m, DUFO labels
+   with 15% dynamic points, pc1's chamfer cell prep from the host) at
+   2 x 98,304, which takes the grid branch: per step the train path's
+   counts plus 2 cell sweeps and 1 lane segment-sum; peak memory and one
+   profiled step; then 2 steps at 2 x 16,384 (the brute branch under the
+   same rule): 4 brute searches and no sweep per step;
+7. reference checks in f32 on small inputs, the card against the CPU
    (plain PyTorch versions): the eval output, and one train step's loss,
-   gradient norm, per-parameter gradients and updated parameters;
-7. one JSON line of kernels, the card line, and the result line.
+   gradient norm, per-parameter gradients and updated parameters, for
+   deflowLoss and for seflowLoss on its grid and its brute branch;
+8. one JSON line of kernels, the card line, and the result line.
 Step times are medians of the steady steps (all but the first, which warms
 cuDNN up); the eval phase also prints their mean.
 Needs one CUDA card; exits non-zero without one.
@@ -48,9 +60,19 @@ LEADERBOARD = {"voxel_size": VOXEL, "point_cloud_range": RANGE,
                "grid_feature_size": [512, 512], "feat_channels": 32,
                "decoder_option": "gru", "num_iters": 4}
 NUM_BATCHES = 5
-# H100 SXM data sheet: HBM 3.35 TB/s, dense bf16 tensor cores 989 TFLOP/s
+SSL_STEPS = 5
+BRUTE_N, BRUTE_VALID, BRUTE_STEPS = 16384, 14336, 2   # 2 x 16,384: the brute branch
+TRUNCATE = 2.0
+# H100 SXM data sheet: HBM 3.35 TB/s, dense bf16 tensor cores 989 TFLOP/s,
+# f32 outside the tensor cores 67 TFLOP/s
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+F32_FLOP_PER_S = 67e12
+# f32 operations per (query, candidate) pair: the sweep's d is 8 flops,
+# the flag lane one add, and each reduced lane a compare; the brute
+# search's d is 8 flops (5 for the dot) and one compare
+SWEEP_OPS_PER_PAIR = {True: 11, False: 9}
+BRUTE_OPS_PER_PAIR = 9
 
 
 def card_line() -> str:
@@ -59,9 +81,12 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def make_batch(seed: int, b: int = B, n: int = N, valid: int = VALID):
+def make_batch(seed: int, b: int = B, n: int = N, valid: int = VALID,
+               dufo: bool = False):
     """Synthetic AV2-shaped host batch: uniform clouds over the range, a
-    moving ego, ~40% foreground points of which half move."""
+    moving ego, ~40% foreground points of which half move; with ``dufo``
+    also DUFO labels, 15% dynamic points in each cloud (as the JAX
+    package's SSL bench draws them)."""
     rng = np.random.default_rng(seed)
     pc0 = np.stack([rng.uniform(-51, 51, (b, n)), rng.uniform(-51, 51, (b, n)),
                     rng.uniform(-2.8, 2.8, (b, n))], -1).astype(np.float32)
@@ -80,10 +105,14 @@ def make_batch(seed: int, b: int = B, n: int = N, valid: int = VALID):
     pc1 = np.stack([p[np.concatenate([rng.permutation(valid),
                                       np.arange(valid, n)])] for p in pc1])
     pc1[~mask] = 0.0
-    return {"pc0": pc0, "pc1": pc1, "pose0": pose0, "pose1": pose1,
-            "pc0_mask": mask, "pc1_mask": mask.copy(), "flow": flow,
-            "flow_is_valid": mask.copy(),
-            "flow_category_indices": cls.astype(np.int32)}
+    hb = {"pc0": pc0, "pc1": pc1, "pose0": pose0, "pose1": pose1,
+          "pc0_mask": mask, "pc1_mask": mask.copy(), "flow": flow,
+          "flow_is_valid": mask.copy(),
+          "flow_category_indices": cls.astype(np.int32)}
+    if dufo:
+        hb["dufo_label0"] = (rng.random((b, n)) < 0.15).astype(np.int32)
+        hb["dufo_label1"] = (rng.random((b, n)) < 0.15).astype(np.int32)
+    return hb
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -453,6 +482,194 @@ def check_train_kernels(model, host_batch):
     return results
 
 
+def ssl_clouds(db, spec):
+    """The SSL loss's sweep clouds from a device batch: pc0 (ego-compensated,
+    the warped cloud of an untrained flow) device-sorted with its DUFO
+    flags, pc1 from the host cell prep; and the masked clouds and flags."""
+    import torch
+
+    from deflow_tpu_torch.ops import chamfer
+
+    m0, m1 = db["pc0_mask"], db["pc1_mask"]
+    f0, f1 = m0 & (db["dufo_label0"] > 0), m1 & (db["dufo_label1"] > 0)
+    warped = torch.where(m0[..., None], db["pc0_transformed"], 0.0)
+    pc1 = torch.where(m1[..., None], db["pc1"], 0.0)
+    c0 = chamfer._sweep_sort(warped, m0, f0, spec)
+    c1 = chamfer._sweep_cloud_from_host(db["pc1_cell_lanes"], db["pc1_cell_sid"],
+                                        db["pc1_cell_start"], spec)
+    return c0, c1, (warped, pc1, m0, m1, f0, f1)
+
+
+def _rel_d(k, ref) -> float:
+    """Largest |k − ref| / |ref| (ref > 0 where compared)."""
+    return ((k - ref).abs() / ref.abs().clamp(min=1e-30)).max().item()
+
+
+def check_ssl_kernels(ssl_batch, brute_batch):
+    """Phase 3, the SSL kernels at the SSL path's shapes (B = TRAIN_B):
+    the cell sweep on both directions of a 2 x 98,304 batch (pc1 from the
+    host cell prep), the lane segment-sum of the pc1→pc0 matches (the
+    chamfer VJP's one scatter), and the brute search at 2 x 16,384; each
+    against its plain version: distances within 1e-6 relative, indices
+    exactly equal, the lane sums within 1e-6 of their largest element."""
+    import torch
+
+    from deflow_tpu_torch.ops import chamfer, nn, scatter, sweep
+    from deflow_tpu_torch.trainer import SSL_TRAIN_KEYS, device_batch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    results = {}
+    spec = chamfer._resolve_spec("grid", N, N, TRUNCATE, None)
+    db = device_batch(ssl_batch, dev, SSL_TRAIN_KEYS)
+    c0, c1, _ = ssl_clouds(db, spec)
+
+    # -- kernel 8: both directions, dual (the SSL loss's sweeps)
+    timed = {}
+    for what, (qc, cc) in (("pc0->pc1", (c0, c1)), ("pc1->pc0", (c1, c0))):
+        args = chamfer.sweep_inputs(qc, cc, spec)
+        k = sweep.cell_sweep(*args, dual=True)
+        ref = sweep.cell_sweep_plain(*args, dual=True)
+        torch.cuda.synchronize()
+        d_err = _rel_d(k[:, [0, 2]], ref[:, [0, 2]])
+        same_i = torch.equal(k[:, [1, 3]], ref[:, [1, 3]])
+        err = (k[:, :4] - ref[:, :4]).abs().max().item()
+        blocks = args[3].sum(1)
+        pairs = int(blocks.sum()) * sweep.CHUNK_C * sweep.CHUNK_Q
+        nq, ncc = args[0].shape[0], args[1].shape[0]
+        print(f"cell_sweep {what}: {nq} queries, {ncc} candidate blocks, "
+              f"{pairs:.4g} pairs visited, blocks per chunk mean "
+              f"{blocks.float().mean().item():.2f} max {int(blocks.max())}, "
+              f"{float(args[4].float().mean()):.3f} of the chunks dirty; d rel err "
+              f"{d_err:.3e} (tol 1e-6), indices {'equal' if same_i else 'DIFFER'}")
+        if not (d_err <= 1e-6 and same_i):
+            raise SystemExit(f"cell_sweep ({what}) disagrees with its plain version")
+        nbytes = (args[0].numel() + args[1].numel() + k.numel()) * 4 + 7 * nq // sweep.CHUNK_Q * 4
+        b_ms, b_by = bound(nbytes, pairs * SWEEP_OPS_PER_PAIR[True], F32_FLOP_PER_S)
+        timed[what] = {
+            "max_abs_err": err, "pairs": pairs,
+            "ms": cuda_ms(lambda: sweep.cell_sweep(*args, dual=True), 20),
+            "plain_ms": cuda_ms(lambda: sweep.cell_sweep_plain(*args, dual=True), 1),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "shape": f"{nq}x8 vs {ncc}x8x{sweep.CHUNK_C}"}
+    results["cell_sweep"] = {**timed["pc0->pc1"], "pc1_to_pc0": timed["pc1->pc0"]}
+
+    # -- kernel 7: the pc1->pc0 matches (all and dynamic) scattered into
+    # pc0's B·N rows, sorted as the chamfer VJP sorts them
+    _, i1a, _, i1f = chamfer._sweep_dir(c1, c0, spec, dual=True)
+    idx = torch.cat([i1a, i1f], 1)
+    bq, m = idx.shape
+    segs = bq * N
+    flat = torch.where((idx >= 0) & (idx < N),
+                       idx + (torch.arange(bq, device=dev) * N)[:, None], segs)
+    sid, order = torch.sort(flat.reshape(-1), stable=True)
+    ids = sid.to(torch.int32)
+    rows = torch.randn(bq * m, 4, generator=g, device=dev)[order].contiguous()
+    k = scatter.segment_sum_lanes(rows, ids, segs)
+    ref = scatter.segment_sum_lanes_plain(rows, ids, segs)
+    torch.cuda.synchronize()
+    err = _rel_err(k, ref)
+    print(f"segment_sum_lanes {bq * m}x4->{segs}: max rel err {err:.3e} "
+          f"(tol 1e-6 of max |ref|) {'ok' if err <= 1e-6 else 'FAIL'}")
+    if not err <= 1e-6:
+        raise SystemExit("segment_sum_lanes disagrees with its plain version")
+    idx_lib = torch.where(ids < segs, ids, segs).long()
+    b_ms, b_by = bound(rows.numel() * 4 + ids.numel() * 4 + segs * 4 * 4,
+                       rows.numel(), F32_FLOP_PER_S)
+    results["segment_sum_lanes"] = {
+        "max_abs_err": (k - ref).abs().max().item(),
+        "shape": f"{bq * m}x4->{segs}",
+        "ms": cuda_ms(lambda: scatter.segment_sum_lanes(rows, ids, segs), 50),
+        "plain_ms": cuda_ms(lambda: scatter.segment_sum_lanes_plain(rows, ids, segs), 10),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(lambda: torch.zeros(segs + 1, 4, device=dev).index_add_(
+            0, idx_lib, rows), 10),
+        "library_call": "index_add_",
+        # the pillar segment-sum kernel (built for 33- to 128-wide rows) on the
+        # same rows and ids
+        "segment_sum_cu_ms": cuda_ms(lambda: scatter.sorted_segment_sum(rows, ids, segs), 50),
+    }
+
+    # -- kernel 9: the brute branch's search, pc0 -> pc1 at 2 x 16,384
+    bdb = device_batch(brute_batch, dev, SSL_TRAIN_KEYS)
+    m1 = bdb["pc1_mask"]
+    p = torch.where(bdb["pc0_mask"][..., None], bdb["pc0_transformed"], 0.0)
+    q = torch.where(m1[..., None], bdb["pc1"], 0.0)
+    kd, ki = nn.chamfer_min(p, q, m1)
+    rd, ri = nn.chamfer_min_plain(p, q, m1)
+    torch.cuda.synchronize()
+    d_err, same_i = _rel_d(kd, rd), torch.equal(ki, ri)
+    print(f"chamfer_brute {tuple(p.shape)} x {tuple(q.shape)}: d rel err {d_err:.3e} "
+          f"(tol 1e-6), indices {'equal' if same_i else 'DIFFER'}")
+    if not (d_err <= 1e-6 and same_i):
+        raise SystemExit("chamfer_brute disagrees with its plain version")
+    qf = torch.where(m1[..., None], q, 1e6)
+
+    def library():
+        # chunked torch.cdist (cuBLAS Gram product) and min over q
+        for bi in range(p.shape[0]):
+            for s0 in range(0, p.shape[1], 4096):
+                torch.cdist(p[bi, s0:s0 + 4096], qf[bi]).min(-1)
+
+    pairs = p.shape[0] * p.shape[1] * q.shape[1]
+    b_ms, b_by = bound((p.numel() + q.numel() + m1.numel() / 4 + 2 * kd.numel()) * 4,
+                       pairs * BRUTE_OPS_PER_PAIR, F32_FLOP_PER_S)
+    results["chamfer_brute"] = {
+        "max_abs_err": (kd - rd).abs().max().item(), "pairs": pairs,
+        "shape": f"{p.shape[0]}x{p.shape[1]}x{q.shape[1]}",
+        "ms": cuda_ms(lambda: nn.chamfer_min(p, q, m1), 10),
+        "plain_ms": cuda_ms(lambda: nn.chamfer_min_plain(p, q, m1), 3),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(library, 3),
+        "library_call": "call sequence: torch.cdist in 4096-row chunks + min",
+    }
+    for name, r in results.items():
+        for rr in (r, r.get("pc1_to_pc0")):
+            if rr:
+                lib = "none" if rr["library_ms"] is None else f"{rr['library_ms']:.4f} ms"
+                print(f"{name} {rr['shape']}: {rr['ms']:.4f} ms (bound "
+                      f"{rr['bound_ms']:.4f} ms by {rr['bound_by']}, plain "
+                      f"{rr['plain_ms']:.4f} ms, library {lib})")
+    print(f"segment_sum.cu on the lane sum's rows and ids: "
+          f"{results['segment_sum_lanes']['segment_sum_cu_ms']:.4f} ms")
+    return results
+
+
+def sweep_vs_brute(ssl_batch) -> float:
+    """The full-width sweep against the brute search on one SSL batch, both
+    directions, all and dynamic candidates: min(d, truncate²) must agree on
+    every valid query row.  The sweep's (dx² + dy²) + dz² is accurate to a
+    few ulps; the brute search's |p|² + |q|² − 2p·q cancels, with an error
+    below 10·u·R² (u = 2^-24, R² the largest squared norm: 2u for each
+    squared norm, 4u for the doubled dot, 2u for their sum), held here to
+    8·eps32·R² = 16·u·R².  Distances, not indices, are compared.  Returns
+    the largest difference over its tolerance."""
+    from deflow_tpu_torch.ops import chamfer, nn
+    from deflow_tpu_torch.trainer import SSL_TRAIN_KEYS, device_batch
+
+    spec = chamfer._resolve_spec("grid", N, N, TRUNCATE, None)
+    db = device_batch(ssl_batch, None, SSL_TRAIN_KEYS)
+    c0, c1, (warped, pc1, m0, m1, f0, f1) = ssl_clouds(db, spec)
+    d0a, _, d0f, _ = chamfer._sweep_dir(c0, c1, spec, dual=True)
+    d1a, _, d1f, _ = chamfer._sweep_dir(c1, c0, spec, dual=True)
+    r2 = max(warped.square().sum(-1).max().item(), pc1.square().sum(-1).max().item())
+    tol = 8 * float(np.finfo(np.float32).eps) * r2
+    t2 = TRUNCATE ** 2
+    worst = 0.0
+    for what, ds, p, q, qmask, rows in (
+            ("pc0->pc1 all", d0a, warped, pc1, m1, m0),
+            ("pc0->pc1 dynamic", d0f, warped, pc1, f1, f0),
+            ("pc1->pc0 all", d1a, pc1, warped, m0, m1),
+            ("pc1->pc0 dynamic", d1f, pc1, warped, f0, f1)):
+        db_, _ = nn.chamfer_min(p, q, qmask)
+        diff = (ds.clamp(max=t2) - db_.clamp(max=t2)).abs()[rows]
+        below = (db_[rows] < t2).float().mean().item()
+        print(f"sweep vs brute, {what}: {int(rows.sum())} rows ({below:.3f} with a "
+              f"neighbour below {TRUNCATE:g} m), max |d| difference "
+              f"{diff.max().item():.3e} m^2 (tol {tol:.3e})")
+        worst = max(worst, diff.max().item() / tol)
+    return worst
+
+
 def run_main_path(model, batches):
     """Phase 4: ``run_validation`` over the batches; returns the metrics,
     the accumulator, per-batch device ms and the launch counts."""
@@ -491,12 +708,14 @@ def run_main_path(model, batches):
 
 
 def _wrappers():
-    from deflow_tpu_torch.ops import cbg, gather, gru, scatter
+    from deflow_tpu_torch.ops import cbg, gather, gru, nn, scatter, sweep
 
     return {"segment_sum": scatter.sorted_segment_sum,
             "sorted_gather": gather.sorted_rows_gather,
             "fused_gru": gru.fused_gru, "fused_gru_bwd": gru.fused_gru_bwd,
-            "cbg_fwd": cbg.cbg_block_fwd, "cbg_bwd": cbg.cbg_block_bwd}
+            "cbg_fwd": cbg.cbg_block_fwd, "cbg_bwd": cbg.cbg_block_bwd,
+            "segment_sum_lanes": scatter.segment_sum_lanes,
+            "cell_sweep": sweep.cell_sweep, "chamfer_brute": nn.chamfer_min}
 
 
 def reset_launches() -> None:
@@ -508,17 +727,20 @@ def read_launches() -> dict:
     return {name: w.launches for name, w in _wrappers().items()}
 
 
-def run_train_path(model, batches):
-    """Phase 5: ``make_train_step`` over the batches (one Adam step each);
-    returns per-step aux, device ms per step and the launch counts."""
+def run_train_path(model, batches, loss_name="deflowLoss", label="train",
+                   profile=True):
+    """Phases 5 and 6: ``make_train_step`` over the batches (one Adam step
+    each); returns per-step aux, device ms per step and the launch counts."""
     import torch
 
-    from deflow_tpu_torch.trainer import (TRAIN_KEYS, device_batch,
+    from deflow_tpu_torch.trainer import (SSL_TRAIN_KEYS, TRAIN_KEYS, device_batch,
                                           init_train_state, make_train_step)
+    from deflow_tpu_torch.losses import SSL_LOSS_REGISTRY
 
     state = init_train_state(model, {"lr": LR, "optimizer": "adam"})
-    train_step = make_train_step(model, "deflowLoss")
-    device_batches = [device_batch(hb, keys=TRAIN_KEYS) for hb in batches]
+    train_step = make_train_step(model, loss_name)
+    keys = SSL_TRAIN_KEYS if loss_name in SSL_LOSS_REGISTRY else TRAIN_KEYS
+    device_batches = [device_batch(hb, keys=keys) for hb in batches]
     torch.cuda.synchronize()
     device_ms, auxes = [], []
     reset_launches()
@@ -533,19 +755,25 @@ def run_train_path(model, batches):
         auxes.append({k: float(v) for k, v in aux.items()})
     launches = read_launches()
     for i, (a, ms) in enumerate(zip(auxes, device_ms)):
-        print(f"train step {i + 1}: loss {a['loss']:.6f} epe {a['epe']:.6f} "
+        print(f"{label} step {i + 1}: loss {a['loss']:.6f} epe {a['epe']:.6f} "
               f"grad_norm {a['grad_norm']:.6f} valid {a['valid_points']:.0f} "
               f"device {ms:.3f} ms")
     bad = [k for a in auxes for k, v in a.items() if not np.isfinite(v)]
     if bad or not all(torch.isfinite(p).all() for p in model.parameters()):
-        raise SystemExit(f"train step gave non-finite values {bad}")
-    profile_step(lambda: train_step(state, device_batches[0]))
+        raise SystemExit(f"{label} step gave non-finite values {bad}")
+    if profile:
+        profile_step(lambda: train_step(state, device_batches[0]))
     return auxes, device_ms, launches
 
 
 def _category(name: str) -> str:
     n = name.lower()
-    for cat, keys in (("fused_gru_bwd", ("gru_bwd", "atb_kernel", "reduce_partials")),
+    for cat, keys in (("cell_sweep", ("cell_sweep",)),
+                      ("segment_sum_lanes", ("lane_runs",)),
+                      ("chamfer_brute", ("chamfer_brute",)),
+                      ("sort/unsort (torch.sort, searchsorted, index writes)",
+                       ("sort", "searchsorted", "index_put", "fill_index_and_segment")),
+                      ("fused_gru_bwd", ("gru_bwd", "atb_kernel", "reduce_partials")),
                       ("cbg_fwd", ("cbg_fwd",)),
                       ("cbg_bwd", ("cbg_dgrad", "cbg_wgrad", "wgrad_reduce")),
                       ("segment_sum", ("segment_sum", "mark_runs")),
@@ -600,7 +828,7 @@ def profile_step(step) -> None:
 
 
 def reference_check(seed: int) -> float:
-    """Phase 6: f32 model on a small input, card vs CPU; max |Δ pred_flow|."""
+    """Phase 7a: f32 model on a small input, card vs CPU; max |Δ pred_flow|."""
     import torch
 
     from deflow_tpu_torch.data.host_prep import attach_host_prep
@@ -624,31 +852,47 @@ def _zero_grad_bias(key: str) -> bool:
     return key.startswith("backbone.encoder_step_") and key.endswith("conv.bias")
 
 
-def train_reference_check(seed: int) -> dict:
-    """Phase 6b: one f32 train step on a small input (64^2 grid), card vs
-    CPU.  Returns each quantity's largest difference over its tolerance
+def train_reference_check(seed: int, loss_name: str = "deflowLoss",
+                          grid: bool = False) -> dict:
+    """Phase 7b: one f32 train step of ``loss_name`` on a small input (64^2
+    grid, 2 x 4,096 slots), card vs CPU; for seflowLoss with ``grid`` the
+    chamfer's pair threshold is lowered so that the small clouds take the
+    grid branch (the sweep and the lane segment-sum), else the brute
+    branch.  Returns each quantity's largest difference over its tolerance
     (<= 1 passes): loss and grad_norm 1e-4 relative; each parameter's
     gradient 1e-3 of its largest CPU element (a zero-gradient conv bias:
     both sides below 1e-3 of the largest gradient of the conv's weight);
     parameters after the Adam step 1e-6 + lr*1e-2, since Adam's first step
     is +-lr for any gradient that is not tiny this checks the signs, and
-    2*lr for the zero-gradient biases; the BN running statistics 1e-5."""
+    2*lr for the zero-gradient biases; the BN running statistics 1e-5.
+    The caller holds the parameters for deflowLoss only: Adam's first step
+    maps a gradient element near its eps (1e-8) to anywhere in [-lr, lr],
+    so a gradient difference far inside the gradient tolerance moves such
+    an element's step past 1e-6 + lr*1e-2; the gradient of the element
+    farthest off is printed beside it."""
     from deflow_tpu_torch.data.host_prep import attach_host_prep
     from deflow_tpu_torch.models import build_model
+    from deflow_tpu_torch.ops import chamfer
     from deflow_tpu_torch.trainer import init_train_state, make_train_step
 
     small = dict(LEADERBOARD, voxel_size=[1.6, 1.6, 6.0],
                  grid_feature_size=[64, 64])
-    hb = attach_host_prep(make_batch(seed, b=2, n=4096, valid=3500),
+    hb = attach_host_prep(make_batch(seed, b=2, n=4096, valid=3500,
+                                     dufo=loss_name != "deflowLoss"),
                           small["voxel_size"], RANGE)
     auxes, grads, states = [], [], []
-    for dev in ("cuda", "cpu"):
-        model = build_model(small, precision="fp32", device=dev, seed=seed)
-        state = init_train_state(model, {"lr": LR}, device=dev)
-        state, aux = make_train_step(model, "deflowLoss", device=dev)(state, hb)
-        auxes.append({k: float(v) for k, v in aux.items()})
-        grads.append({k: p.grad.detach().cpu() for k, p in model.named_parameters()})
-        states.append({k: v.detach().cpu() for k, v in model.state_dict().items()})
+    threshold = chamfer._AUTO_GRID_PAIRS
+    chamfer._AUTO_GRID_PAIRS = 0 if grid else threshold
+    try:
+        for dev in ("cuda", "cpu"):
+            model = build_model(small, precision="fp32", device=dev, seed=seed)
+            state = init_train_state(model, {"lr": LR}, device=dev)
+            state, aux = make_train_step(model, loss_name, device=dev)(state, hb)
+            auxes.append({k: float(v) for k, v in aux.items()})
+            grads.append({k: p.grad.detach().cpu() for k, p in model.named_parameters()})
+            states.append({k: v.detach().cpu() for k, v in model.state_dict().items()})
+    finally:
+        chamfer._AUTO_GRID_PAIRS = threshold
     ratio = {k: abs(auxes[0][k] - auxes[1][k]) / abs(auxes[1][k]) / 1e-4
              for k in ("loss", "grad_norm")}
     ratio["grad"] = ratio["param"] = 0.0
@@ -660,6 +904,7 @@ def train_reference_check(seed: int) -> dict:
             scale = ref.abs().max().item()
             err = (grads[0][key] - ref).abs().max().item()
         ratio["grad"] = max(ratio["grad"], err / (1e-3 * scale))
+    worst = ("", 0.0)     # the parameter element farthest off, and its gradient
     for key, ref in states[1].items():
         if "num_batches" in key:
             continue
@@ -669,8 +914,13 @@ def train_reference_check(seed: int) -> dict:
             tol = 2 * LR
         else:
             tol = 1e-6 + LR * 1e-2
-        ratio["param"] = max(ratio["param"],
-                             (states[0][key] - ref).abs().max().item() / tol)
+        off = (states[0][key] - ref).abs().flatten() / tol
+        if off.max().item() > ratio["param"]:
+            ratio["param"] = off.max().item()
+            g = grads[1].get(key)
+            worst = (key, float("nan") if g is None else g.flatten()[off.argmax()].item())
+    print(f"  {loss_name}: the parameter farthest off is an element of {worst[0]}, "
+          f"whose CPU gradient is {worst[1]:.3e} (Adam's eps 1e-8)")
     return ratio
 
 
@@ -702,28 +952,38 @@ def main() -> int:
 
     model = build_model(LEADERBOARD, precision="bf16", seed=0)
 
-    def prep(seeds, b):
+    def prep(what, seeds, b, n=N, valid=VALID, dufo=False):
         out, ms = [], []
         for sd in seeds:
-            hb = make_batch(sd, b=b)
+            hb = make_batch(sd, b=b, n=n, valid=valid, dufo=dufo)
             t0 = time.perf_counter()
             out.append(attach_host_prep(hb, VOXEL, RANGE))
             ms.append((time.perf_counter() - t0) * 1e3)
-        return out, ms
+        print(f"{what} host prep ms per batch: " + ", ".join(f"{t:.1f}" for t in ms))
+        return out
 
-    batches, host_ms = prep(range(100, 100 + NUM_BATCHES), B)
-    print("eval host prep ms per batch: " + ", ".join(f"{t:.1f}" for t in host_ms))
-    train_batches, train_host_ms = prep(range(200, 200 + TRAIN_STEPS), TRAIN_B)
-    print("train host prep ms per batch: "
-          + ", ".join(f"{t:.1f}" for t in train_host_ms))
+    batches = prep("eval", range(100, 100 + NUM_BATCHES), B)
+    train_batches = prep("train", range(200, 200 + TRAIN_STEPS), TRAIN_B)
+    ssl_batches = prep("ssl (with the pc1 cell prep)", range(300, 300 + SSL_STEPS),
+                       TRAIN_B, dufo=True)
+    brute_batches = prep("ssl 2 x 16,384", range(400, 400 + BRUTE_STEPS), TRAIN_B,
+                         n=BRUTE_N, valid=BRUTE_VALID, dufo=True)
 
     kernels = check_kernels(model, batches[0])
     for name, r in check_train_kernels(model, train_batches[0]).items():
         kernels.setdefault(name, {}).update(r)
+    kernels.update(check_ssl_kernels(ssl_batches[0], brute_batches[0]))
+    worst = sweep_vs_brute(ssl_batches[1])
+    print(f"sweep vs brute (full width): largest difference over its tolerance "
+          f"{worst:.3f}")
+    if not worst <= 1.0:
+        raise SystemExit("the sweep and the brute search disagree below the radius")
 
+    no_ssl = {"segment_sum_lanes": 0, "cell_sweep": 0, "chamfer_brute": 0}
     metrics, three, device_ms, eval_launches = run_main_path(model, batches)
     want = {"segment_sum": 2 * NUM_BATCHES, "sorted_gather": NUM_BATCHES,
-            "fused_gru": NUM_BATCHES, "fused_gru_bwd": 0, "cbg_fwd": 0, "cbg_bwd": 0}
+            "fused_gru": NUM_BATCHES, "fused_gru_bwd": 0, "cbg_fwd": 0, "cbg_bwd": 0,
+            **no_ssl}
     print(f"launches on the eval path: {eval_launches} (want {want})")
     if eval_launches != want:
         raise SystemExit("the eval path did not launch every kernel as expected")
@@ -736,29 +996,42 @@ def main() -> int:
     if not np.isfinite(metrics["EPE_3way_mean"]):
         raise SystemExit("3-way EPE is not finite")
 
-    auxes, train_ms, launches = run_train_path(model, train_batches)
     per_step = {"segment_sum": 3, "sorted_gather": 3, "fused_gru": 1,
-                "fused_gru_bwd": 1, "cbg_fwd": 6, "cbg_bwd": 6}
-    want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
-    print(f"launches on the train path: {launches} (want {want})")
-    if launches != want:
-        raise SystemExit("the train path did not launch every kernel as expected")
-    med = float(np.median(train_ms[1:]))
-    print("train step device ms: " + ", ".join(f"{t:.3f}" for t in train_ms)
-          + f"; steady median {med:.3f} ms = {TRAIN_B / med * 1e3:.2f} pairs/s; "
-          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+                "fused_gru_bwd": 1, "cbg_fwd": 6, "cbg_bwd": 6, **no_ssl}
+    runs = {}
+    for label, loss_name, bts, extra in (
+            ("train", "deflowLoss", train_batches, {}),
+            ("ssl", "seflowLoss", ssl_batches, {"cell_sweep": 2, "segment_sum_lanes": 1}),
+            ("ssl 2 x 16,384", "seflowLoss", brute_batches, {"chamfer_brute": 4})):
+        torch.cuda.reset_peak_memory_stats()
+        _, step_ms, launches = run_train_path(model, bts, loss_name, label,
+                                              profile=label != "ssl 2 x 16,384")
+        want = {k: (extra.get(k, v)) * len(bts) for k, v in per_step.items()}
+        print(f"launches on the {label} path: {launches} (want {want})")
+        if launches != want:
+            raise SystemExit(f"the {label} path did not launch every kernel as expected")
+        med = float(np.median(step_ms[1:]))
+        print(f"{label} step device ms: " + ", ".join(f"{t:.3f}" for t in step_ms)
+              + f"; steady median {med:.3f} ms = {TRAIN_B / med * 1e3:.2f} pairs/s; "
+              f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        runs[label] = (launches, len(bts))
 
     ref_err = reference_check(seed=7)
     print(f"reference check (f32, 64x64 grid, card vs CPU): max |d pred_flow| "
           f"{ref_err:.3e} (tol 2e-4)")
     if not ref_err < 2e-4:
         raise SystemExit("card and CPU disagree on the small f32 input")
-    ratio = train_reference_check(seed=7)
-    print("train reference check (f32, 64x64 grid, one Adam step, card vs CPU): "
-          "largest difference over its tolerance: "
-          + ", ".join(f"{k} {v:.3f}" for k, v in ratio.items()))
-    if not all(v <= 1.0 for v in ratio.values()):
-        raise SystemExit("card and CPU disagree on the small f32 train step")
+    for what, loss_name, grid in (("deflowLoss", "deflowLoss", False),
+                                  ("seflowLoss, grid branch", "seflowLoss", True),
+                                  ("seflowLoss, brute branch", "seflowLoss", False)):
+        ratio = train_reference_check(7, loss_name, grid)
+        held = [k for k in ratio if k != "param" or loss_name == "deflowLoss"]
+        print(f"train reference check ({what}; f32, 64x64 grid, 2 x 4,096 slots, "
+              "one Adam step, card vs CPU): largest difference over its tolerance: "
+              + ", ".join(f"{k} {v:.3f}" + ("" if k in held else " (not held)")
+                          for k, v in ratio.items()))
+        if not all(ratio[k] <= 1.0 for k in held):
+            raise SystemExit(f"card and CPU disagree on the small f32 {what} step")
 
     sources = {"segment_sum": ("deflow_tpu_torch/csrc/segment_sum.cu",
                                "deflow_tpu/ops/pallas_scatter.py:211"),
@@ -771,12 +1044,24 @@ def main() -> int:
                "cbg_fwd": ("deflow_tpu_torch/csrc/cbg.cu",
                            "deflow_tpu/ops/pallas_cbg.py:241"),
                "cbg_bwd": ("deflow_tpu_torch/csrc/cbg.cu",
-                           "deflow_tpu/ops/pallas_cbg.py:414")}
-    # launches: the train path's run (all six kernels are on it); the eval
-    # path's counts of the first three are kept beside them
+                           "deflow_tpu/ops/pallas_cbg.py:414"),
+               "segment_sum_lanes": ("deflow_tpu_torch/csrc/segment_sum_lanes.cu",
+                                     "deflow_tpu/ops/pallas_scatter.py:347"),
+               "cell_sweep": ("deflow_tpu_torch/csrc/cell_sweep.cu",
+                              "deflow_tpu/ops/pallas_sweep.py:205"),
+               "chamfer_brute": ("deflow_tpu_torch/csrc/chamfer_brute.cu",
+                                 "deflow_tpu/ops/pallas_chamfer.py:79")}
+    # launches: kernels 1-6 from the train path's run, the sweep and the lane
+    # sum from the SSL path's, the brute search from the 2 x 16,384 SSL run;
+    # the per-step counts of every path (and the eval path's) beside them
+    home = {"segment_sum_lanes": "ssl", "cell_sweep": "ssl",
+            "chamfer_brute": "ssl 2 x 16,384"}
+    per = lambda label, name: runs[label][0][name] / runs[label][1]
     rows = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-             "launches": launches[name],
-             "launches_per_train_step": launches[name] / TRAIN_STEPS,
+             "launches": runs[home.get(name, "train")][0][name],
+             "launches_per_train_step": per("train", name),
+             "launches_per_ssl_step": per("ssl", name),
+             "launches_per_ssl_brute_step": per("ssl 2 x 16,384", name),
              **({"eval_launches": eval_launches[name]} if eval_launches[name] else {}),
              **kernels[name]}
             for name, (src, rep) in sources.items()]

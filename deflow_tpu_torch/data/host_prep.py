@@ -16,6 +16,12 @@ Adds to a collated batch (all per-point arrays now in sorted order):
     pc{0,1}_ids, pc{0,1}_sorted [B, N] int32  ascending pillar ids
     pc{0,1}_sorted_rec         [B, N, 9] f32  [xyz | p−centroid | p−center]
     pc{0,1}_unsort             [B, N] int32   ``out_orig = out_sorted[unsort]``
+
+and, when the batch carries DUFO labels (SSL), pc1's chamfer cell sort
+(``chamfer_cell_prep``) from pc1's final, sorted row order:
+    pc1_cell_lanes             [B, 5, N] f32  cell-sorted x, y, z, flag, row
+    pc1_cell_sid               [B, N] int32   local cell ids (masked: kgap)
+    pc1_cell_start             [B, kgap+1] int32  first row of each cell
 """
 
 from __future__ import annotations
@@ -29,6 +35,10 @@ HOST_PREP_KEYS = (
     "pc0_ids", "pc0_sorted", "pc1_ids", "pc1_sorted",
     "pc0_sorted_rec", "pc1_sorted_rec",
 )
+
+# SSL: pc1's chamfer cell sort for the cell sweep (ops/chamfer.py
+# ``_sweep_cloud_from_host``); pc1 carries no gradient, so the host owns it
+CHAMFER_CELL_KEYS = ("pc1_cell_lanes", "pc1_cell_sid", "pc1_cell_start")
 
 # per-point batch keys that ride pc0's (resp. pc1's) point order
 _PC0_ALIGNED = ("pc0", "pc0_mask", "flow", "flow_is_valid",
@@ -113,6 +123,36 @@ def sorted_record(pts: np.ndarray, order: np.ndarray, sorted_id: np.ndarray,
     return np.where(valid[:, None], rec, 0.0).astype(np.float32)
 
 
+def chamfer_cell_prep(pts: np.ndarray, mask: np.ndarray, flag: np.ndarray,
+                      cell: float = 2.0,
+                      lo: Sequence[float] = (-51.2, -51.2),
+                      hi: Sequence[float] = (51.2, 51.2)) -> Dict[str, np.ndarray]:
+    """One cloud's chamfer cell sort: XY binned into ``cell``-metre cells
+    (true f32 division, floor, clip), rows stably sorted by local cell id
+    ``cy·gx + cx`` (masked rows: the per-sample sentinel ``kgap =
+    (gy+1)·gx``).  Returns ``lanes`` [5, N] f32 (sorted x, y, z with masked
+    rows zeroed, flag, original row), ``sid`` [N] int32 sorted local ids and
+    ``start`` [kgap+1] int32, the first sorted row with id >= c.  The
+    geometry must match the loss's ``NNSpec`` (cell = max(truncate, 0.5),
+    ring 1, ±51.2 m)."""
+    gx = int(np.ceil((hi[0] - lo[0]) / cell - 1e-6))
+    gy = int(np.ceil((hi[1] - lo[1]) / cell - 1e-6))
+    kgap = (gy + 1) * gx
+    rel = (pts[:, :2].astype(np.float32) - np.asarray(lo, np.float32)) / np.float32(cell)
+    cc = np.floor(rel).astype(np.int32)
+    cx = np.clip(cc[:, 0], 0, gx - 1)
+    cy = np.clip(cc[:, 1], 0, gy - 1)
+    sid_local = np.where(mask, cy * gx + cx, kgap).astype(np.int32)
+    order = np.argsort(sid_local, kind="stable")
+    sid_sorted = sid_local[order]
+    p = np.where(mask[order][:, None], pts[order], 0.0).astype(np.float32)
+    lanes = np.stack([p[:, 0], p[:, 1], p[:, 2],
+                      flag[order].astype(np.float32), order.astype(np.float32)])
+    start = np.searchsorted(sid_sorted,
+                            np.arange(kgap + 1, dtype=np.int32)).astype(np.int32)
+    return {"lanes": lanes, "sid": sid_sorted, "start": start}
+
+
 def permute_rows(a: np.ndarray, order: np.ndarray) -> np.ndarray:
     """``a[order]`` along the point axis."""
     return np.ascontiguousarray(a)[order]
@@ -177,10 +217,17 @@ def attach_host_prep(
             p[f"{tag}_ids"] = p[f"{tag}_sorted"]
             p[f"{tag}_unsort"] = p.pop(f"{tag}_iperm")
             del p[f"{tag}_order"]
+        if "dufo_label1" in batch:
+            cp = chamfer_cell_prep(
+                batch["pc1"][i], batch["pc1_mask"][i],
+                batch["pc1_mask"][i] & (batch["dufo_label1"][i] > 0))
+            for k in CHAMFER_CELL_KEYS:
+                p[k] = cp[k[len("pc1_cell_"):]]
         per.append(p)
 
-    for k in HOST_PREP_KEYS + ("pc0_unsort", "pc1_unsort"):
-        batch[k] = np.stack([p[k] for p in per])
+    for k in HOST_PREP_KEYS + ("pc0_unsort", "pc1_unsort") + CHAMFER_CELL_KEYS:
+        if k in per[0]:
+            batch[k] = np.stack([p[k] for p in per])
     return batch
 
 

@@ -1,8 +1,10 @@
-"""Supervised scene-flow losses: deflowLoss / ff3dLoss / zeroflowLoss.
+"""Scene-flow losses: deflowLoss / ff3dLoss / zeroflowLoss and the SeFlow
+self-supervised seflowLoss.
 
-Counterpart of ``deflow_tpu/losses.py`` (the supervised part).  All losses
-take the NETWORK flow: the target is the total ground-truth flow minus the
-rigid ego ``pose_flow``.
+Counterpart of ``deflow_tpu/losses.py``.  The supervised losses take the
+NETWORK flow: the target is the total ground-truth flow minus the rigid ego
+``pose_flow``.  ``seflow_loss`` takes the model's output dict and the batch
+(see its docstring).
 
 Inputs (all [B, N, ...]):
     pred:    [B, N, 3] network flow
@@ -13,9 +15,12 @@ Inputs (all [B, N, ...]):
 
 from __future__ import annotations
 
+import warnings
 from typing import Callable, Dict, Optional
 
 import torch
+
+from deflow_tpu_torch.ops import chamfer as _chamfer
 
 _SWEEP_DT = 0.1  # AV2 lidar sweep interval (s): flow [m] / 0.1 s = speed [m/s]
 
@@ -71,3 +76,86 @@ def get_loss(name: str) -> Callable:
     if name not in LOSS_REGISTRY:
         raise KeyError(f"unknown loss_fn {name!r}; options: {sorted(LOSS_REGISTRY)}")
     return LOSS_REGISTRY[name]
+
+
+# ------------------------------------------------------------------ SSL losses
+def _rows_mean(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """Per-sample masked mean: [B, N] × [B, N] → [B]; 0 for an empty mask."""
+    s = torch.where(m, x, 0.0).sum(-1)
+    n = m.sum(-1)
+    return torch.where(n > 0, s / n.clamp(min=1), 0.0)
+
+
+def seflow_loss(out: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
+                truncate: float = 2.0, chamfer_method: str = "auto") -> torch.Tensor:
+    """SeFlow self-supervised loss (arXiv:2407.01702 §IV), needing no gt flow:
+    the mean over samples of
+      1. the truncated chamfer between pc0 warped by the total flow
+         (pose_flow + flow) and pc1, both directions;
+      2. with DUFO labels, the mean squared net flow of DUFO-static pc0
+         points;
+      3. with both clouds' DUFO labels, the truncated chamfer within the
+         dynamic subsets.
+    On the grid branch (``chamfer_method`` "grid", or "auto" with N·M >
+    2^28) terms 1 and 3 come from one fused sweep per direction, with pc1's
+    cell sort taken from the batch's ``pc1_cell_*`` keys when their geometry
+    matches the loss's grid; otherwise the brute search runs twice.  The
+    JAX package's ``shard_map`` branch and ``dyn_cap`` are not ported."""
+    net = out["flow"]
+    total = out["pose_flow"] + net
+    pc0, pc1 = batch["pc0"], batch["pc1"]
+    m0 = out["pc0_valid"] & batch["pc0_mask"]
+    m1 = out["pc1_valid"] & batch["pc1_mask"]
+    dufo0, dufo1 = batch.get("dufo_label0"), batch.get("dufo_label1")
+    warped = pc0 + total
+    t2 = truncate * truncate
+    n, m = warped.shape[-2], pc1.shape[-2]
+    use_grid = (chamfer_method == "grid"
+                or (chamfer_method == "auto" and n * m > _chamfer._AUTO_GRID_PAIRS))
+    if dufo0 is not None and dufo1 is not None and use_grid:
+        spec = _chamfer._resolve_spec("grid", n, m, truncate, None)
+        dyn0 = m0 & (dufo0 > 0)
+        dyn1 = m1 & (dufo1 > 0)
+        host_c1 = None
+        if "pc1_cell_lanes" in batch:
+            gx, gy = _chamfer._grid_dims(spec)
+            if batch["pc1_cell_start"].shape[-1] == (gy + 1) * gx + 1:
+                host_c1 = (batch["pc1_cell_lanes"], batch["pc1_cell_sid"],
+                           batch["pc1_cell_start"])
+            else:
+                # Python's default filter shows this once per call site
+                warnings.warn(
+                    f"seflow_loss: the batch's pc1 cell prep has "
+                    f"{batch['pc1_cell_start'].shape[-1] - 1} cells, the loss's "
+                    f"grid {(gy + 1) * gx}; sorting pc1 on the device instead",
+                    stacklevel=2)
+        d0, d1, dd0, dd1 = _chamfer.ssl_chamfer_distances(
+            warped, pc1, m0, m1, dyn0, dyn1, truncate=truncate, spec=spec,
+            host_c1=host_c1)
+        terms = (_rows_mean(d0.clamp(max=t2), m0) + _rows_mean(d1.clamp(max=t2), m1)
+                 + _rows_mean(dd0.clamp(max=t2), dyn0)
+                 + _rows_mean(dd1.clamp(max=t2), dyn1))
+        static = m0 & (dufo0 == 0)
+        terms = terms + _rows_mean((net ** 2).sum(-1), static)
+        return terms.mean()
+
+    d0, d1 = _chamfer.chamfer_distance(warped, pc1, m0, m1, method=chamfer_method,
+                                       truncate=truncate)
+    terms = _rows_mean(d0.clamp(max=t2), m0) + _rows_mean(d1.clamp(max=t2), m1)
+    if dufo0 is not None:
+        static = m0 & (dufo0 == 0)
+        terms = terms + _rows_mean((net ** 2).sum(-1), static)
+        if dufo1 is not None:
+            dyn0 = m0 & (dufo0 > 0)
+            dyn1 = m1 & (dufo1 > 0)
+            dd0, dd1 = _chamfer.chamfer_distance(warped, pc1, dyn0, dyn1,
+                                                 method=chamfer_method,
+                                                 truncate=truncate)
+            terms = terms + (_rows_mean(dd0.clamp(max=t2), dyn0)
+                             + _rows_mean(dd1.clamp(max=t2), dyn1))
+    return terms.mean()
+
+
+SSL_LOSS_REGISTRY: Dict[str, Callable] = {
+    "seflowLoss": seflow_loss,
+}

@@ -1,4 +1,5 @@
-"""Sorted segment-sum: the embedder's pillar scatter.
+"""Sorted segment-sums: the embedder's pillar scatter and the chamfer
+VJP's lane scatter.
 
 ``sorted_segment_sum`` launches ``csrc/segment_sum.cu`` on CUDA tensors and
 takes the plain PyTorch version, ``segment_sum_plain``, only for CPU
@@ -8,6 +9,11 @@ tensors.  Counterpart of ``deflow_tpu/ops/pallas_scatter.py``
 Contract: ``feats [N, C]`` (f32 or bf16) in ascending-id order, ``ids [N]``
 int32; ids ≥ ``num_segments`` (the sentinel) add nothing; empty rows are
 exact zeros; f32 accumulation, output in the input dtype.
+
+``segment_sum_lanes`` (``csrc/segment_sum_lanes.cu``, plain version
+``segment_sum_lanes_plain``) is the narrow-row counterpart of
+``segment_sum_lanes_pallas``: ``rows [N, L ≤ 7]`` f32 by ascending ids into
+``[num_segments, L]`` f32, ids outside ``[0, num_segments)`` adding nothing.
 """
 
 from __future__ import annotations
@@ -79,3 +85,56 @@ def sorted_segment_sum(feats: torch.Tensor, ids: torch.Tensor,
 
 
 sorted_segment_sum.launches = 0
+
+MAX_LANES = 7
+
+
+def segment_sum_lanes_plain(rows: torch.Tensor, ids: torch.Tensor,
+                            num_segments: int) -> torch.Tensor:
+    """index_add_ into an f32 table with one extra row that takes the
+    out-of-range ids."""
+    s = num_segments
+    idx = torch.where((ids >= 0) & (ids < s), ids, s).long()
+    out = torch.zeros(s + 1, rows.shape[1], dtype=torch.float32,
+                      device=rows.device)
+    out.index_add_(0, idx, rows.float())
+    return out[:s]
+
+
+def _setup_lanes(lib):
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.segment_sum_lanes.restype = i32
+    lib.segment_sum_lanes.argtypes = [vp, vp, i32, i32, i32, vp, vp]
+
+
+def segment_sum_lanes(rows: torch.Tensor, ids: torch.Tensor,
+                      num_segments: int) -> torch.Tensor:
+    """Segment-sum of ``rows [N, L]`` f32 (1 ≤ L ≤ 7) by ascending
+    ``ids [N]`` int32 into ``[num_segments, L]`` f32."""
+    if rows.dim() != 2 or ids.dim() != 1 or ids.shape[0] != rows.shape[0]:
+        raise ValueError(f"rows {tuple(rows.shape)} / ids {tuple(ids.shape)}")
+    if rows.dtype != torch.float32 or not 1 <= rows.shape[1] <= MAX_LANES:
+        raise ValueError(f"rows {rows.dtype} x {rows.shape[1]} lanes: "
+                         f"f32 with 1..{MAX_LANES} lanes only")
+    if ids.dtype != torch.int32 or ids.device != rows.device:
+        raise ValueError("ids must be int32 on the rows' device")
+    if rows.device.type == "cpu":
+        return segment_sum_lanes_plain(rows, ids, num_segments)
+    if rows.device.type != "cuda":
+        raise ValueError(f"unsupported device {rows.device}")
+    if not (rows.is_contiguous() and ids.is_contiguous()):
+        raise ValueError("rows and ids must be contiguous")
+    if max(rows.numel(), num_segments * rows.shape[1]) >= 2 ** 31:
+        raise ValueError("sizes beyond int32 indexing")
+    lib = _build.load("segment_sum_lanes", _setup_lanes)
+    out = torch.empty(num_segments, rows.shape[1], dtype=torch.float32,
+                      device=rows.device)
+    rc = lib.segment_sum_lanes(rows.data_ptr(), ids.data_ptr(), rows.shape[0],
+                               rows.shape[1], num_segments, out.data_ptr(),
+                               _build.stream_ptr(rows))
+    _build.check(lib, rc, "segment_sum_lanes")
+    segment_sum_lanes.launches += 1
+    return out
+
+
+segment_sum_lanes.launches = 0

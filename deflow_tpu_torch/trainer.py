@@ -3,8 +3,9 @@
 Counterpart of ``deflow_tpu/trainer.py``: ``make_optimizer``,
 ``init_train_state`` (here a :class:`TrainState` holding the model with its
 parameters and BN running statistics, the optimizer with its state, and the
-step counter), ``make_train_step`` (the supervised step), ``make_eval_step``
-and ``device_batch``.  In eval, the final predicted flow is the rigid ego
+step counter), ``make_train_step`` (the supervised step, or the SeFlow
+self-supervised one for ``seflowLoss``), ``make_eval_step`` and
+``device_batch``.  In eval, the final predicted flow is the rigid ego
 flow everywhere plus the network flow at voxel-valid points.
 
 Optimizer semantics follow optax: Adam (b1 0.9, b2 0.999, eps 1e-8), AdamW
@@ -22,14 +23,17 @@ from typing import Any, Callable, Dict, Iterable, Sequence, Tuple
 import numpy as np
 import torch
 
-from deflow_tpu_torch.data.host_prep import HOST_PREP_KEYS, host_prep_from_batch
+from deflow_tpu_torch.data.host_prep import (CHAMFER_CELL_KEYS, HOST_PREP_KEYS,
+                                             host_prep_from_batch)
 from deflow_tpu_torch.device import resolve_device
-from deflow_tpu_torch.losses import get_loss
+from deflow_tpu_torch.losses import SSL_LOSS_REGISTRY, get_loss
 
-# the host-batch keys the model reads, and those the supervised loss adds
+# the host-batch keys the model reads, and those the supervised and the SSL
+# losses add
 MODEL_KEYS = ("pc0", "pc1", "pose0", "pose1", "pc0_mask", "pc1_mask",
               "ego_motion") + HOST_PREP_KEYS
 TRAIN_KEYS = MODEL_KEYS + ("flow", "flow_is_valid", "flow_category_indices")
+SSL_TRAIN_KEYS = MODEL_KEYS + ("dufo_label0", "dufo_label1") + CHAMFER_CELL_KEYS
 
 
 def device_batch(batch: Dict, device=None,
@@ -147,34 +151,45 @@ def make_train_step(model: torch.nn.Module, loss_name: str,
                     device=None) -> Callable:
     """``train_step(state, host_or_device_batch) -> (state, aux)`` on
     ``device`` (the card unless ``"cpu"``): the supervised step on target =
-    flow − pose_flow over mask = pc0_valid & flow_is_valid.  ``aux`` holds
-    device scalars ``loss``, ``epe`` (masked mean L2 of flow − target),
-    ``valid_points`` and ``grad_norm`` (before clipping).  Each step runs the
-    model in train mode and each eval step in eval mode, so the two may
-    alternate."""
+    flow − pose_flow over mask = pc0_valid & flow_is_valid, or for an SSL
+    loss (``seflowLoss``) the self-supervised step, whose loss reads the
+    model's output dict and the batch (DUFO labels, pc1's cell prep).
+    ``aux`` holds device scalars ``loss``, ``epe`` (masked mean L2 of flow −
+    target; 0 for SSL), ``valid_points`` (SSL: pc0_valid & pc0_mask) and
+    ``grad_norm`` (before clipping).  Each step runs the model in train mode
+    and each eval step in eval mode, so the two may alternate."""
     dev = resolve_device(device)
     model.to(dev)
-    loss_fn = get_loss(loss_name)
+    is_ssl = loss_name in SSL_LOSS_REGISTRY
+    loss_fn = SSL_LOSS_REGISTRY[loss_name] if is_ssl else get_loss(loss_name)
+    keys = SSL_TRAIN_KEYS if is_ssl else TRAIN_KEYS
 
     def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
         if state.model is not model:
             raise ValueError("the state holds another model than the step")
         model.train()
-        b = device_batch(batch, dev, TRAIN_KEYS)
+        b = device_batch(batch, dev, keys)
         state.optimizer.zero_grad(set_to_none=True)
         out = model(b["pc0"], b["pc1"], b["pose0"], b["pose1"],
                     b["pc0_mask"], b["pc1_mask"], ego_motion=b.get("ego_motion"),
                     host_prep=host_prep_from_batch(b))
-        target = b["flow"] - out["pose_flow"]
-        mask = out["pc0_valid"] & b["flow_is_valid"]
-        loss = loss_fn(out["flow"], target, mask, b.get("flow_category_indices"))
+        if is_ssl:
+            mask = out["pc0_valid"] & b["pc0_mask"]
+            loss = loss_fn(out, b)
+        else:
+            target = b["flow"] - out["pose_flow"]
+            mask = out["pc0_valid"] & b["flow_is_valid"]
+            loss = loss_fn(out["flow"], target, mask, b.get("flow_category_indices"))
         loss.backward()
         grad_norm = apply_gradients(state.optimizer, model.parameters(), state.clip)
         state.step += 1
         with torch.no_grad():
-            err = torch.linalg.vector_norm(out["flow"] - target, dim=-1)
             n = mask.sum()
-            epe = torch.where(mask, err, 0.0).sum() / n.clamp(min=1)
+            if is_ssl:      # no gt flow to compare against
+                epe = torch.zeros((), device=dev)
+            else:
+                err = torch.linalg.vector_norm(out["flow"] - target, dim=-1)
+                epe = torch.where(mask, err, 0.0).sum() / n.clamp(min=1)
         return state, {"loss": loss.detach(), "epe": epe, "valid_points": n,
                        "grad_norm": grad_norm}
 

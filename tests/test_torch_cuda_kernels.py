@@ -10,13 +10,17 @@ Tolerances are chip_smoke's: the gather is bit-exact; the f32 segment-sum
 1e-5; bf16 one rounding of an f32 sum (rtol 2^-7); the GRU f32 1e-4 and
 bf16 rtol 2^-6 / atol 4e-3.  The backward kernels (GRU backward, CBG
 forward and backward) are held relative to the largest reference element:
-2e-5 in f32, 2^-6 in bf16.
+2e-5 in f32, 2^-6 in bf16.  The SSL kernels: the lane segment-sum 1e-6 of
+the largest element (summation order: the plain version's index_add_ uses
+atomics on the card); the cell sweep and the brute search bit-exact (one
+rounding per operation on both sides, the same tie rules).
 """
 
+import numpy as np
 import pytest
 import torch
 
-from deflow_tpu_torch.ops import gather, gru, scatter
+from deflow_tpu_torch.ops import gather, gru, nn, scatter
 
 pytestmark = pytest.mark.cuda
 
@@ -350,3 +354,148 @@ def test_scatter_gather_autograd_vs_cpu(dev, dtype):
     rtol, atol = (1e-5, 1e-5) if dtype == torch.float32 else (2 ** -7, 1e-6)
     torch.testing.assert_close(grads["cuda"][1].float(), grads["cpu"][1].float(),
                                rtol=rtol, atol=atol)
+
+
+# ------------------------------------------------- the SSL slice's kernels
+@pytest.mark.parametrize("lanes", [1, 4, 7])
+def test_segment_sum_lanes(dev, lanes):
+    g = torch.Generator().manual_seed(lanes)
+    s = 900
+    ids = torch.cat([torch.randint(0, s - 100, (3000,), generator=g).sort().values,
+                     torch.full((40,), s - 50), torch.tensor([s - 1]),     # long run, single row
+                     torch.full((77,), s + 3)]).to(torch.int32).to(dev)     # sentinel tail
+    rows = torch.randn(ids.shape[0], lanes, generator=g).to(dev)
+    k = scatter.segment_sum_lanes(rows, ids, s)
+    ref = scatter.segment_sum_lanes_plain(rows, ids, s)
+    torch.cuda.synchronize()
+    assert k.shape == (s, lanes) and k.dtype == torch.float32
+    assert _rel_err(k, ref) <= 1e-6
+    empty = torch.ones(s, dtype=torch.bool, device=dev)
+    empty[ids[ids < s].long()] = False
+    assert (k[empty] == 0).all()
+
+
+def test_segment_sum_lanes_all_sentinel_and_empty(dev):
+    rows = torch.ones(50, 4, device=dev)
+    ids = torch.full((50,), 300, dtype=torch.int32, device=dev)
+    assert (scatter.segment_sum_lanes(rows, ids, 200) == 0).all()
+    none = scatter.segment_sum_lanes(rows[:0], ids[:0], 200)
+    assert none.shape == (200, 4) and (none == 0).all()
+
+
+def _ssl_clouds(g, sizes, spread=7.5):
+    """[B, N, 3] clouds with per-sample valid counts (an empty sample
+    allowed), half of the valid points flagged."""
+    b, n = len(sizes), max(max(sizes), 1)
+    pts = (torch.rand(b, n, 3, generator=g) * 2 - 1) * spread
+    mask = torch.arange(n)[None, :] < torch.tensor(sizes)[:, None]
+    pts = torch.where(mask[..., None], pts, 0.0)
+    flag = mask & (torch.rand(b, n, generator=g) < 0.5)
+    return pts, mask, flag
+
+
+SWEEP_CASES = {   # (query valid counts, candidate valid counts)
+    "ragged": ([300, 1200], [700, 900]),
+    "empty_sample": ([0, 400], [350, 0]),
+    "single_point": ([1, 1], [1, 600]),
+    "dense": ([3000, 2500], [2600, 3100]),      # clean and dirty chunks
+}
+
+
+@pytest.mark.parametrize("dual", [True, False])
+@pytest.mark.parametrize("hosted", [False, True])
+@pytest.mark.parametrize("case", list(SWEEP_CASES))
+def test_cell_sweep_matches_plain(dev, case, hosted, dual):
+    """Bit-exact against the plain version: both round once per operation
+    and share the tie rules.  Multi-sample clouds put dirty chunks at the
+    sample boundaries and all-sentinel chunks at the tail."""
+    from deflow_tpu_torch.data.host_prep import chamfer_cell_prep
+    from deflow_tpu_torch.ops import chamfer, sweep
+
+    g = torch.Generator().manual_seed(len(case) + 2 * hosted + dual)
+    spec = chamfer.NNSpec(method="grid", lo=(-8.0, -8.0), hi=(8.0, 8.0))
+    qs, cs_ = SWEEP_CASES[case]
+    p, mp, fp = _ssl_clouds(g, qs)
+    q, mq, fq = _ssl_clouds(g, cs_)
+    if case == "single_point":
+        q[1, :550] = q[1, 0]                  # exact duplicates across blocks
+    qc = chamfer._sweep_sort(p.to(dev), mp.to(dev), fp.to(dev), spec)
+    if hosted:
+        cps = [chamfer_cell_prep(q[i].numpy(), mq[i].numpy(), fq[i].numpy(),
+                                 lo=spec.lo, hi=spec.hi) for i in range(q.shape[0])]
+        cc = chamfer._sweep_cloud_from_host(
+            *(torch.from_numpy(np.stack([c[k] for c in cps])).to(dev)
+              for k in ("lanes", "sid", "start")), spec)
+    else:
+        cc = chamfer._sweep_sort(q.to(dev), mq.to(dev), fq.to(dev), spec)
+    for a, b in ((qc, cc), (cc, qc)):
+        args = chamfer.sweep_inputs(a, b, spec)
+        k = sweep.cell_sweep(*args, dual=dual)
+        ref = sweep.cell_sweep_plain(*args, dual=dual)
+        torch.cuda.synchronize()
+        assert torch.equal(k, ref)
+    if case == "dense":
+        assert (args[4] == 0).any() and (args[4] == 1).any()
+
+
+@pytest.mark.parametrize("b,n,m", [(1, 1, 1), (1, 33, 1000), (2, 1000, 1025),
+                                   (3, 257, 2049)])
+def test_chamfer_min_matches_plain(dev, b, n, m):
+    g = torch.Generator().manual_seed(b * n + m)
+    p = (torch.rand(b, n, 3, generator=g) * 2 - 1) * 50
+    q = (torch.rand(b, m, 3, generator=g) * 2 - 1) * 50
+    mask = torch.rand(b, m, generator=g) < 0.8
+    if m > 40:
+        q[:, 30:40] = q[:, 10:20]             # exact duplicates: the lower row wins
+        p[:, :min(n, 10)] = q[:, 10:10 + min(n, 10)]
+        mask[:, 10:20] = mask[:, 30:40] = True
+    if b > 1:
+        mask[-1] = False                      # a sample with no valid q row
+    p, q, mask = p.to(dev), q.to(dev), mask.to(dev)
+    d, i = nn.chamfer_min(p, q, mask)
+    rd, ri = nn.chamfer_min_plain(p, q, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(d, rd) and torch.equal(i, ri)
+    d1, i1 = nn.chamfer_min(p[0], q[0], mask[0])
+    assert torch.equal(d1, d[0]) and torch.equal(i1, i[0])
+
+
+def test_chamfer_min_no_candidates(dev):
+    p = torch.randn(1, 5, 3, device=dev)
+    d, i = nn.chamfer_min(p, p[:, :0], torch.zeros(1, 0, dtype=torch.bool, device=dev))
+    assert (d == 3e38).all() and (i == 0).all()
+
+
+@pytest.mark.parametrize("hosted", [False, True])
+def test_ssl_chamfer_card_vs_cpu(dev, hosted):
+    """The fused SSL chamfer with its VJP wrt the warped cloud only: the
+    card launches two sweeps and one lane segment-sum and matches the CPU's
+    plain versions (distances exactly, gradients to f32 summation order)."""
+    from deflow_tpu_torch.data.host_prep import chamfer_cell_prep
+    from deflow_tpu_torch.ops import chamfer, sweep
+
+    g = torch.Generator().manual_seed(7 + hosted)
+    p, mp, fp = _ssl_clouds(g, [900, 1300], spread=40.0)
+    q = (p + 0.5 * torch.randn(p.shape, generator=g)) * mp[..., None]
+    mq, fq = mp.clone(), mp & (torch.rand(mp.shape, generator=g) < 0.3)
+    host = None
+    if hosted:
+        cps = [chamfer_cell_prep(q[i].numpy(), mq[i].numpy(), fq[i].numpy())
+               for i in range(2)]
+        host = [torch.from_numpy(np.stack([c[k] for c in cps]))
+                for k in ("lanes", "sid", "start")]
+    res = {}
+    for d in ("cpu", dev):
+        leaf = p.to(d).clone().requires_grad_()
+        before = (sweep.cell_sweep.launches, scatter.segment_sum_lanes.launches)
+        out = chamfer.ssl_chamfer_distances(
+            leaf, q.to(d), mp.to(d), mq.to(d), fp.to(d), fq.to(d),
+            host_c1=None if host is None else [h.to(d) for h in host])
+        sum(o.clamp(max=4.0).sum() for o in out).backward()
+        res[str(d)] = [o.detach().cpu() for o in out] + [leaf.grad.cpu()]
+        launched = (sweep.cell_sweep.launches - before[0],
+                    scatter.segment_sum_lanes.launches - before[1])
+        assert launched == ((0, 0) if d == "cpu" else (2, 1))
+    for k, ref in zip(res[str(dev)][:4], res["cpu"][:4]):
+        assert torch.equal(k, ref)
+    assert _rel_err(res[str(dev)][4], res["cpu"][4]) <= 1e-6

@@ -71,7 +71,9 @@ def _wrapper_calls(device):
     from deflow_tpu_torch.ops.cbg import cbg_block_bwd, cbg_block_fwd
     from deflow_tpu_torch.ops.gather import sorted_rows_gather
     from deflow_tpu_torch.ops.gru import fused_gru, fused_gru_bwd
-    from deflow_tpu_torch.ops.scatter import sorted_segment_sum
+    from deflow_tpu_torch.ops.nn import chamfer_min
+    from deflow_tpu_torch.ops.scatter import segment_sum_lanes, sorted_segment_sum
+    from deflow_tpu_torch.ops.sweep import cell_sweep
 
     f = lambda *s: torch.zeros(*s, device=device)
     ids = torch.tensor([0, 1, 1, 2 ** 30], dtype=torch.int32, device=device)
@@ -88,6 +90,13 @@ def _wrapper_calls(device):
         "cbg_bwd": lambda: cbg_block_bwd(f(1, 4, 4, 8), f(1, 4, 4, 8),
                                          f(1, 4, 4, 8), f(3, 3, 8, 8), f(6, 8),
                                          f(6, 8))[0],
+        "segment_sum_lanes": lambda: segment_sum_lanes(f(4, 4), ids, 3),
+        "cell_sweep": lambda: cell_sweep(
+            f(256, 8), f(1, 8, 512), ids.new_zeros(1, 3), ids.new_zeros(1, 3),
+            ids.new_zeros(1)),
+        "chamfer_min": lambda: chamfer_min(f(2, 5, 3), f(2, 7, 3),
+                                           torch.ones(2, 7, dtype=torch.bool,
+                                                      device=device))[0],
     }
 
 

@@ -41,8 +41,7 @@ from test_torch_modules import GRID, VOXEL, randomize_variables
 LR = 2e-4
 
 
-def _pair(precision, seed=21):
-    hb = make_host_batch(seed, 2, 512, VOXEL)
+def _pair(hb, precision, seed=21):
     dt = jnp.bfloat16 if precision == "bf16" else jnp.float32
     jm = JaxDeFlow(voxel_size=VOXEL, point_cloud_range=tuple(RANGE),
                    grid_feature_size=GRID, num_iters=4, dtype=dt)
@@ -59,11 +58,12 @@ def _pair(precision, seed=21):
     return jm, variables, port, jb, tb
 
 
-def _steps(precision):
-    """One step on each side.  Returns the JAX state, aux and gradients (read
-    by a pass-through transform chained before the optimizer) and the port's
-    state and aux; the port's gradients stay in each parameter's ``.grad``."""
-    jm, variables, port, jb, tb = _pair(precision)
+def run_steps(hb, loss_name="deflowLoss", precision="fp32"):
+    """One step on each side from the host batch ``hb``.  Returns the JAX
+    state, aux and gradients (read by a pass-through transform chained
+    before the optimizer) and the port's state and aux; the port's
+    gradients stay in each parameter's ``.grad``."""
+    jm, variables, port, jb, tb = _pair(hb, precision)
     cfg = {"lr": LR, "optimizer": "adam"}
     seen = {}
 
@@ -76,14 +76,15 @@ def _steps(precision):
     jstate = JT.TrainState(step=jnp.zeros((), jnp.int32), params=variables["params"],
                            batch_stats=variables["batch_stats"],
                            opt_state=tx.init(variables["params"]), tx=tx)
-    jstate, jaux = JT.make_train_step(jm, "deflowLoss")(jstate, JT.device_batch(jb, None))
+    jstate, jaux = JT.make_train_step(jm, loss_name)(jstate, JT.device_batch(jb, None))
     state = TT.init_train_state(port, cfg, device="cpu")
-    state, aux = TT.make_train_step(port, "deflowLoss", device="cpu")(state, tb)
+    state, aux = TT.make_train_step(port, loss_name, device="cpu")(state, tb)
     return jstate, jaux, seen["grads"], state, aux
 
 
-def test_train_step_matches_jax_f32():
-    jstate, jaux, jgrads, state, aux = _steps("fp32")
+def assert_step_matches_jax(jstate, jaux, jgrads, state, aux):
+    """The f32 tolerances of the module docstring: aux, parameters and BN
+    statistics after the step, and every parameter's gradient."""
     assert state.step == 1
     for k in ("loss", "epe", "valid_points", "grad_norm"):
         np.testing.assert_allclose(float(aux[k]), float(jaux[k]), rtol=1e-5, err_msg=k)
@@ -117,8 +118,13 @@ def test_train_step_matches_jax_f32():
                                        err_msg=key)
 
 
+def test_train_step_matches_jax_f32():
+    assert_step_matches_jax(*run_steps(make_host_batch(21, 2, 512, VOXEL)))
+
+
 def test_train_step_matches_jax_bf16():
-    _, jaux, _, state, aux = _steps("bf16")
+    _, jaux, _, state, aux = run_steps(make_host_batch(21, 2, 512, VOXEL),
+                                       precision="bf16")
     np.testing.assert_allclose(float(aux["loss"]), float(jaux["loss"]), rtol=2e-2)
     assert all(np.isfinite(p.detach().float().numpy()).all()
                for p in state.model.parameters())

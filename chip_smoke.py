@@ -8,7 +8,8 @@ Phases (any failure exits non-zero):
 2. build every kernel from ``deflow_tpu_torch/csrc`` with nvcc (sm_90a);
 3. each kernel at its path's shapes, in bf16 and in f32 (TF32 off): its
    error against its plain PyTorch version, its time, the plain version's
-   time, a library call's (or call sequence's) time, and the bound; the
+   time, a library call's (or call sequence's) time, and the bound (the
+   fused conv3x3+BN+GELU backward also split by the kernels it launches); the
    segment-sum and the row gather also as each other's backward on the
    train path's ids; the fused conv3x3+BN+GELU kernels at both chain widths;
    the SSL kernels on an SSL batch: the cell sweep (both directions), the
@@ -31,7 +32,7 @@ Phases (any failure exits non-zero):
    with 15% dynamic points, pc1's chamfer cell prep from the host) at
    2 x 98,304, which takes the grid branch: per step the train path's
    counts plus 2 cell sweeps and 1 lane segment-sum; peak memory and one
-   profiled step; then 2 steps at 2 x 16,384 (the brute branch under the
+   profiled step; then 3 steps at 2 x 16,384 (the brute branch under the
    same rule): 4 brute searches and no sweep per step;
 7. reference checks in f32 on small inputs, the card against the CPU
    (plain PyTorch versions): the eval output, and one train step's loss,
@@ -61,7 +62,7 @@ LEADERBOARD = {"voxel_size": VOXEL, "point_cloud_range": RANGE,
                "decoder_option": "gru", "num_iters": 4}
 NUM_BATCHES = 5
 SSL_STEPS = 5
-BRUTE_N, BRUTE_VALID, BRUTE_STEPS = 16384, 14336, 2   # 2 x 16,384: the brute branch
+BRUTE_N, BRUTE_VALID, BRUTE_STEPS = 16384, 14336, 3   # 2 x 16,384: the brute branch
 TRUNCATE = 2.0
 # H100 SXM data sheet: HBM 3.35 TB/s, dense bf16 tensor cores 989 TFLOP/s,
 # f32 outside the tensor cores 67 TFLOP/s
@@ -130,6 +131,47 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_split(fn, reps: int) -> dict:
+    """Device ms per call of ``fn`` by kernel name (torch.profiler over
+    ``reps`` calls after one warm-up call; template arguments and
+    namespaces dropped from the names)."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            key = e.name.replace("(anonymous namespace)::", "").replace("void ", "")
+            key = re.split(r"[<(]", key)[0].split("::")[-1].strip()
+            out[key] = out.get(key, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / reps
+    return out
+
+
+def gru_loop_bf16(h0, x, wzr, bzr, wq, bq, iters: int):
+    """The GRU loop as a PyTorch call sequence with bf16 operands to every
+    matmul (cuBLAS, f32 accumulation) and an f32 state: the library
+    yardstick of the fused GRU and, under autograd, of its backward."""
+    import torch
+
+    hd = h0.shape[1]
+    h = h0.float()
+    for _ in range(iters):
+        zr = torch.sigmoid((torch.cat([h.to(h0.dtype), x], -1) @ wzr).float() + bzr.float())
+        z, r = zr[:, :hd], zr[:, hd:]
+        q = torch.tanh((torch.cat([(r * h).to(h0.dtype), x], -1) @ wq).float() + bq.float())
+        h = (1.0 - z) * h + z * q
+    return h.to(h0.dtype)
 
 
 def bound(nbytes: float, flops: float, flop_rate: float):
@@ -276,16 +318,23 @@ def check_kernels(model, host_batch):
     flops = 2.0 * m * (hd + xdim) * (3 * hd) * iters
     nbytes = 2 * m * (hd + xdim + hd) + 2 * (hd + xdim) * 3 * hd + 2 * 3 * hd
     b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+
+    def library_fwd():
+        with torch.no_grad():
+            return gru_loop_bf16(*args, iters)
+
     results["fused_gru"] = {
         "max_abs_err": err,
         "ms": cuda_ms(lambda: gru.fused_gru(*args, iters), 10),
         "plain_ms": cuda_ms(lambda: gru.fused_gru_plain(*args, iters), 5),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(library_fwd, 5),
+        "library_call": "call sequence: the GRU loop with bf16 matmul operands "
+                        "(cuBLAS, f32 accumulation), no autograd",
     }
     for name, r in results.items():
         print(f"{name} {r.get('shape', '')}: {r['ms']:.4f} ms (bound "
               f"{r['bound_ms']:.4f} ms by {r['bound_by']}, plain {r['plain_ms']:.4f} ms, "
-              f"library {r['library_ms']} ms)")
+              f"library {r['library_ms']:.4f} ms)")
     return results
 
 
@@ -320,7 +369,7 @@ def _hold(name, dt, pairs):
     return worst
 
 
-def check_train_kernels(model, host_batch):
+def check_train_kernels(model, host_batch, splits: list):
     """Phase 3, training kernels at the train path's shapes (B = TRAIN_B):
     the segment-sum and the row gather as each other's backward, on the ids
     the autograd functions build from ``host_batch``; the GRU backward at
@@ -328,7 +377,10 @@ def check_train_kernels(model, host_batch):
     chain widths of the siamese 2B batch; each against its plain version.
     Returns the bf16 measurements: the backward uses of the segment-sum and
     the gather under "as_gather_bwd" / "as_scatter_bwd", the fused blocks'
-    256^2 width first and the 128^2 width under "width_128"."""
+    256^2 width first and the 128^2 width under "width_128".  Appends to
+    ``splits`` (result, call) for each fused block backward, whose split by
+    kernel (``split_ms``) the caller measures after every other timing of
+    the phase: torch.profiler leaves host overhead on later launches."""
     import torch
     import torch.nn.functional as F
 
@@ -373,19 +425,9 @@ def check_train_kernels(model, host_batch):
                                             k, ref))
 
     def library_bf16():
-        # the forward recomputed and its VJP through torch autograd, with
-        # bf16 operands to every matmul (cuBLAS, f32 accumulation)
+        # the forward recomputed and its VJP through torch autograd
         leaves = [a.detach().requires_grad_() for a in args[:6]]
-        h0, x, wzr, bzr, wq, bq = leaves
-        h = h0.float()
-        for _ in range(iters):
-            zr = torch.sigmoid((torch.cat([h.to(h0.dtype), x], -1) @ wzr).float()
-                               + bzr.float())
-            z, r = zr[:, :hd], zr[:, hd:]
-            q = torch.tanh((torch.cat([(r * h).to(h0.dtype), x], -1) @ wq).float()
-                           + bq.float())
-            h = (1.0 - z) * h + z * q
-        return torch.autograd.grad(h.to(h0.dtype), leaves, args[6])
+        return torch.autograd.grad(gru_loop_bf16(*leaves, iters), leaves, args[6])
 
     flops = 3 * 2.0 * m * (hd + xdim) * (3 * hd) * iters
     nbytes = 2 * m * (hd + xdim + hd) * 2 + 2 * (hd + xdim) * 3 * hd * 2
@@ -459,13 +501,15 @@ def check_train_kernels(model, host_batch):
         for kname, err, fn, plain, lib, (b_ms, b_by) in (
                 ("cbg_fwd", ef, lambda: cbg.cbg_block_fwd(*fa),
                  lambda: cbg.cbg_block_fwd_plain(*fa), lib_fwd, bf),
-                ("cbg_bwd", eb, lambda: cbg.cbg_block_bwd(*ba),
+                ("cbg_bwd", eb, lambda ba=ba: cbg.cbg_block_bwd(*ba),
                  lambda: cbg.cbg_block_bwd_plain(*ba), lib_bwd, bb)):
             r = {"max_abs_err": err, "ms": cuda_ms(fn, 10), "plain_ms": cuda_ms(plain, 3),
                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(lib, 5),
                  "library_call": "call sequence: torch BN+GELU, F.conv2d / "
                                  "torch.nn.grad.conv2d_* (cuDNN, bf16)",
                  "shape": f"{shape[0]}x{res}x{res}x{c}->{o}"}
+            if kname == "cbg_bwd":
+                splits.append((r, fn))
             if name == "256":
                 results[kname] = r
             else:
@@ -970,9 +1014,15 @@ def main() -> int:
                          n=BRUTE_N, valid=BRUTE_VALID, dufo=True)
 
     kernels = check_kernels(model, batches[0])
-    for name, r in check_train_kernels(model, train_batches[0]).items():
+    splits = []
+    for name, r in check_train_kernels(model, train_batches[0], splits).items():
         kernels.setdefault(name, {}).update(r)
     kernels.update(check_ssl_kernels(ssl_batches[0], brute_batches[0]))
+    for r, fn in splits:
+        r["split_ms"] = kernel_split(fn, 10)
+        print(f"cbg_bwd {r['shape']} split by kernel: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in sorted(r["split_ms"].items())))
+    del splits, fn          # the blocks' inputs: not held through the step phases
     worst = sweep_vs_brute(ssl_batches[1])
     print(f"sweep vs brute (full width): largest difference over its tolerance "
           f"{worst:.3f}")

@@ -21,19 +21,40 @@
 // 19.3 GFLOP per forward (two such products per backward) against 67 MB
 // (256²) and 34 MB (128²) of activations: operations and bytes are about even.
 //
-// Design.  Forward and dgrad: one block per 64-pixel row segment and all
-// output channels (<= 128).  The block builds its input window (3 rows x 66
-// pixels x all channels) in shared memory once, with the prologue (input BN
-// and GELU, or the BN backward for ds) applied in f32 and rounded to the
-// compute dtype exactly as the products consume it, then sums the 9 taps as
-// 16x16 tile products (WMMA on bf16, FFMA on f32) from shifted views of the
-// window, staging one tap's weights at a time in shared memory.  The
-// epilogue runs through an f32 staging tile: bias, rounding, the column sums
-// of the block.  wgrad ([9, C, O] f32 is 590 KB at 128 channels, beyond any
-// block) runs as a second kernel: each block sums one 64x64 (c, o) tile of
-// one tap over one slice of the pixels into its own f32 partial, from the
-// dgrad kernel's rounded ds and input activations; a third kernel reduces
-// the partials in slice order.  No float atomics.
+// Design.  All products are 16x16 tiles: WMMA on bf16, FFMA on f32 (the
+// parity path, not tuned).  Prologues (input BN and GELU, or the BN backward
+// for ds) run in f32 and round to the compute dtype exactly as the products
+// consume them.  No float atomics: partials are reduced in an order fixed by
+// the shape alone, so results are bit-identical from launch to launch and
+// from card to card.
+//
+// Forward: one block per 64-pixel row segment and all output channels
+// (<= 128).  The block builds its input window (3 rows x 66 pixels x all
+// channels) once, sums the 9 taps from shifted views of it, staging one
+// tap's weights at a time, and runs the epilogue (bias, rounding, column
+// sums) through an f32 staging tile.
+//
+// Backward: dgrad, then wgrad, then an ordered reduction of the wgrad's
+// partials.  Both are bound by operand loads and integer work, not FLOPs,
+// unless each staged element serves many products: a wgrad block per
+// (tap, c tile, o tile) with its own tap-shifted staging reads xa and ds
+// 9·⌈C/64⌉·⌈O/64⌉ times (~302 M element loads at both path widths), and a
+// dgrad block per 64 pixels restages 9·C·O weights (~151 M) and rebuilds
+// each ds row, with its BN backward, three times.  So:
+// - wgrad: a block owns one 64x64 (c, o) tile pair and a slab of work units
+//   (4 image rows of one sample x 64 pixels in bf16).  Each unit is staged
+//   once, xa with a one-pixel halo, with 16-byte cp.async copies into two
+//   stages (the next unit's copy runs under the current unit's products);
+//   every tap is a constant offset into the stage, and the block's warps
+//   hold all 9 taps' accumulators, so xa and ds are read about once per
+//   tile pair (xa 1.5 times: the halo rows).
+// - dgrad: a block owns 2 image rows (4 at <= 64 input channels) x 64
+//   pixels, so each staged tap of weights serves 2-4x the pixels; at <= 64
+//   channels all 9 taps stay in shared memory, at 128 the next tap is copied
+//   with cp.async under the current tap's products.  Each ds row lands in
+//   1.5-2 windows, not 3; the window's BN backward reads its scalars from
+//   shared memory and moves 16 bytes a load and store, as does the epilogue.
+// The dgrad writes ds (and xa when the input had a BN) once for the wgrad.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -66,27 +87,23 @@ __host__ __device__ inline int r16(int v) { return (v + 15) / 16 * 16; }
 __host__ __device__ inline int r64(int v) { return (v + 63) / 64 * 64; }
 __host__ inline size_t align256(size_t v) { return (v + 255) & ~(size_t)255; }
 
-// Shared memory of the forward (DGRAD false) and dgrad (true) kernels:
-// window [3][WIN][win_c + 16], one tap's weights [C16][O16 + 8] (the f32
-// epilogue staging [TP][out_c + 4] reuses it).
+// Shared memory of the forward kernel: window [3][WIN][C16 + 16], one tap's
+// weights [C16][O16 + 8] (the f32 epilogue staging [TP][O16 + 4] reuses it).
 template <typename T>
-size_t conv_smem_bytes(int c, int o, bool dgrad) {
-  const int win_c = dgrad ? r16(o) : r16(c), out_c = dgrad ? r16(c) : r16(o);
-  const size_t win = (size_t)3 * WIN * (win_c + 16) * sizeof(T);
+size_t conv_smem_bytes(int c, int o) {
+  const size_t win = (size_t)3 * WIN * (r16(c) + 16) * sizeof(T);
   const size_t w = (size_t)r16(c) * (r16(o) + 8) * sizeof(T);
-  const size_t stage = (size_t)TP * (out_c + 4) * 4;
+  const size_t stage = (size_t)TP * (r16(o) + 4) * 4;
   return win + (w > stage ? w : stage);
 }
 
-// Sum of the 9 taps over the window for this warp's output tiles.
-// Forward: out[p][o] += Σ_c win[ky][p + kx][c] · W[ky][kx][c][o].
-// Dgrad:   out[p][c] += Σ_o win[2 - ky][p + 2 - kx][o] · W[ky][kx][c][o].
-template <typename T, bool DGRAD>
+// Sum of the 9 taps over the forward's window for this warp's output
+// tiles: out[p][o] += Σ_c win[ky][p + kx][c] · W[ky][kx][c][o].
+template <typename T>
 __device__ void conv_taps(const T* win, int ldw, const T* __restrict__ wmat,
                           int c, int o, T* s_w, Acc<T>* acc, int nacc) {
   const int c16 = r16(c), o16 = r16(o), ldo = o16 + 8;
   const int warp = threadIdx.x / 32, rt = warp % 4, cg = warp / 4;
-  const int ksteps = (DGRAD ? o16 : c16) / 16;
   const T zero = from_f<T>(0.f);
   for (int tap = 0; tap < 9; ++tap) {
     const int ky = tap / 3, kx = tap % 3;
@@ -97,17 +114,12 @@ __device__ void conv_taps(const T* win, int ldw, const T* __restrict__ wmat,
       s_w[ci * ldo + oi] = ci < c && oi < o ? wt[ci * o + oi] : zero;
     }
     __syncthreads();
-    const int wy = DGRAD ? 2 - ky : ky, wx = DGRAD ? 2 - kx : kx;
-    const T* a0 = win + ((size_t)wy * WIN + wx + rt * 16) * ldw;
-    for (int kk = 0; kk < ksteps; ++kk) {
+    const T* a0 = win + ((size_t)ky * WIN + kx + rt * 16) * ldw;
+    for (int kk = 0; kk < c16 / 16; ++kk) {
       for (int j = 0; j < nacc; ++j) {
         const int ct = cg + 2 * j;
-        if (DGRAD)
-          acc[j].template mma<true, false>(a0 + kk * 16, ldw,
-                                           s_w + ct * 16 * ldo + kk * 16, ldo);
-        else
-          acc[j].template mma<true, true>(a0 + kk * 16, ldw,
-                                          s_w + kk * 16 * ldo + ct * 16, ldo);
+        acc[j].template mma<true, true>(a0 + kk * 16, ldw,
+                                        s_w + kk * 16 * ldo + ct * 16, ldo);
       }
     }
   }
@@ -160,7 +172,7 @@ cbg_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wmat,
   Acc<T> acc[MAXC / 32];
   const int nacc = warp_tiles(o16 / 16);
   for (int j = 0; j < nacc; ++j) acc[j].zero();
-  conv_taps<T, false>(win, ldw, wmat, c, o, s_w, acc, nacc);
+  conv_taps<T>(win, ldw, wmat, c, o, s_w, acc, nacc);
   stage_out(acc, nacc, stage, lds);
 
   const int np = w - x0 < TP ? w - x0 : TP;
@@ -184,138 +196,166 @@ cbg_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wmat,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-cbg_dgrad_kernel(const T* __restrict__ dz, const T* __restrict__ si,
-                 const T* __restrict__ sp, const T* __restrict__ wmat,
-                 const float* __restrict__ scal_in, const float* __restrict__ scal_out,
-                 int h, int w, int c, int o, T* __restrict__ dzp, T* __restrict__ ds_out,
-                 T* __restrict__ x_out, float* __restrict__ db_part,
-                 float* __restrict__ psp) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int c16 = r16(c), o16 = r16(o), ldw = o16 + 16, lds = c16 + 4;
-  T* win = (T*)smem;
-  T* s_w = win + 3 * WIN * ldw;
-  float* stage = (float*)s_w;
-  const int segs = (w + TP - 1) / TP;
-  const int blk = blockIdx.x;
-  const int seg = blk % segs, y = (blk / segs) % h, b = blk / (segs * h);
-  const int x0 = seg * TP;
-  const int np = w - x0 < TP ? w - x0 : TP;
-  const size_t pix0 = ((size_t)b * h + y) * w + x0;
-  const T zero = from_f<T>(0.f);
-
-  // ds = γ·istd·(dz − A − ẑ·B) on the window; the centre row is also this
-  // block's share of ds for the wgrad kernel
-  for (int i = threadIdx.x; i < 3 * WIN * o16; i += THREADS) {
-    const int oi = i % o16, j = (i / o16) % WIN, ky = i / (o16 * WIN);
-    const int yy = y + ky - 1, xx = x0 + j - 1;
-    T v = zero;
-    if (oi < o && yy >= 0 && yy < h && xx >= 0 && xx < w) {
-      const size_t e = (((size_t)b * h + yy) * w + xx) * o + oi;
-      const float zh = (to_f(si[e]) - scal_in[S_MEAN * o + oi]) * scal_in[S_ISTD * o + oi];
-      v = from_f<T>(scal_in[S_GAMMA * o + oi] * scal_in[S_ISTD * o + oi]
-                    * (to_f(dz[e]) - scal_in[S_A * o + oi] - zh * scal_in[S_B * o + oi]));
-      if (ky == 1 && j >= 1 && j <= TP) ds_out[e] = v;
-    }
-    win[(ky * WIN + j) * ldw + oi] = v;
-  }
-  __syncthreads();
-  for (int oi = threadIdx.x; oi < o; oi += THREADS) {
-    float s1 = 0.f;
-    for (int p = 0; p < np; ++p) s1 += to_f(win[(WIN + 1 + p) * ldw + oi]);
-    db_part[(size_t)blk * o + oi] = s1;
-  }
-  Acc<T> acc[MAXC / 32];
-  const int nacc = warp_tiles(c16 / 16);
-  for (int j = 0; j < nacc; ++j) acc[j].zero();
-  conv_taps<T, true>(win, ldw, wmat, c, o, s_w, acc, nacc);
-  stage_out(acc, nacc, stage, lds);
-
-  for (int i = threadIdx.x; i < np * c; i += THREADS) {
-    const int p = i / c, ci = i % c;
-    const size_t e = (pix0 + p) * c + ci;
-    float d = stage[p * lds + ci];
-    if (scal_out) {
-      const float z = (to_f(sp[e]) - scal_out[S_MEAN * c + ci]) * scal_out[S_ISTD * c + ci]
-                      * scal_out[S_GAMMA * c + ci] + scal_out[S_BETA * c + ci];
-      d *= gelu_grad(z);
-      x_out[e] = from_f<T>(gelu(z));
-      stage[p * lds + ci] = d;
-    }
-    dzp[e] = from_f<T>(d);
-  }
-  __syncthreads();
-  for (int ci = threadIdx.x; ci < c; ci += THREADS) {
-    float s1 = 0.f, s2 = 0.f;
-    if (scal_out) {
-      const float mean = scal_out[S_MEAN * c + ci], istd = scal_out[S_ISTD * c + ci];
-      for (int p = 0; p < np; ++p) {
-        const float d = stage[p * lds + ci];
-        s1 += d;
-        s2 += d * ((to_f(sp[(pix0 + p) * c + ci]) - mean) * istd);
-      }
-    }
-    psp[((size_t)blk * 2) * c + ci] = s1;
-    psp[((size_t)blk * 2 + 1) * c + ci] = s2;
-  }
-}
-
-// part[slice][tap][c][o] (c, o padded to 64) = Σ over the slice's pixels of
+// ---------------------------------------------------------------- wgrad
+// part[slab][tap][c][o] (c, o padded to 64) = Σ over the slab's pixels of
 // xa(pixel shifted by the tap)[c] · ds(pixel)[o], zero outside the image.
-constexpr int WG_ROWS = 32;
-constexpr int WG_LD = 64 + 8;
+//
+// A work unit is R = wg_rows<T>() image rows of one sample (4 in bf16, 1 in
+// f32, which must fit two stages in shared memory) x one 64-pixel segment.
+// Its stage holds xa for those rows with a one-pixel halo ((R + 2) rows x 66
+// pixels x 64 channels) and ds for the unit's own pixels (R x 64 x 64),
+// so a tap is a constant offset into shared memory.  Warp (ky, rt) owns the
+// three taps of kernel row ky for c rows rt*16..+16 and all four 16-wide o
+// tiles: 12 accumulators, fed per 16-pixel step by 3 A and 4 B fragments.
+// A block owns one (c, o) tile pair and a slab of consecutive units, which
+// it streams through two stages with cp.async (16 bytes a thread).
+constexpr int WG_WARPS = 12;             // 3 kernel rows x 4 c-row tiles
+constexpr int WG_THREADS = WG_WARPS * 32;
+constexpr int WG_LDX = 64 + 16;          // xa pixel stride: 32-byte aligned at every pixel (WMMA)
+constexpr int WG_LDS = 64 + 8;           // ds pixel stride
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-cbg_wgrad_kernel(const T* __restrict__ xa, const T* __restrict__ ds, int bsz, int h,
-                 int w, int c, int o, int slices, float* __restrict__ part) {
-  __shared__ __align__(128) T s_a[WG_ROWS * WG_LD];
-  __shared__ __align__(128) T s_b[WG_ROWS * WG_LD];
-  const int ct_n = (c + 63) / 64, ot_n = (o + 63) / 64, cp = ct_n * 64, op = ot_n * 64;
-  const int tile = blockIdx.x;
-  const int tap = tile / (ct_n * ot_n), c0 = (tile / ot_n) % ct_n * 64, o0 = tile % ot_n * 64;
-  const int ky = tap / 3, kx = tap % 3;
-  const long long npix = (long long)bsz * h * w;
-  const long long per = (npix + slices - 1) / slices;
-  const long long q_begin = blockIdx.y * per;
-  const long long q_end = q_begin + per < npix ? q_begin + per : npix;
-  const int tid = threadIdx.x, warp = tid / 32, rt = warp % 4, cg = warp / 4;
-  const T zero = from_f<T>(0.f);
-  Acc<T> acc[2];
-  acc[0].zero();
-  acc[1].zero();
-  for (long long q0 = q_begin; q0 < q_end; q0 += WG_ROWS) {
-    __syncthreads();
-    for (int i = tid; i < WG_ROWS * 64; i += THREADS) {
-      const int r = i / 64, k = i % 64;
-      const long long q = q0 + r;
-      T av = zero, bv = zero;
-      if (q < q_end) {
-        const int xx = (int)(q % w) + kx - 1;
-        const int yy = (int)((q / w) % h) + ky - 1;
-        if (c0 + k < c && xx >= 0 && xx < w && yy >= 0 && yy < h)
-          av = xa[(q + (long long)(ky - 1) * w + (kx - 1)) * c + c0 + k];
-        if (o0 + k < o) bv = ds[q * o + o0 + k];
-      }
-      s_a[r * WG_LD + k] = av;
-      s_b[r * WG_LD + k] = bv;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < WG_ROWS / 16; ++kk)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        acc[j].template mma<false, true>(s_a + kk * 16 * WG_LD + rt * 16, WG_LD,
-                                         s_b + kk * 16 * WG_LD + (cg * 2 + j) * 16, WG_LD);
-  }
-  float* out = part + (((size_t)blockIdx.y * 9 + tap) * cp + c0 + rt * 16) * op + o0;
-#pragma unroll
-  for (int j = 0; j < 2; ++j) acc[j].store(out + (cg * 2 + j) * 16, op);
+template <typename T> __host__ __device__ constexpr int wg_rows() { return sizeof(T) == 2 ? 4 : 1; }
+
+template <typename T> __host__ __device__ constexpr int wg_stage_elems() {
+  return (wg_rows<T>() + 2) * WIN * WG_LDX + wg_rows<T>() * TP * WG_LDS;
 }
 
-// dw[tap][c][o] = Σ_slice part[slice][tap][c][o], in slice order.
-__global__ void wgrad_reduce(const float* __restrict__ part, int slices, int c, int o,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Copy rows [y0 - 1, y0 + R] x pixels [x0 - 1, x0 + 64] of xa (channels
+// c0..+64) and rows [y0, y0 + R) x pixels [x0, x0 + 64) of ds (o0..+64) of
+// sample b into one stage, zero outside the image and the channels.  With
+// vec, as 16-byte cp.async copies (C and O multiples of 16 bytes);
+// otherwise element by element.
+template <typename T>
+__device__ void wg_load(const T* __restrict__ xa, const T* __restrict__ ds, int h, int w,
+                        int c, int o, int c0, int o0, int b, int y0, int x0, T* sx, T* sd,
+                        bool vec) {
+  constexpr int R = wg_rows<T>(), V = 16 / sizeof(T), CH = 64 / V;
+  const T zero = from_f<T>(0.f);
+  const size_t row0 = (size_t)b * h;
+  for (int i = threadIdx.x; i < (R + 2) * WIN * CH; i += WG_THREADS) {
+    const int k = i % CH, j = (i / CH) % WIN, r = i / (CH * WIN);
+    const int yy = y0 + r - 1, xx = x0 + j - 1, ci = c0 + k * V;
+    const bool ok = yy >= 0 && yy < h && xx >= 0 && xx < w && ci < c;
+    const T* src = ok ? xa + ((row0 + yy) * w + xx) * c + ci : xa;
+    T* dst = sx + (r * WIN + j) * WG_LDX + k * V;
+    if (vec) {
+      cp_async16(dst, src, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) dst[e] = ok && ci + e < c ? src[e] : zero;
+    }
+  }
+  for (int i = threadIdx.x; i < R * TP * CH; i += WG_THREADS) {
+    const int k = i % CH, j = (i / CH) % TP, r = i / (CH * TP);
+    const int yy = y0 + r, xx = x0 + j, oi = o0 + k * V;
+    const bool ok = yy < h && xx < w && oi < o;
+    const T* src = ok ? ds + ((row0 + yy) * w + xx) * o + oi : ds;
+    T* dst = sd + (r * TP + j) * WG_LDS + k * V;
+    if (vec) {
+      cp_async16(dst, src, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) dst[e] = ok && oi + e < o ? src[e] : zero;
+    }
+  }
+}
+
+// One 16-pixel step of warp (ky, rt): acc[kx][ct] += A_kx^T · B_ct, with
+// A_kx = xa at the pixels shifted by kx (a + kx·WG_LDX) and B_ct = ds's o
+// tile ct.  bf16 loads each fragment once; f32 runs the FFMA tiles.
+template <typename T>
+__device__ __forceinline__ void wg_step(Acc<T> (&acc)[3][4], const T* a, const T* bm) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    using namespace nvcuda::wmma;
+    fragment<matrix_a, 16, 16, 16, bf16, col_major> fa[3];
+    fragment<matrix_b, 16, 16, 16, bf16, row_major> fb[4];
+#pragma unroll
+    for (int kx = 0; kx < 3; ++kx) load_matrix_sync(fa[kx], a + kx * WG_LDX, WG_LDX);
+#pragma unroll
+    for (int ct = 0; ct < 4; ++ct) load_matrix_sync(fb[ct], bm + ct * 16, WG_LDS);
+#pragma unroll
+    for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+      for (int ct = 0; ct < 4; ++ct) mma_sync(acc[kx][ct].f, fa[kx], fb[ct], acc[kx][ct].f);
+  } else {
+#pragma unroll
+    for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+      for (int ct = 0; ct < 4; ++ct)
+        acc[kx][ct].template mma<false, true>(a + kx * WG_LDX, WG_LDX, bm + ct * 16, WG_LDS);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+cbg_wgrad_kernel(const T* __restrict__ xa, const T* __restrict__ ds, int bsz, int h,
+                 int w, int c, int o, int slabs, int vec, float* __restrict__ part) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int R = wg_rows<T>();
+  T* stage[2] = {(T*)smem, (T*)smem + wg_stage_elems<T>()};
+  const int ot_n = (o + 63) / 64, cp = r64(c), op = r64(o);
+  const int c0 = blockIdx.x / ot_n * 64, o0 = blockIdx.x % ot_n * 64;
+  const int segs = (w + TP - 1) / TP, grps = (h + R - 1) / R;
+  const long long units = (long long)bsz * grps * segs;
+  const long long u0 = units * blockIdx.y / slabs, u1 = units * (blockIdx.y + 1) / slabs;
+  const int warp = threadIdx.x / 32, ky = warp / 4, rt = warp % 4;
+  const bool busy = c0 + rt * 16 < c;      // this warp's c rows exist
+
+  auto load = [&](long long u, T* st) {
+    const int seg = (int)(u % segs);
+    const long long g = u / segs;
+    wg_load<T>(xa, ds, h, w, c, o, c0, o0, (int)(g / grps), (int)(g % grps) * R, seg * TP,
+               st, st + (R + 2) * WIN * WG_LDX, vec);
+    cp_async_commit();
+  };
+
+  Acc<T> acc[3][4];
+#pragma unroll
+  for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+    for (int ct = 0; ct < 4; ++ct) acc[kx][ct].zero();
+  if (u0 < u1) load(u0, stage[0]);
+  for (long long u = u0; u < u1; ++u) {
+    const int cur = (int)((u - u0) & 1);
+    if (u + 1 < u1) {
+      load(u + 1, stage[cur ^ 1]);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* sx = stage[cur];
+    const T* sd = sx + (R + 2) * WIN * WG_LDX;
+    if (busy) {
+#pragma unroll 1
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int kk = 0; kk < TP / 16; ++kk)
+          wg_step<T>(acc, sx + ((r + ky) * WIN + kk * 16) * WG_LDX + rt * 16,
+                     sd + (r * TP + kk * 16) * WG_LDS);
+    }
+    __syncthreads();
+  }
+  float* out = part + ((size_t)blockIdx.y * 9 * cp + c0 + rt * 16) * op + o0;
+#pragma unroll
+  for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+    for (int ct = 0; ct < 4; ++ct)
+      acc[kx][ct].store(out + (size_t)(ky * 3 + kx) * cp * op + ct * 16, op);
+}
+
+// dw[tap][c][o] = Σ_slab part[slab][tap][c][o], in slab order.
+__global__ void wgrad_reduce(const float* __restrict__ part, int slabs, int c, int o,
                              float* __restrict__ dw) {
   const int cp = r64(c), op = r64(o);
   const int n = 9 * c * o;
@@ -323,32 +363,330 @@ __global__ void wgrad_reduce(const float* __restrict__ part, int slices, int c, 
     const int tap = i / (c * o), ci = (i / o) % c, oi = i % o;
     const size_t k = ((size_t)tap * cp + ci) * op + oi;
     float s = 0.f;
-    for (int sl = 0; sl < slices; ++sl) s += part[(size_t)sl * 9 * cp * op + k];
+    for (int sl = 0; sl < slabs; ++sl) s += part[(size_t)sl * 9 * cp * op + k];
     dw[i] = s;
   }
 }
 
-int wgrad_slices(long long npix, int c, int o) {
-  const int tiles = 9 * ((c + 63) / 64) * ((o + 63) / 64);
-  long long s = (528 + tiles - 1) / tiles;
-  const long long most = (npix + 255) / 256;
-  if (s > most) s = most;
+// ---------------------------------------------------------------- dgrad
+// A block owns R image rows of one sample x one 64-pixel segment and all C
+// output channels.  Its window holds ds for rows y0-1 .. y0+R and pixels
+// x0-1 .. x0+64 (the BN backward applied once per element, from the BN
+// scalars staged in shared memory, with 16-byte loads); its weights are all
+// 9 taps when they fit beside the window (64 channels in bf16), else one tap
+// at a time, the next one copied with cp.async while the current one's
+// products run (double-buffered in bf16).  Warp (pw, cw) owns pixel tile pw
+// of each of the R rows and c tiles cw, cw + 2, ...: per 16-deep step R A and
+// up to NC B fragments feed R x NC products.
+constexpr int SMEM_MAX = 232448;          // dynamic shared memory of one H100 block
+
+struct DgLayout {
+  int win, w, total;                      // byte offsets of the window, the weights; the size
+  bool resident;                          // all 9 taps of weights stay in shared memory
+};
+
+// Shared memory of the dgrad kernel: BN scalars [6][O16] and [6][C16] f32;
+// the window [R + 2][WIN][O16 + 16]; weights [9 or NBUF][C16][O16 + 8]; the
+// f32 epilogue staging 2 x [R * TP][C16 + 4] reuses the window and weights.
+template <typename T, int R>
+__host__ __device__ inline DgLayout dg_layout(int c, int o) {
+  constexpr int NBUF = sizeof(T) == 2 ? 2 : 1;
+  const int c16 = r16(c), o16 = r16(o), sz = (int)sizeof(T);
+  const int scal = (6 * (c16 + o16) * 4 + 127) / 128 * 128;
+  const int win = ((R + 2) * WIN * (o16 + 16) * sz + 127) / 128 * 128;
+  const int tap = c16 * (o16 + 8) * sz;
+  const int stage = 2 * R * TP * (c16 + 4) * 4;
+  DgLayout L;
+  L.win = scal;
+  L.w = scal + win;
+  L.resident = scal + (win + 9 * tap > stage ? win + 9 * tap : stage) <= SMEM_MAX;
+  const int body = win + (L.resident ? 9 : NBUF) * tap;
+  L.total = scal + (body > stage ? body : stage);
+  return L;
+}
+
+// Rows per dgrad block: 4 when C <= 64 (bf16), else 2; 1 in f32.
+inline int dg_rows(int c, int esz) { return esz == 4 ? 1 : (r16(c) <= 64 ? 4 : 2); }
+
+// V consecutive elements from global memory: one 16-byte load with vec,
+// else element by element (n of them, zero beyond).
+template <typename T, int V>
+__device__ __forceinline__ void ld_vec(T (&v)[V], const T* p, int n, bool vec) {
+  if (vec) {
+    *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(p);
+  } else {
+#pragma unroll
+    for (int q = 0; q < V; ++q) v[q] = q < n ? p[q] : from_f<T>(0.f);
+  }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void st_vec(T* p, const T (&v)[V], int n, bool vec) {
+  if (vec) {
+    *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(v);
+  } else {
+#pragma unroll
+    for (int q = 0; q < V; ++q)
+      if (q < n) p[q] = v[q];
+  }
+}
+
+// One 16-deep step (16 output channels o) of warp (pw, cw):
+// acc[r][j] += A_r · B_j, A_r the window at row r's pixel tile (a + r·WIN·lda,
+// row-major over o), B_j tile ct = cw + 2j of this tap's W[c][o] (col-major).
+template <typename T, int R, int NC>
+__device__ __forceinline__ void dg_step(Acc<T> (&acc)[R][NC], const T* a, int lda,
+                                        const T* bm, int ldb, int cw, int ct_n) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    using namespace nvcuda::wmma;
+    fragment<matrix_a, 16, 16, 16, bf16, row_major> fa[R];
+    fragment<matrix_b, 16, 16, 16, bf16, col_major> fb[NC];
+#pragma unroll
+    for (int r = 0; r < R; ++r) load_matrix_sync(fa[r], a + r * WIN * lda, lda);
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+      if (cw + 2 * j < ct_n) load_matrix_sync(fb[j], bm + (cw + 2 * j) * 16 * ldb, ldb);
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int j = 0; j < NC; ++j)
+        if (cw + 2 * j < ct_n) mma_sync(acc[r][j].f, fa[r], fb[j], acc[r][j].f);
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int j = 0; j < NC; ++j)
+        if (cw + 2 * j < ct_n)
+          acc[r][j].template mma<true, false>(a + r * WIN * lda, lda,
+                                              bm + (cw + 2 * j) * 16 * ldb, ldb);
+  }
+}
+
+template <typename T, int R>
+__global__ void __launch_bounds__(THREADS, 1)
+cbg_dgrad_kernel(const T* __restrict__ dz, const T* __restrict__ si,
+                 const T* __restrict__ sp, const T* __restrict__ wmat,
+                 const float* __restrict__ scal_in, const float* __restrict__ scal_out,
+                 int h, int w, int c, int o, int vec, T* __restrict__ dzp,
+                 T* __restrict__ ds_out, T* __restrict__ x_out, float* __restrict__ db_part,
+                 float* __restrict__ psp) {
+  constexpr int V = 16 / sizeof(T), NC = R >= 4 ? 2 : 4, NBUF = sizeof(T) == 2 ? 2 : 1;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const DgLayout L = dg_layout<T, R>(c, o);
+  const int c16 = r16(c), o16 = r16(o), ldw = o16 + 16, ldo = o16 + 8, lds = c16 + 4;
+  float* s_in = (float*)smem;                  // scal_in  [6][O16]
+  float* s_out = s_in + 6 * o16;               // scal_out [6][C16]
+  T* win = (T*)(smem + L.win);
+  T* s_w = (T*)(smem + L.w);
+  float* stage = (float*)(smem + L.win);       // d [R * TP][lds], after the products
+  float* stage2 = stage + R * TP * lds;        // d · ẑ_prev
+  const int tap_elems = c16 * ldo;
+  const int segs = (w + TP - 1) / TP, grps = (h + R - 1) / R;
+  const int blk = blockIdx.x;
+  const int seg = blk % segs, grp = (blk / segs) % grps, b = blk / (segs * grps);
+  const int x0 = seg * TP, y0 = grp * R;
+  const int np = w - x0 < TP ? w - x0 : TP, nr = h - y0 < R ? h - y0 : R;
+  const size_t row0 = (size_t)b * h;
+  const T zero = from_f<T>(0.f);
+
+  auto load_tap = [&](int tap, T* dst) {
+    const int chunks = o16 / V;
+    for (int i = threadIdx.x; i < c16 * chunks; i += THREADS) {
+      const int ci = i / chunks, oi = (i % chunks) * V;
+      const bool ok = ci < c && oi < o;
+      const T* src = ok ? wmat + ((size_t)tap * c + ci) * o + oi : wmat;
+      T* d = dst + ci * ldo + oi;
+      if (vec) {
+        cp_async16(d, src, ok);
+      } else {
+#pragma unroll
+        for (int q = 0; q < V; ++q) d[q] = ok && oi + q < o ? src[q] : zero;
+      }
+    }
+  };
+
+  for (int i = threadIdx.x; i < 6 * o16; i += THREADS) {
+    const int k = i / o16, oi = i % o16;
+    s_in[i] = oi < o ? scal_in[k * o + oi] : 0.f;
+  }
+  if (scal_out) {
+    for (int i = threadIdx.x; i < 6 * c16; i += THREADS) {
+      const int k = i / c16, ci = i % c16;
+      s_out[i] = ci < c ? scal_out[k * c + ci] : 0.f;
+    }
+  }
+  if (L.resident) {
+    for (int tap = 0; tap < 9; ++tap) load_tap(tap, s_w + tap * tap_elems);
+  } else if (NBUF == 2) {
+    load_tap(0, s_w);
+  }
+  cp_async_commit();
+  __syncthreads();
+
+  // ds = γ·istd·(dz − A − ẑ·B) on the window, once per element; the centre
+  // rows are also this block's share of ds for the wgrad kernel
+  const int och = o16 / V;
+  for (int i = threadIdx.x; i < (R + 2) * WIN * och; i += THREADS) {
+    const int k = i % och, j = (i / och) % WIN, r = i / (och * WIN);
+    const int yy = y0 + r - 1, xx = x0 + j - 1, oi = k * V;
+    alignas(16) T v[V];
+    if (yy >= 0 && yy < h && xx >= 0 && xx < w && oi < o) {
+      const size_t e = ((row0 + yy) * w + xx) * o + oi;
+      alignas(16) T dv[V], sv[V];
+      ld_vec(dv, dz + e, o - oi, vec);
+      ld_vec(sv, si + e, o - oi, vec);
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+        const float* sc = s_in + oi + q;
+        const float zh = (to_f(sv[q]) - sc[S_MEAN * o16]) * sc[S_ISTD * o16];
+        v[q] = from_f<T>(sc[S_GAMMA * o16] * sc[S_ISTD * o16]
+                         * (to_f(dv[q]) - sc[S_A * o16] - zh * sc[S_B * o16]));
+      }
+      if (r >= 1 && r <= R && j >= 1 && j <= TP) st_vec(ds_out + e, v, o - oi, vec);
+    } else {
+#pragma unroll
+      for (int q = 0; q < V; ++q) v[q] = zero;
+    }
+    st_vec(win + (r * WIN + j) * ldw + oi, v, V, true);
+  }
+  __syncthreads();
+  for (int oi = threadIdx.x; oi < o; oi += THREADS) {
+    float s1 = 0.f;
+    for (int r = 1; r <= nr; ++r)
+      for (int p = 0; p < np; ++p) s1 += to_f(win[(r * WIN + 1 + p) * ldw + oi]);
+    db_part[(size_t)blk * o + oi] = s1;
+  }
+
+  // dx[p][c] = Σ_tap Σ_o win[r + 2 - ky][p + 2 - kx][o] · W[ky][kx][c][o]
+  const int warp = threadIdx.x / 32, pw = warp % 4, cw = warp / 4, ct_n = c16 / 16;
+  Acc<T> acc[R][NC];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int j = 0; j < NC; ++j) acc[r][j].zero();
+  for (int tap = 0; tap < 9; ++tap) {
+    const T* wt = s_w;
+    if (L.resident) {
+      wt += tap * tap_elems;
+      cp_async_wait<0>();
+    } else if (NBUF == 2) {
+      if (tap + 1 < 9) {
+        load_tap(tap + 1, s_w + ((tap + 1) & 1) * tap_elems);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      wt += (tap & 1) * tap_elems;
+    } else {
+      load_tap(tap, s_w);
+      cp_async_commit();
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int ky = tap / 3, kx = tap % 3;
+    const T* a0 = win + ((2 - ky) * WIN + pw * 16 + 2 - kx) * ldw;
+    for (int kk = 0; kk < o16 / 16; ++kk)
+      dg_step<T, R, NC>(acc, a0 + kk * 16, ldw, wt + kk * 16, ldo, cw, ct_n);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+      if (cw + 2 * j < ct_n)
+        acc[r][j].store(stage + (r * TP + pw * 16) * lds + (cw + 2 * j) * 16, lds);
+  __syncthreads();
+
+  // dz_prev = dx · gelu'(z_prev) and xa = gelu(z_prev) when the input had a
+  // BN, in f32; the column sums of the block in fixed order
+  const int cch = c16 / V;
+  for (int i = threadIdx.x; i < nr * np * cch; i += THREADS) {
+    const int k = i % cch, pp = i / cch, p = pp % np, r = pp / np, ci = k * V;
+    if (ci >= c) continue;
+    float* st = stage + (r * TP + p) * lds + ci;
+    float* st2 = stage2 + (r * TP + p) * lds + ci;
+    const size_t e = ((row0 + y0 + r) * w + x0 + p) * c + ci;
+    alignas(16) T dv[V];
+    if (scal_out) {
+      alignas(16) T sv[V], xv[V];
+      ld_vec(sv, sp + e, c - ci, vec);
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+        const float* sc = s_out + ci + q;
+        const float zh = (to_f(sv[q]) - sc[S_MEAN * c16]) * sc[S_ISTD * c16];
+        const float z = zh * sc[S_GAMMA * c16] + sc[S_BETA * c16];
+        const float d = st[q] * gelu_grad(z);
+        xv[q] = from_f<T>(gelu(z));
+        dv[q] = from_f<T>(d);
+        st[q] = d;
+        st2[q] = d * zh;
+      }
+      st_vec(x_out + e, xv, c - ci, vec);
+    } else {
+#pragma unroll
+      for (int q = 0; q < V; ++q) dv[q] = from_f<T>(st[q]);
+    }
+    st_vec(dzp + e, dv, c - ci, vec);
+  }
+  __syncthreads();
+  for (int ci = threadIdx.x; ci < c; ci += THREADS) {
+    float s1 = 0.f, s2 = 0.f;
+    if (scal_out) {
+      for (int r = 0; r < nr; ++r)
+        for (int p = 0; p < np; ++p) {
+          s1 += stage[(r * TP + p) * lds + ci];
+          s2 += stage2[(r * TP + p) * lds + ci];
+        }
+    }
+    psp[((size_t)blk * 2) * c + ci] = s1;
+    psp[((size_t)blk * 2 + 1) * c + ci] = s2;
+  }
+}
+
+template <typename T, int R>
+cudaError_t launch_dgrad(const T* dz, const T* si, const T* sp, const T* wmat,
+                         const float* scal_in, const float* scal_out, int bsz, int h, int w,
+                         int c, int o, int vec, T* dzp, T* ds, T* xa, float* db_part,
+                         float* psp, cudaStream_t st) {
+  const int blocks = bsz * ((h + R - 1) / R) * ((w + TP - 1) / TP);
+  if (blocks == 0) return cudaSuccess;
+  const DgLayout L = dg_layout<T, R>(c, o);
+  cudaError_t e = cudaFuncSetAttribute(cbg_dgrad_kernel<T, R>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+  if (e != cudaSuccess) return e;
+  cbg_dgrad_kernel<T, R><<<blocks, THREADS, L.total, st>>>(
+      dz, si, sp, wmat, scal_in, scal_out, h, w, c, o, vec, dzp, ds, xa, db_part, psp);
+  return cudaGetLastError();
+}
+
+// Slabs per (c, o) tile pair: one wave of blocks (one block per SM of an
+// H100 SXM), at most one slab per work unit.  The wave is a constant, not
+// the card's SM count, so the slabs, and the order in which wgrad_reduce
+// sums them, depend on the shape alone: dW is bit-identical on every card.
+constexpr int WG_WAVE = 132;
+
+int wgrad_slabs(int bsz, int h, int w, int c, int o, int rows) {
+  const int tiles = ((c + 63) / 64) * ((o + 63) / 64);
+  const long long units = (long long)bsz * ((h + rows - 1) / rows) * ((w + TP - 1) / TP);
+  long long s = (WG_WAVE + tiles - 1) / tiles;
+  if (s > units) s = units;
   return s < 1 ? 1 : (int)s;
 }
 
 struct BwdScratch {
   size_t ds, xa, part, total;
-  int slices;
+  int slabs;
 };
 
 BwdScratch bwd_layout(int bsz, int h, int w, int c, int o, int esz) {
   BwdScratch s;
   const long long npix = (long long)bsz * h * w;
-  s.slices = wgrad_slices(npix, c, o);
+  s.slabs = wgrad_slabs(bsz, h, w, c, o, esz == 2 ? wg_rows<bf16>() : wg_rows<float>());
   size_t off = 0;
   s.ds = off;   off += align256((size_t)npix * o * esz);
   s.xa = off;   off += align256((size_t)npix * c * esz);
-  s.part = off; off += align256((size_t)s.slices * 9 * r64(c) * r64(o) * 4);
+  s.part = off; off += align256((size_t)s.slabs * 9 * r64(c) * r64(o) * 4);
   s.total = off;
   return s;
 }
@@ -358,7 +696,7 @@ int fwd(const void* x, const void* wmat, const void* bias, const float* scal, in
         int h, int w, int c, int o, void* s, float* ps, cudaStream_t st) {
   const int blocks = bsz * h * ((w + TP - 1) / TP);
   if (blocks == 0) return (int)cudaGetLastError();
-  const size_t smem = conv_smem_bytes<T>(c, o, false);
+  const size_t smem = conv_smem_bytes<T>(c, o);
   cudaError_t e = cudaFuncSetAttribute(cbg_fwd_kernel<T>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -377,24 +715,32 @@ int bwd(const void* dz, const void* si, const void* sp, const void* wmat,
   T* ds = (T*)(base + sc.ds);
   T* xa = scal_out ? (T*)(base + sc.xa) : (T*)sp;
   float* part = (float*)(base + sc.part);
-  const int blocks = bsz * h * ((w + TP - 1) / TP);
+  constexpr int V = 16 / sizeof(T);
+  const auto al = [](const void* p) { return (size_t)p % 16 == 0; };
+  const int vec = c % V == 0 && o % V == 0 && al(dz) && al(si) && al(sp) && al(wmat) &&
+                  al(dzp) && al(ds) && al(xa);
   cudaError_t e;
-  if (blocks > 0) {
-    const size_t smem = conv_smem_bytes<T>(c, o, true);
-    e = cudaFuncSetAttribute(cbg_dgrad_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    cbg_dgrad_kernel<T><<<blocks, THREADS, smem, st>>>(
-        (const T*)dz, (const T*)si, (const T*)sp, (const T*)wmat, scal_in, scal_out, h,
-        w, c, o, (T*)dzp, ds, xa, db_part, psp);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  if constexpr (sizeof(T) == 4) {
+    e = launch_dgrad<T, 1>((const T*)dz, (const T*)si, (const T*)sp, (const T*)wmat, scal_in,
+                           scal_out, bsz, h, w, c, o, vec, (T*)dzp, ds, xa, db_part, psp, st);
+  } else if (dg_rows(c, 2) == 4) {
+    e = launch_dgrad<T, 4>((const T*)dz, (const T*)si, (const T*)sp, (const T*)wmat, scal_in,
+                           scal_out, bsz, h, w, c, o, vec, (T*)dzp, ds, xa, db_part, psp, st);
+  } else {
+    e = launch_dgrad<T, 2>((const T*)dz, (const T*)si, (const T*)sp, (const T*)wmat, scal_in,
+                           scal_out, bsz, h, w, c, o, vec, (T*)dzp, ds, xa, db_part, psp, st);
   }
-  const int tiles = 9 * ((c + 63) / 64) * ((o + 63) / 64);
-  cbg_wgrad_kernel<T><<<dim3(tiles, sc.slices), THREADS, 0, st>>>(
-      xa, ds, bsz, h, w, c, o, sc.slices, part);
+  if (e != cudaSuccess) return (int)e;
+  const int tiles = ((c + 63) / 64) * ((o + 63) / 64);
+  const size_t wg_smem = 2 * (size_t)wg_stage_elems<T>() * sizeof(T);
+  e = cudaFuncSetAttribute(cbg_wgrad_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)wg_smem);
+  if (e != cudaSuccess) return (int)e;
+  cbg_wgrad_kernel<T><<<dim3(tiles, sc.slabs), WG_THREADS, wg_smem, st>>>(
+      xa, ds, bsz, h, w, c, o, sc.slabs, vec, part);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   int rblocks = (9 * c * o + 255) / 256;
-  wgrad_reduce<<<rblocks, 256, 0, st>>>(part, sc.slices, c, o, dw);
+  wgrad_reduce<<<rblocks, 256, 0, st>>>(part, sc.slabs, c, o, dw);
   return (int)cudaGetLastError();
 }
 
@@ -406,8 +752,14 @@ extern "C" {
 
 const char* error_string(int e) { return cudaGetErrorString((cudaError_t)e); }
 
-// Row segments (= partial-sum rows) of one block call.
+// Row segments (= partial-sum rows) of one forward call.
 int cbg_blocks(int bsz, int h, int w) { return bsz * h * ((w + TP - 1) / TP); }
+
+// Row groups x segments (= partial-sum rows) of one backward call.
+int cbg_bwd_blocks(int bsz, int h, int w, int c, int is_bf16) {
+  const int r = dg_rows(c, is_bf16 ? 2 : 4);
+  return bsz * ((h + r - 1) / r) * ((w + TP - 1) / TP);
+}
 
 long long cbg_bwd_scratch_bytes(int bsz, int h, int w, int c, int o, int is_bf16) {
   return (long long)bwd_layout(bsz, h, w, c, o, is_bf16 ? 2 : 4).total;
@@ -427,8 +779,8 @@ int cbg_fwd(const void* x, const void* wmat, const void* bias, const void* scal,
 
 // dz, si [B, H, W, O]; sp [B, H, W, C]; wmat [3, 3, C, O]; scal_in [6, O]
 // f32 (with A, B); scal_out [6, C] f32 or null.  Out: dzp [B, H, W, C] in
-// the compute dtype; dw [3, 3, C, O], db_part [cbg_blocks, O] and
-// psp [cbg_blocks, 2, C] f32.
+// the compute dtype; dw [3, 3, C, O], db_part [cbg_bwd_blocks, O] and
+// psp [cbg_bwd_blocks, 2, C] f32.
 int cbg_bwd(const void* dz, const void* si, const void* sp, const void* wmat,
             const void* scal_in, const void* scal_out, int bsz, int h, int w, int c, int o,
             void* dzp, void* dw, void* db_part, void* psp, void* scratch, int is_bf16,

@@ -107,6 +107,8 @@ def _setup(lib):
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.cbg_blocks.restype = i32
     lib.cbg_blocks.argtypes = [i32] * 3
+    lib.cbg_bwd_blocks.restype = i32
+    lib.cbg_bwd_blocks.argtypes = [i32] * 5
     lib.cbg_bwd_scratch_bytes.restype = ctypes.c_longlong
     lib.cbg_bwd_scratch_bytes.argtypes = [i32] * 6
     lib.cbg_fwd.restype = i32
@@ -203,7 +205,7 @@ def cbg_block_bwd(dz, si, sp, wmat, scal_in, scal_out: Optional[torch.Tensor] = 
         raise ValueError(f"CBG kernel: at most {MAX_CHANNELS} channels")
     lib = _build.load("cbg", _setup)
     bf16 = int(dz.dtype == torch.bfloat16)
-    nblk = lib.cbg_blocks(b, h, w)
+    nblk = lib.cbg_bwd_blocks(b, h, w, c, bf16)
     dzp = torch.empty(b, h, w, c, dtype=dz.dtype, device=dz.device)
     dw = torch.empty(3, 3, c, o, device=dz.device)
     db = torch.empty(nblk, o, device=dz.device)

@@ -182,7 +182,11 @@ def test_fused_gru_autograd_launches(dev):
 
 CBG_SHAPES = [  # (B, H, W, C, O): ragged row segments, C != O, 8..128 lanes
     (1, 5, 70, 8, 64), (2, 9, 64, 64, 64), (2, 7, 33, 128, 64),
-    (1, 6, 130, 64, 128), (2, 4, 16, 128, 128), (1, 3, 8, 8, 8)]
+    (1, 6, 130, 64, 128), (2, 4, 16, 128, 128), (1, 3, 8, 8, 8),
+    # the backward's row groups and slabs: rows not a multiple of a group,
+    # a ragged 64-pixel segment, groups of several samples; C != O at 128;
+    # channels that are not whole 16-byte vectors
+    (2, 9, 130, 128, 128), (3, 5, 64, 64, 128), (2, 6, 20, 12, 20)]
 
 
 def _cbg_inputs(g, shape, dtype, dev, head, zero=False):
@@ -242,6 +246,27 @@ def test_cbg_block_bwd(dev, dtype, head, shape):
     assert got[1].shape == (3, 3, c, o) and _rel_err(got[1], want[1]) <= tol
     assert _rel_err(got[2].sum(0), want[2].sum(0)) <= tol
     assert _rel_err(got[3].sum(0), want[3].sum(0)) <= tol
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(2, 9, 130, 128, 128), (4, 32, 32, 64, 64)])
+def test_cbg_block_bwd_is_deterministic(dev, dtype, shape):
+    """No float atomics: two launches on the same inputs agree bit for bit."""
+    from deflow_tpu_torch.ops import cbg
+
+    g = torch.Generator().manual_seed(11)
+    b, h, w, c, o = shape
+    sp, wm, _, scal_out = _cbg_inputs(g, shape, dtype, dev, True)
+    si = torch.randn(b, h, w, o, generator=g).to(dev, dtype)
+    dz = torch.randn(b, h, w, o, generator=g).to(dev, dtype)
+    scal_in = torch.stack([torch.randn(o, generator=g) * 0.1, torch.rand(o, generator=g) + 0.5,
+                           torch.ones(o), torch.zeros(o), 0.1 * torch.randn(o, generator=g),
+                           0.1 * torch.randn(o, generator=g)]).to(dev)
+    first = cbg.cbg_block_bwd(dz, si, sp, wm, scal_in, scal_out)
+    second = cbg.cbg_block_bwd(dz, si, sp, wm, scal_in, scal_out)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -14,9 +14,11 @@ Phases (any failure exits non-zero):
    train path's ids; the fused conv3x3+BN+GELU kernels at both chain widths;
    the SSL kernels on an SSL batch: the cell sweep (both directions), the
    lane segment-sum of the chamfer VJP (beside the pillar segment-sum at the
-   same shape) and the brute search at 2 x 16,384; then the full-width
-   sweep against the brute search (truncated distances, both directions,
-   all and dynamic candidates);
+   same shape) and the brute search at 2 x 16,384; the row gather, the
+   lane segment-sum and their library calls also timed as 20 launches
+   captured in one CUDA graph (no host launch overhead); then the
+   full-width sweep against the brute search (truncated distances, both
+   directions, all and dynamic candidates);
 4. the eval path: leaderboard DeFlow (512x512 grid, ConvGRU, 4 iterations,
    bf16 compute, random weights from a seed) evaluates 5 synthetic batches
    of 4 x 98,304 point slots (86,016 valid) through ``run_validation``; the
@@ -133,6 +135,63 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+GRAPH_LAUNCHES, GRAPH_REPLAYS = 20, 5
+
+
+def graph_ms(fn) -> float:
+    """Mean device time of ``fn`` over GRAPH_LAUNCHES calls captured in one
+    CUDA graph, replayed GRAPH_REPLAYS times under CUDA events: no host
+    launch overhead between the launches (one warm-up call first, on a side
+    stream as capture requires)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_LAUNCHES):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(GRAPH_REPLAYS):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (GRAPH_LAUNCHES * GRAPH_REPLAYS)
+
+
+def ptxas_lines(log: str) -> list:
+    """ptxas's register, stack and spill lines (and any warning) of an nvcc
+    log, each prefixed by the function it describes (demangled by c++filt
+    where the host has it, with the parameter list dropped)."""
+    import re
+    import shutil
+
+    rows, fn = [], ""
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+        elif "registers" in line or "spill" in line or "warning" in line:
+            rows.append((fn, line.strip()))
+    names = sorted({f for f, _ in rows if f})
+    short = dict(zip(names, names))
+    if names and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True).stdout.splitlines()
+        if len(out) == len(names):
+            for raw, dem in zip(names, out):
+                dem = dem.replace("(anonymous namespace)::", "").removeprefix("void ")
+                short[raw] = dem.split("(")[0]
+    return [f"{short.get(f, f)}: {line}" if f else line for f, line in rows]
+
+
 def kernel_split(fn, reps: int) -> dict:
     """Device ms per call of ``fn`` by kernel name (torch.profiler over
     ``reps`` calls after one warm-up call; template arguments and
@@ -243,13 +302,17 @@ def hold_gather(what: str, table32, ids, rows: int) -> dict:
     row_bytes = c * t.element_size()
     b_ms, b_by = bound(m * 4 + read * row_bytes + m * row_bytes, 0,
                        BF16_FLOP_PER_S)
-    return {
-        "max_abs_err": err, "shape": f"{rows}x{c}@{m}",
-        "ms": cuda_ms(lambda: gather.sorted_rows_gather(t, ids, rows), 50),
-        "plain_ms": cuda_ms(lambda: gather.gather_plain(t, ids, rows), 10),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(lambda: torch.index_select(t_lib, 0, idx_lib), 50),
-    }
+    kernel = lambda: gather.sorted_rows_gather(t, ids, rows)
+    library = lambda: torch.index_select(t_lib, 0, idx_lib)
+    r = {"max_abs_err": err, "shape": f"{rows}x{c}@{m}",
+         "ms": cuda_ms(kernel, 50),
+         "plain_ms": cuda_ms(lambda: gather.gather_plain(t, ids, rows), 10),
+         "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(library, 50),
+         "graph_ms": graph_ms(kernel), "library_graph_ms": graph_ms(library)}
+    print(f"sorted_gather {what} {r['shape']}: graph-captured {r['graph_ms']:.4f} ms, "
+          f"index_select {r['library_graph_ms']:.4f} ms; back to back {r['ms']:.4f} ms, "
+          f"index_select {r['library_ms']:.4f} ms")
+    return r
 
 
 def gather_ids(db, cfg, b: int):
@@ -620,14 +683,16 @@ def check_ssl_kernels(ssl_batch, brute_batch):
     idx_lib = torch.where(ids < segs, ids, segs).long()
     b_ms, b_by = bound(rows.numel() * 4 + ids.numel() * 4 + segs * 4 * 4,
                        rows.numel(), F32_FLOP_PER_S)
+    lanes = lambda: scatter.segment_sum_lanes(rows, ids, segs)
+    lanes_lib = lambda: torch.zeros(segs + 1, 4, device=dev).index_add_(0, idx_lib, rows)
     results["segment_sum_lanes"] = {
         "max_abs_err": (k - ref).abs().max().item(),
         "shape": f"{bq * m}x4->{segs}",
-        "ms": cuda_ms(lambda: scatter.segment_sum_lanes(rows, ids, segs), 50),
+        "ms": cuda_ms(lanes, 50),
         "plain_ms": cuda_ms(lambda: scatter.segment_sum_lanes_plain(rows, ids, segs), 10),
         "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(lambda: torch.zeros(segs + 1, 4, device=dev).index_add_(
-            0, idx_lib, rows), 10),
+        "library_ms": cuda_ms(lanes_lib, 10),
+        "graph_ms": graph_ms(lanes), "library_graph_ms": graph_ms(lanes_lib),
         "library_call": "index_add_",
         # the pillar segment-sum kernel (built for 33- to 128-wide rows) on the
         # same rows and ids
@@ -673,8 +738,11 @@ def check_ssl_kernels(ssl_batch, brute_batch):
                 print(f"{name} {rr['shape']}: {rr['ms']:.4f} ms (bound "
                       f"{rr['bound_ms']:.4f} ms by {rr['bound_by']}, plain "
                       f"{rr['plain_ms']:.4f} ms, library {lib})")
-    print(f"segment_sum.cu on the lane sum's rows and ids: "
-          f"{results['segment_sum_lanes']['segment_sum_cu_ms']:.4f} ms")
+    r = results["segment_sum_lanes"]
+    print(f"segment_sum.cu on the lane sum's rows and ids: {r['segment_sum_cu_ms']:.4f} ms")
+    print(f"segment_sum_lanes {r['shape']}: graph-captured {r['graph_ms']:.4f} ms, "
+          f"index_add_ {r['library_graph_ms']:.4f} ms; back to back {r['ms']:.4f} ms, "
+          f"index_add_ {r['library_ms']:.4f} ms")
     return results
 
 
@@ -990,9 +1058,8 @@ def main() -> int:
     logs = _build.build_all(force=True)
     print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(logs)}")
     for name, info in logs.items():
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line or "warning" in line:
-                print(f"  {name}: {line.strip()}")
+        for line in ptxas_lines(info["log"]):
+            print(f"  {name}: {line}")
 
     model = build_model(LEADERBOARD, precision="bf16", seed=0)
 

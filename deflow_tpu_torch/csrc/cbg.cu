@@ -21,18 +21,28 @@
 // 19.3 GFLOP per forward (two such products per backward) against 67 MB
 // (256²) and 34 MB (128²) of activations: operations and bytes are about even.
 //
-// Design.  All products are 16x16 tiles: WMMA on bf16, FFMA on f32 (the
-// parity path, not tuned).  Prologues (input BN and GELU, or the BN backward
-// for ds) run in f32 and round to the compute dtype exactly as the products
-// consume them.  No float atomics: partials are reduced in an order fixed by
-// the shape alone, so results are bit-identical from launch to launch and
-// from card to card.
+// Design.  All products are 16x16 tiles: on bf16 tensor cores (WMMA in the
+// backward, mma.sync with ldmatrix operands in the forward), FFMA on f32
+// (the parity path, not tuned).  Prologues (input BN and GELU, or the BN
+// backward for ds) run in f32 and round to the compute dtype exactly as the
+// products consume them.  No float atomics: partials are reduced in an order
+// fixed by the shape alone, so results are bit-identical from launch to
+// launch and from card to card.
 //
-// Forward: one block per 64-pixel row segment and all output channels
-// (<= 128).  The block builds its input window (3 rows x 66 pixels x all
-// channels) once, sums the 9 taps from shifted views of it, staging one
-// tap's weights at a time, and runs the epilogue (bias, rounding, column
-// sums) through an f32 staging tile.
+// Forward: a one-row block per 64 pixels would restage 9·C·O weights for
+// every 64 pixels (~151 M element loads at both path widths) and run the
+// input's BN+GELU on each input row three times, so a block owns R image
+// rows of one sample (4 at <= 64 input channels in bf16, 2 at 128, 1 in f32)
+// x 64 pixels x all O (<= 128) output channels.  Its window (rows y0-1 ..
+// y0+R, pixels x0-1 .. x0+64) and its weights arrive by 16-byte cp.async
+// copies, all in flight at once; the BN+GELU then runs in place once per
+// window element (each input row in 1.5-2 windows), from scalars a thread
+// holds in registers for its channel chunk.  Two blocks share an SM (one
+// block's loads and BN+GELU run under the other's products), holding two
+// taps of weights at 64 channels and one at 128, the next tap copied after
+// or under the current tap's products.  The epilogue adds the bias, rounds,
+// stores s 16 bytes a thread and sums Σs, Σs² with every thread, the
+// partials combined in a fixed order.
 //
 // Backward: dgrad, then wgrad, then an ordered reduction of the wgrad's
 // partials.  Both are bound by operand loads and integer work, not FLOPs,
@@ -86,115 +96,6 @@ __device__ __forceinline__ float gelu_grad(float x) {
 __host__ __device__ inline int r16(int v) { return (v + 15) / 16 * 16; }
 __host__ __device__ inline int r64(int v) { return (v + 63) / 64 * 64; }
 __host__ inline size_t align256(size_t v) { return (v + 255) & ~(size_t)255; }
-
-// Shared memory of the forward kernel: window [3][WIN][C16 + 16], one tap's
-// weights [C16][O16 + 8] (the f32 epilogue staging [TP][O16 + 4] reuses it).
-template <typename T>
-size_t conv_smem_bytes(int c, int o) {
-  const size_t win = (size_t)3 * WIN * (r16(c) + 16) * sizeof(T);
-  const size_t w = (size_t)r16(c) * (r16(o) + 8) * sizeof(T);
-  const size_t stage = (size_t)TP * (r16(o) + 4) * 4;
-  return win + (w > stage ? w : stage);
-}
-
-// Sum of the 9 taps over the forward's window for this warp's output
-// tiles: out[p][o] += Σ_c win[ky][p + kx][c] · W[ky][kx][c][o].
-template <typename T>
-__device__ void conv_taps(const T* win, int ldw, const T* __restrict__ wmat,
-                          int c, int o, T* s_w, Acc<T>* acc, int nacc) {
-  const int c16 = r16(c), o16 = r16(o), ldo = o16 + 8;
-  const int warp = threadIdx.x / 32, rt = warp % 4, cg = warp / 4;
-  const T zero = from_f<T>(0.f);
-  for (int tap = 0; tap < 9; ++tap) {
-    const int ky = tap / 3, kx = tap % 3;
-    __syncthreads();
-    const T* wt = wmat + (size_t)tap * c * o;
-    for (int i = threadIdx.x; i < c16 * o16; i += THREADS) {
-      const int ci = i / o16, oi = i % o16;
-      s_w[ci * ldo + oi] = ci < c && oi < o ? wt[ci * o + oi] : zero;
-    }
-    __syncthreads();
-    const T* a0 = win + ((size_t)ky * WIN + kx + rt * 16) * ldw;
-    for (int kk = 0; kk < c16 / 16; ++kk) {
-      for (int j = 0; j < nacc; ++j) {
-        const int ct = cg + 2 * j;
-        acc[j].template mma<true, true>(a0 + kk * 16, ldw,
-                                        s_w + kk * 16 * ldo + ct * 16, ldo);
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// Store this warp's accumulators into the f32 staging tile [TP][lds].
-template <typename T>
-__device__ void stage_out(Acc<T>* acc, int nacc, float* stage, int lds) {
-  const int warp = threadIdx.x / 32, rt = warp % 4, cg = warp / 4;
-  for (int j = 0; j < nacc; ++j) acc[j].store(stage + rt * 16 * lds + (cg + 2 * j) * 16, lds);
-  __syncthreads();
-}
-
-__device__ __forceinline__ int warp_tiles(int ncols16) {
-  const int cg = (threadIdx.x / 32) / 4;
-  return cg < ncols16 ? (ncols16 - cg + 1) / 2 : 0;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-cbg_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wmat,
-               const T* __restrict__ bias, const float* __restrict__ scal,
-               int h, int w, int c, int o, T* __restrict__ s, float* __restrict__ ps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int c16 = r16(c), o16 = r16(o), ldw = c16 + 16, lds = o16 + 4;
-  T* win = (T*)smem;
-  T* s_w = win + 3 * WIN * ldw;
-  float* stage = (float*)s_w;
-  const int segs = (w + TP - 1) / TP;
-  const int blk = blockIdx.x;
-  const int seg = blk % segs, y = (blk / segs) % h, b = blk / (segs * h);
-  const int x0 = seg * TP;
-  const T zero = from_f<T>(0.f);
-
-  for (int i = threadIdx.x; i < 3 * WIN * c16; i += THREADS) {
-    const int ci = i % c16, j = (i / c16) % WIN, ky = i / (c16 * WIN);
-    const int yy = y + ky - 1, xx = x0 + j - 1;
-    T v = zero;
-    if (ci < c && yy >= 0 && yy < h && xx >= 0 && xx < w) {
-      v = x[(((size_t)b * h + yy) * w + xx) * c + ci];
-      if (scal) {
-        const float z = (to_f(v) - scal[S_MEAN * c + ci]) * scal[S_ISTD * c + ci]
-                        * scal[S_GAMMA * c + ci] + scal[S_BETA * c + ci];
-        v = from_f<T>(gelu(z));
-      }
-    }
-    win[(ky * WIN + j) * ldw + ci] = v;
-  }
-  Acc<T> acc[MAXC / 32];
-  const int nacc = warp_tiles(o16 / 16);
-  for (int j = 0; j < nacc; ++j) acc[j].zero();
-  conv_taps<T>(win, ldw, wmat, c, o, s_w, acc, nacc);
-  stage_out(acc, nacc, stage, lds);
-
-  const int np = w - x0 < TP ? w - x0 : TP;
-  const size_t pix0 = ((size_t)b * h + y) * w + x0;
-  for (int i = threadIdx.x; i < np * o; i += THREADS) {
-    const int p = i / o, oi = i % o;
-    const T sv = from_f<T>(stage[p * lds + oi] + to_f(bias[oi]));
-    s[(pix0 + p) * o + oi] = sv;
-    stage[p * lds + oi] = to_f(sv);
-  }
-  __syncthreads();
-  for (int oi = threadIdx.x; oi < o; oi += THREADS) {
-    float s1 = 0.f, s2 = 0.f;
-    for (int p = 0; p < np; ++p) {
-      const float v = stage[p * lds + oi];
-      s1 += v;
-      s2 += v * v;
-    }
-    ps[((size_t)blk * 2) * o + oi] = s1;
-    ps[((size_t)blk * 2 + 1) * o + oi] = s2;
-  }
-}
 
 // ---------------------------------------------------------------- wgrad
 // part[slab][tap][c][o] (c, o padded to 64) = Σ over the slab's pixels of
@@ -691,19 +592,349 @@ BwdScratch bwd_layout(int bsz, int h, int w, int c, int o, int esz) {
   return s;
 }
 
+// ---------------------------------------------------------------- forward
+// A block owns R = fw_rows() image rows of one sample x one 64-pixel segment
+// and all O output channels.  Warp (pw, ow) owns pixel tile pw of each of
+// the R rows and o tiles ow, ow + 2, ...: per 16-deep step R A and up to NC
+// B fragments feed R x NC products.
+struct FwLayout {
+  int w, total;                           // byte offset of the weights (the window is at 0); the size
+  int nbuf;                               // taps of weights held: 2 (double-buffered) or 1
+};
+
+constexpr int SMEM_HALF = 233472 / 2 - 1024;  // a block's share when two share an SM (228 KB, 1 KB reserved each)
+
+__host__ __device__ inline int fw_bytes(int win, int tap, int stage, int nbuf) {
+  return win + nbuf * tap > stage ? win + nbuf * tap : stage;
+}
+
+// Shared memory of the forward kernel: the window [R + 2][WIN][C16 + 8]
+// (a pixel stride of 16 bytes more than the channels: ldmatrix reads its 8
+// rows from 8 distinct bank groups), then the weights [nbuf][C16][O16 + 8].
+// After the products the f32 staging [R * TP][O16 + 4], then the column
+// sums' partials (<= 16 KB), reuse both.  Two taps of weights are held
+// (the next copied under the current one's products) when that keeps two
+// blocks an SM, so that one block's loads and BN+GELU run under the other's
+// products: 76 KB at 64 channels; else one tap (107 KB at 128 channels,
+// still two blocks an SM).
+template <typename T, int R>
+__host__ __device__ inline FwLayout fw_layout(int c, int o) {
+  const int c16 = r16(c), o16 = r16(o), sz = (int)sizeof(T);
+  const int win = ((R + 2) * WIN * (c16 + 8) * sz + 127) / 128 * 128;
+  const int tap = c16 * (o16 + 8) * sz;
+  const int stage = R * TP * (o16 + 4) * 4;
+  FwLayout L;
+  L.w = win;
+  L.nbuf = fw_bytes(win, tap, stage, 2) <= SMEM_HALF ? 2 : 1;
+  L.total = fw_bytes(win, tap, stage, L.nbuf);
+  return L;
+}
+
+// Rows per forward block: 4 when C <= 64 (bf16), else 2; 1 in f32.
+inline int fw_rows(int c, int esz) { return esz == 4 ? 1 : (r16(c) <= 64 ? 4 : 2); }
+
+// A 16x16 f32 tile of bf16 products by mma.sync m16n8k16, its operands
+// read by ldmatrix, which needs 16-byte aligned rows only (WMMA wants
+// 32-byte aligned tiles, so a tap-shifted window would need a pixel stride
+// of C16 + 16, whose rows meet in the same banks).  Two n8 halves; lane l
+// holds rows l/4 and l/4 + 8, columns 2(l%4) and 2(l%4) + 1 of each.
+struct MmaTile {
+  float d[2][4];
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) d[h][q] = 0.f;
+  }
+  __device__ __forceinline__ void store(float* c, int ldc) const {
+    const int l = threadIdx.x & 31, r = l >> 2, cc = (l & 3) * 2;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      *reinterpret_cast<float2*>(c + r * ldc + h * 8 + cc) = make_float2(d[h][0], d[h][1]);
+      *reinterpret_cast<float2*>(c + (r + 8) * ldc + h * 8 + cc) = make_float2(d[h][2], d[h][3]);
+    }
+  }
+};
+
+template <typename T>
+using FwAcc = typename std::conditional<std::is_same<T, bf16>::value, MmaTile, Acc<T>>::type;
+
+// Four 8x8 bf16 matrices from shared memory; lane l gives the row address
+// of matrix l/8.  With trans, each is read transposed.
+template <bool TRANS>
+__device__ __forceinline__ void ldsm4(unsigned (&r)[4], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  if constexpr (TRANS)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+__device__ __forceinline__ void mma16816(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One 16-deep step (16 input channels c) of warp (pw, ow):
+// acc[r][j] += A_r · B_j, A_r the window at row r's pixel tile (a + r·WIN·lda,
+// row-major over c), B_j o tile ow + 2j of this tap's W[c][o] (row-major,
+// read transposed: mma's B is column-major).
+template <typename T, int R, int NC>
+__device__ __forceinline__ void fw_step(FwAcc<T> (&acc)[R][NC], const T* a, int lda,
+                                        const T* bm, int ldb, int ow, int ot_n) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    const int l = threadIdx.x & 31, row = l & 15, col = (l >> 4) * 8;
+    unsigned fa[R][4], fb[NC][4];
+#pragma unroll
+    for (int r = 0; r < R; ++r) ldsm4<false>(fa[r], a + (r * WIN + row) * lda + col);
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+      if (ow + 2 * j < ot_n) ldsm4<true>(fb[j], bm + row * ldb + (ow + 2 * j) * 16 + col);
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int j = 0; j < NC; ++j)
+        if (ow + 2 * j < ot_n) {
+          mma16816(acc[r][j].d[0], fa[r], fb[j][0], fb[j][1]);
+          mma16816(acc[r][j].d[1], fa[r], fb[j][2], fb[j][3]);
+        }
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int j = 0; j < NC; ++j)
+        if (ow + 2 * j < ot_n)
+          acc[r][j].template mma<true, true>(a + r * WIN * lda, lda,
+                                             bm + (ow + 2 * j) * 16, ldb);
+  }
+}
+
+// Two blocks an SM cap a thread at 128 registers, enough for the path's
+// R x NC = 8 tiles a warp (64 -> 64 and 128 -> 128 channels).
+template <typename T, int R, int NC>
+__global__ void __launch_bounds__(THREADS, 2)
+cbg_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wmat,
+               const T* __restrict__ bias, const float* __restrict__ scal, int h, int w,
+               int c, int o, int vec, T* __restrict__ s, float* __restrict__ ps) {
+  constexpr int V = 16 / sizeof(T);
+  extern __shared__ __align__(128) unsigned char smem[];
+  const FwLayout L = fw_layout<T, R>(c, o);
+  const int c16 = r16(c), o16 = r16(o), ldw = c16 + 8, ldo = o16 + 8, lds = o16 + 4;
+  T* win = (T*)smem;
+  T* s_w = (T*)(smem + L.w);
+  float* stage = (float*)smem;                 // [R * TP][lds], after the products
+  const int tap_elems = c16 * ldo;
+  const int segs = (w + TP - 1) / TP, grps = (h + R - 1) / R;
+  const int blk = blockIdx.x, tid = threadIdx.x;
+  const int seg = blk % segs, grp = (blk / segs) % grps, b = blk / (segs * grps);
+  const int x0 = seg * TP, y0 = grp * R;
+  const int np = w - x0 < TP ? w - x0 : TP, nr = h - y0 < R ? h - y0 : R;
+  const size_t row0 = (size_t)b * h;
+  const T zero = from_f<T>(0.f);
+
+  auto load_tap = [&](int tap, T* dst) {
+    const int chunks = o16 / V;
+    for (int i = threadIdx.x; i < c16 * chunks; i += THREADS) {
+      const int ci = i / chunks, oi = (i % chunks) * V;
+      const bool ok = ci < c && oi < o;
+      const T* src = ok ? wmat + ((size_t)tap * c + ci) * o + oi : wmat;
+      T* d = dst + ci * ldo + oi;
+      if (vec) {
+        cp_async16(d, src, ok);
+      } else {
+#pragma unroll
+        for (int q = 0; q < V; ++q) d[q] = ok && oi + q < o ? src[q] : zero;
+      }
+    }
+  };
+
+  // the raw window, zero outside the image and the channels; then the
+  // weights, whose copy may still run under the BN+GELU pass
+  const int cch = c16 / V, nwin = (R + 2) * WIN * cch;
+  for (int i = tid; i < nwin; i += THREADS) {
+    const int k = i % cch, j = (i / cch) % WIN, r = i / (cch * WIN);
+    const int yy = y0 + r - 1, xx = x0 + j - 1, ci = k * V;
+    const bool ok = yy >= 0 && yy < h && xx >= 0 && xx < w && ci < c;
+    const T* src = ok ? x + ((row0 + yy) * w + xx) * c + ci : x;
+    T* dst = win + (r * WIN + j) * ldw + ci;
+    if (vec) {
+      cp_async16(dst, src, ok);
+    } else {
+#pragma unroll
+      for (int q = 0; q < V; ++q) dst[q] = ok && ci + q < c ? src[q] : zero;
+    }
+  }
+  cp_async_commit();
+  load_tap(0, s_w);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+
+  // u = gelu(bn(x)) in place on the window's pixels inside the image, once
+  // per element.  A thread keeps to one chunk of V channels and holds their
+  // BN scalars in registers (zero beyond C, so that u stays 0 there).
+  if (scal) {
+    const int used = THREADS / cch * cch;
+    if (tid < used) {
+      const int ci = tid % cch * V;
+      float sc[4][V];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int q = 0; q < V; ++q) sc[k][q] = ci + q < c ? scal[k * c + ci + q] : 0.f;
+      for (int i = tid; i < nwin; i += used) {
+        const int j = (i / cch) % WIN, r = i / (cch * WIN);
+        const int yy = y0 + r - 1, xx = x0 + j - 1;
+        if (yy < 0 || yy >= h || xx < 0 || xx >= w) continue;
+        uint4* p = reinterpret_cast<uint4*>(win + (r * WIN + j) * ldw + ci);
+        alignas(16) T v[V];
+        *reinterpret_cast<uint4*>(v) = *p;
+#pragma unroll
+        for (int q = 0; q < V; ++q)
+          v[q] = from_f<T>(gelu((to_f(v[q]) - sc[S_MEAN][q]) * sc[S_ISTD][q] * sc[S_GAMMA][q]
+                                + sc[S_BETA][q]));
+        *p = *reinterpret_cast<const uint4*>(v);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // s[p][o] = Σ_tap Σ_c win[r + ky][p + kx][c] · W[ky][kx][c][o]
+  const int warp = tid / 32, pw = warp % 4, ow = warp / 4, ot_n = o16 / 16;
+  FwAcc<T> acc[R][NC];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int j = 0; j < NC; ++j) acc[r][j].zero();
+  for (int tap = 0; tap < 9; ++tap) {
+    const T* wt = s_w;
+    if (L.nbuf == 2) {
+      if (tap + 1 < 9) {
+        load_tap(tap + 1, s_w + ((tap + 1) & 1) * tap_elems);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      wt += (tap & 1) * tap_elems;
+    } else if (tap > 0) {
+      load_tap(tap, s_w);
+      cp_async_commit();
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int ky = tap / 3, kx = tap % 3;
+    const T* a0 = win + (ky * WIN + pw * 16 + kx) * ldw;
+    for (int kk = 0; kk < c16 / 16; ++kk)
+      fw_step<T, R, NC>(acc, a0 + kk * 16, ldw, wt + kk * 16 * ldo, ldo, ow, ot_n);
+    __syncthreads();
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+      if (ow + 2 * j < ot_n)
+        acc[r][j].store(stage + (r * TP + pw * 16) * lds + (ow + 2 * j) * 16, lds);
+  __syncthreads();
+
+  // s = acc + bias, rounded to T, 16 bytes a store.  A thread keeps to one
+  // chunk of V output channels and sums the rounded s and s² over its pixels
+  // (in ascending order); the threads' partials are then combined in thread
+  // order, one [2, O] row per block.
+  const int och = o16 / V, oused = THREADS / och * och, parts = oused / och;
+  const int oi = tid % och * V;
+  float s1[V], s2[V];
+#pragma unroll
+  for (int q = 0; q < V; ++q) s1[q] = s2[q] = 0.f;
+  if (tid < oused) {
+    float bv[V];
+#pragma unroll
+    for (int q = 0; q < V; ++q) bv[q] = oi + q < o ? to_f(bias[oi + q]) : 0.f;
+    for (int i = tid; i < nr * np * och; i += oused) {
+      const int pp = i / och, p = pp % np, r = pp / np;
+      const float* st = stage + (r * TP + p) * lds + oi;
+      alignas(16) float f[V];
+#pragma unroll
+      for (int q = 0; q < V; q += 4)
+        *reinterpret_cast<float4*>(f + q) = *reinterpret_cast<const float4*>(st + q);
+      alignas(16) T v[V];
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+        v[q] = from_f<T>(f[q] + bv[q]);
+        const float u = to_f(v[q]);
+        s1[q] += u;
+        s2[q] += u * u;
+      }
+      if (oi < o) st_vec(s + ((row0 + y0 + r) * w + x0 + p) * o + oi, v, o - oi, vec);
+    }
+  }
+  __syncthreads();
+  float* red = stage;                          // [2][parts][O16]: Σs, then Σs²
+  if (tid < oused) {
+    const int part = tid / och;
+#pragma unroll
+    for (int q = 0; q < V; ++q) {
+      red[part * o16 + oi + q] = s1[q];
+      red[(parts + part) * o16 + oi + q] = s2[q];
+    }
+  }
+  __syncthreads();
+  for (int oc = tid; oc < o; oc += THREADS) {
+    float t1 = 0.f, t2 = 0.f;
+    for (int k = 0; k < parts; ++k) {
+      t1 += red[k * o16 + oc];
+      t2 += red[(parts + k) * o16 + oc];
+    }
+    ps[((size_t)blk * 2) * o + oc] = t1;
+    ps[((size_t)blk * 2 + 1) * o + oc] = t2;
+  }
+}
+
+template <typename T, int R, int NC>
+cudaError_t launch_fwd(const T* x, const T* wmat, const T* bias, const float* scal, int bsz,
+                       int h, int w, int c, int o, int vec, T* s, float* ps, cudaStream_t st) {
+  const int blocks = bsz * ((h + R - 1) / R) * ((w + TP - 1) / TP);
+  if (blocks == 0) return cudaSuccess;
+  const FwLayout L = fw_layout<T, R>(c, o);
+  cudaError_t e = cudaFuncSetAttribute(cbg_fwd_kernel<T, R, NC>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+  if (e != cudaSuccess) return e;
+  cbg_fwd_kernel<T, R, NC><<<blocks, THREADS, L.total, st>>>(x, wmat, bias, scal, h, w, c, o,
+                                                              vec, s, ps);
+  return cudaGetLastError();
+}
+
+// NC: o tiles per warp, 2 up to 64 output channels, else 4.
+template <typename T, int R>
+cudaError_t launch_fwd_nc(const T* x, const T* wmat, const T* bias, const float* scal, int bsz,
+                          int h, int w, int c, int o, int vec, T* s, float* ps, cudaStream_t st) {
+  if (r16(o) <= 64) return launch_fwd<T, R, 2>(x, wmat, bias, scal, bsz, h, w, c, o, vec, s, ps, st);
+  return launch_fwd<T, R, 4>(x, wmat, bias, scal, bsz, h, w, c, o, vec, s, ps, st);
+}
+
 template <typename T>
 int fwd(const void* x, const void* wmat, const void* bias, const float* scal, int bsz,
         int h, int w, int c, int o, void* s, float* ps, cudaStream_t st) {
-  const int blocks = bsz * h * ((w + TP - 1) / TP);
-  if (blocks == 0) return (int)cudaGetLastError();
-  const size_t smem = conv_smem_bytes<T>(c, o);
-  cudaError_t e = cudaFuncSetAttribute(cbg_fwd_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  cbg_fwd_kernel<T><<<blocks, THREADS, smem, st>>>((const T*)x, (const T*)wmat,
-                                                   (const T*)bias, scal, h, w, c, o,
-                                                   (T*)s, ps);
-  return (int)cudaGetLastError();
+  constexpr int V = 16 / sizeof(T);
+  const auto al = [](const void* p) { return (size_t)p % 16 == 0; };
+  const int vec = c % V == 0 && o % V == 0 && al(x) && al(wmat) && al(s);
+  const T *xt = (const T*)x, *wt = (const T*)wmat, *bt = (const T*)bias;
+  cudaError_t e;
+  if constexpr (sizeof(T) == 4) {
+    e = launch_fwd_nc<T, 1>(xt, wt, bt, scal, bsz, h, w, c, o, vec, (T*)s, ps, st);
+  } else if (fw_rows(c, 2) == 4) {
+    e = launch_fwd_nc<T, 4>(xt, wt, bt, scal, bsz, h, w, c, o, vec, (T*)s, ps, st);
+  } else {
+    e = launch_fwd_nc<T, 2>(xt, wt, bt, scal, bsz, h, w, c, o, vec, (T*)s, ps, st);
+  }
+  return (int)e;
 }
 
 template <typename T>
@@ -752,8 +983,11 @@ extern "C" {
 
 const char* error_string(int e) { return cudaGetErrorString((cudaError_t)e); }
 
-// Row segments (= partial-sum rows) of one forward call.
-int cbg_blocks(int bsz, int h, int w) { return bsz * h * ((w + TP - 1) / TP); }
+// Row groups x segments (= partial-sum rows) of one forward call.
+int cbg_fwd_blocks(int bsz, int h, int w, int c, int is_bf16) {
+  const int r = fw_rows(c, is_bf16 ? 2 : 4);
+  return bsz * ((h + r - 1) / r) * ((w + TP - 1) / TP);
+}
 
 // Row groups x segments (= partial-sum rows) of one backward call.
 int cbg_bwd_blocks(int bsz, int h, int w, int c, int is_bf16) {
@@ -767,7 +1001,7 @@ long long cbg_bwd_scratch_bytes(int bsz, int h, int w, int c, int o, int is_bf16
 
 // x [B, H, W, C], wmat [3, 3, C, O], bias [O] in the compute dtype; scal
 // [6, C] f32 (mean, istd, gamma, beta, -, -) or null; s [B, H, W, O];
-// ps [cbg_blocks, 2, O] f32.  C, O <= 128.
+// ps [cbg_fwd_blocks, 2, O] f32.  C, O <= 128.
 int cbg_fwd(const void* x, const void* wmat, const void* bias, const void* scal, int bsz,
             int h, int w, int c, int o, void* s, void* ps, int is_bf16, void* stream) {
   if (!shapes_ok(c, o)) return (int)cudaErrorInvalidValue;

@@ -105,8 +105,8 @@ def cbg_block_bwd_plain(dz, si, sp, wmat, scal_in, scal_out=None):
 
 def _setup(lib):
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.cbg_blocks.restype = i32
-    lib.cbg_blocks.argtypes = [i32] * 3
+    lib.cbg_fwd_blocks.restype = i32
+    lib.cbg_fwd_blocks.argtypes = [i32] * 5
     lib.cbg_bwd_blocks.restype = i32
     lib.cbg_bwd_blocks.argtypes = [i32] * 5
     lib.cbg_bwd_scratch_bytes.restype = ctypes.c_longlong
@@ -163,12 +163,12 @@ def cbg_block_fwd(x, wmat, bias, scal: Optional[torch.Tensor] = None):
     if max(c, o) > MAX_CHANNELS:
         raise ValueError(f"CBG kernel: at most {MAX_CHANNELS} channels")
     lib = _build.load("cbg", _setup)
+    bf16 = int(x.dtype == torch.bfloat16)
     s = torch.empty(b, h, w, o, dtype=x.dtype, device=x.device)
-    ps = torch.empty(lib.cbg_blocks(b, h, w), 2, o, device=x.device)
+    ps = torch.empty(lib.cbg_fwd_blocks(b, h, w, c, bf16), 2, o, device=x.device)
     rc = lib.cbg_fwd(x.data_ptr(), wmat.data_ptr(), bias.data_ptr(),
                      None if scal is None else scal.data_ptr(), b, h, w, c, o,
-                     s.data_ptr(), ps.data_ptr(), int(x.dtype == torch.bfloat16),
-                     _build.stream_ptr(x))
+                     s.data_ptr(), ps.data_ptr(), bf16, _build.stream_ptr(x))
     _build.check(lib, rc, "cbg_fwd")
     cbg_block_fwd.launches += 1
     return s, ps

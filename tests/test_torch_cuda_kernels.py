@@ -249,6 +249,31 @@ def test_cbg_block_bwd(dev, dtype, head, shape):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(2, 9, 130, 128, 128), (4, 32, 32, 64, 64),
+                                   # one image row a sample: both halo rows
+                                   # of every row group lie outside the image
+                                   (2, 1, 70, 128, 128)])
+def test_cbg_block_fwd_is_deterministic(dev, dtype, shape):
+    """No float atomics: two launches agree bit for bit; one partial-sum
+    row per row group of the kernel; and the plain version's result."""
+    from deflow_tpu_torch.ops import _build, cbg
+
+    g = torch.Generator().manual_seed(13)
+    b, h, w, c, _ = shape
+    x, wm, bias, scal = _cbg_inputs(g, shape, dtype, dev, True)
+    first = cbg.cbg_block_fwd(x, wm, bias, scal)
+    second = cbg.cbg_block_fwd(x, wm, bias, scal)
+    s_ref, ps_ref = cbg.cbg_block_fwd_plain(x, wm, bias, scal)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+    lib = _build.load("cbg", cbg._setup)
+    assert first[1].shape[0] == lib.cbg_fwd_blocks(b, h, w, c, int(dtype == torch.bfloat16))
+    assert _rel_err(first[0], s_ref) <= (2 ** -7 if dtype == torch.bfloat16 else 1e-5)
+    assert _rel_err(first[1].sum(0), ps_ref.sum(0)) <= GRAD_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(2, 9, 130, 128, 128), (4, 32, 32, 64, 64)])
 def test_cbg_block_bwd_is_deterministic(dev, dtype, shape):
     """No float atomics: two launches on the same inputs agree bit for bit."""

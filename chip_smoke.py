@@ -8,13 +8,14 @@ Phases (any failure exits non-zero):
 2. build every kernel from ``deflow_tpu_torch/csrc`` with nvcc (sm_90a);
 3. each kernel at its path's shapes, in bf16 and in f32 (TF32 off): its
    error against its plain PyTorch version, its time, the plain version's
-   time, a library call's (or call sequence's) time, and the bound (the
-   fused conv3x3+BN+GELU backward also split by the kernels it launches); the
-   segment-sum and the row gather also as each other's backward on the
-   train path's ids; the fused conv3x3+BN+GELU kernels at both chain widths;
-   the SSL kernels on an SSL batch: the cell sweep (both directions), the
-   lane segment-sum of the chamfer VJP (beside the pillar segment-sum at the
-   same shape) and the brute search at 2 x 16,384; the row gather, the
+   time, a library call's (or call sequence's) time, and the bound (the GRU
+   backward and the fused conv3x3+BN+GELU backward also split by the
+   kernels they launch); the segment-sum and the row gather also as each
+   other's backward on the train path's ids; the fused conv3x3+BN+GELU
+   kernels at both chain widths; the SSL kernels on an SSL batch: the cell
+   sweep (both directions), the lane segment-sum of the chamfer VJP (beside
+   the pillar segment-sum at the same shape) and the brute search at 2 x
+   16,384; the row gather, the
    lane segment-sum and their library calls also timed as 20 launches
    captured in one CUDA graph (no host launch overhead); then the
    full-width sweep against the brute search (truncated distances, both
@@ -441,9 +442,10 @@ def check_train_kernels(model, host_batch, splits: list):
     Returns the bf16 measurements: the backward uses of the segment-sum and
     the gather under "as_gather_bwd" / "as_scatter_bwd", the fused blocks'
     256^2 width first and the 128^2 width under "width_128".  Appends to
-    ``splits`` (result, call) for each fused block backward, whose split by
-    kernel (``split_ms``) the caller measures after every other timing of
-    the phase: torch.profiler leaves host overhead on later launches."""
+    ``splits`` (name, result, call) for the GRU backward and each fused
+    block backward, whose split by kernel (``split_ms``) the caller
+    measures after every other timing of the phase: torch.profiler leaves
+    host overhead on later launches."""
     import torch
     import torch.nn.functional as F
 
@@ -496,7 +498,7 @@ def check_train_kernels(model, host_batch, splits: list):
     nbytes = 2 * m * (hd + xdim + hd) * 2 + 2 * (hd + xdim) * 3 * hd * 2
     b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
     results["fused_gru_bwd"] = {
-        "max_abs_err": err,
+        "max_abs_err": err, "shape": f"{m}x{hd}+{xdim}, {iters} iterations",
         "ms": cuda_ms(lambda: gru.fused_gru_bwd(*args, iters), 5),
         "plain_ms": cuda_ms(lambda: gru.fused_gru_bwd_plain(*args, iters), 3),
         "bound_ms": b_ms, "bound_by": b_by,
@@ -504,6 +506,8 @@ def check_train_kernels(model, host_batch, splits: list):
         "library_call": "call sequence: torch autograd of the GRU loop with bf16 "
                         "matmul operands (cuBLAS, f32 accumulation)",
     }
+    splits.append(("fused_gru_bwd", results["fused_gru_bwd"],
+                   lambda: gru.fused_gru_bwd(*args, iters)))
 
     # -- fused blocks at the two chain widths of the siamese batch
     net = model.backbone
@@ -572,7 +576,7 @@ def check_train_kernels(model, host_batch, splits: list):
                                  "torch.nn.grad.conv2d_* (cuDNN, bf16)",
                  "shape": f"{shape[0]}x{res}x{res}x{c}->{o}"}
             if kname == "cbg_bwd":
-                splits.append((r, fn))
+                splits.append((kname, r, fn))
             if name == "256":
                 results[kname] = r
             else:
@@ -885,7 +889,7 @@ def _category(name: str) -> str:
                       ("chamfer_brute", ("chamfer_brute",)),
                       ("sort/unsort (torch.sort, searchsorted, index writes)",
                        ("sort", "searchsorted", "index_put", "fill_index_and_segment")),
-                      ("fused_gru_bwd", ("gru_bwd", "atb_kernel", "reduce_partials")),
+                      ("fused_gru_bwd", ("gru_bwd", "reduce_partials")),
                       ("cbg_fwd", ("cbg_fwd",)),
                       ("cbg_bwd", ("cbg_dgrad", "cbg_wgrad", "wgrad_reduce")),
                       ("segment_sum", ("segment_sum", "mark_runs")),
@@ -1085,11 +1089,11 @@ def main() -> int:
     for name, r in check_train_kernels(model, train_batches[0], splits).items():
         kernels.setdefault(name, {}).update(r)
     kernels.update(check_ssl_kernels(ssl_batches[0], brute_batches[0]))
-    for r, fn in splits:
+    for name, r, fn in splits:
         r["split_ms"] = kernel_split(fn, 10)
-        print(f"cbg_bwd {r['shape']} split by kernel: " + ", ".join(
+        print(f"{name} {r['shape']} split by kernel: " + ", ".join(
             f"{k} {v:.4f} ms" for k, v in sorted(r["split_ms"].items())))
-    del splits, fn          # the blocks' inputs: not held through the step phases
+    del splits, fn          # the kernels' inputs: not held through the step phases
     worst = sweep_vs_brute(ssl_batches[1])
     print(f"sweep vs brute (full width): largest difference over its tolerance "
           f"{worst:.3f}")

@@ -1,8 +1,10 @@
 // Fused iterative ConvGRU backward (the DeFlow decoder's training hot loop).
 // Given the forward of fused_gru.cu (H = 128, input width xdim) and the
 // cotangent g of its output, computes dh0, dx, dW_zr, db_zr, dW_q, db_q with
-// matmul operands in the compute dtype (bf16 or f32) and f32 accumulation,
-// each gradient rounded once to its operand's dtype.
+// matmul operands in the compute dtype (bf16 or f32) and f32 accumulation;
+// gates, state and gate gradients in f32; each operand rounded to the
+// compute dtype where the plain version rounds it; each gradient rounded
+// once, after its f32 sum.
 //
 // Replaces: deflow_tpu/ops/pallas_gru.py::_fused_bwd (the Pallas kernel
 // _make_bwd_kernel), reached through fused_gru's custom VJP.
@@ -10,114 +12,245 @@
 // Bound on the H100: operations.  Over M points and 4 iterations the
 // backward does the forward once more plus two products per gate matrix,
 // 3 x 2·M·192·384·4 FLOP (348 GFLOP at M = 196,608) against ~200 MB of
-// h0/x/g/dh0/dx traffic.
+// h0/x/g/dh0/dx traffic.  This design runs 4·iters - 1 such 2·M·192·384
+// products (the main kernel: iters - 1 forward, iters replayed in the
+// backward walk, iters through W^T; the dW kernel: iters) and moves ~1.0 GB
+// of bf16 dW operands through device memory (written once, read at most
+// twice).
 //
 // Design.  The Pallas kernel keeps all iterations' (h, z, r, q) of a
 // 512-row tile in VMEM (4 MB); a Hopper block has 227 KB, of which the bf16
 // weights take 150 KB.  So:
-//  1. main kernel, a persistent block per SM walking 16-point tiles with the
-//     bf16 weights resident in shared memory (f32 reads them through the
-//     cache).  Per tile it runs the forward, spilling each iteration's input
-//     state h (f32) to a global scratch (written and read back by the same
-//     block, so it mostly stays in L2), then walks the iterations in
-//     reverse: it recomputes z, r, q from the spilled h with two products,
-//     forms the gate gradients in f32, and back-propagates through W_q^T and
-//     W_zr^T with two more.  dh and dx stay in shared memory; db is summed
-//     per block.  The operands of the weight gradients ([h|x], [r*h|x],
-//     ds_zr, ds_q, rounded to the compute dtype exactly as the products use
-//     them) are written to global memory, since dW (295 KB in f32) fits in
-//     neither registers nor shared memory;
-//  2. a split-K product dW = A^T·B over all M·iters rows of those operands,
-//     each block summing one 64x64 output tile over one slice of rows into
-//     its own f32 partial;
-//  3. a reduction of the partials (and of the per-block db) in slice order.
-// No float atomics: the result does not depend on scheduling.
+//  1. gru_bwd_kernel: a constant wave of WAVE blocks (one an SM), each
+//     walking 32-point tiles with the bf16 weights resident in shared
+//     memory.  Warp w owns hidden columns [16w, 16w + 16): its z, r, q, h
+//     and dh stay in registers, in mma.sync's accumulator layout, and every
+//     epilogue (bias, sigmoid/tanh, the gate gradients) runs on the
+//     accumulators.  The products are mma.sync m16n8k16 on ldmatrix
+//     operands, rows padded to a stride of width + 8 (16 bytes past a
+//     multiple of 128: conflict-free).  Only the operand tiles [h|x],
+//     [r*h|x], ds_q and ds_zr pass through shared memory, so a block barrier
+//     falls only where one changes hands: 2 per forward iteration, 4 per
+//     backward one.  A tile runs the forward over iters - 1 iterations,
+//     keeping each iteration's input state h (f32) in a per-block scratch
+//     laid out as the fragments (each thread reads back what it wrote; the
+//     next iteration's is loaded under the current one's products), then
+//     walks the iterations in reverse: it recomputes z, r, q, forms the gate
+//     gradients in f32 and back-propagates through W_q^T and W_zr^T; dh, dx
+//     and the lane's share of db stay in registers.  The dW operands
+//     (rounded exactly as the products use them; x left out, since it is the
+//     same in every iteration) are written from their shared tiles with
+//     16-byte stores, since dW (295 KB in f32) fits in neither registers nor
+//     shared memory;
+//  2. gru_bwd_dw_kernel: dW = A^T·B over all iters·M rows in slices of rows,
+//     a block owning one slice and 128 output columns (dW_zr's two halves,
+//     dW_q), A = [h | x] or [r*h | x] with x read at row mod M; stages of
+//     64 rows (32 in f32) stream through a 4-stage ring of 16-byte cp.async
+//     copies into mma.sync on ldmatrix.trans operands.  A crosses device memory at most
+//     twice (once per dW_zr half), B once;
+//  3. reduce_partials (mma_tile.cuh) sums the slices' dW and the blocks' db
+//     in order.
+// Every partial is sized from the shape alone (the wave is a constant, not
+// the card's SM count), and no float atomics are used: the gradients are
+// bit-identical from launch to launch and from card to card.  The f32 path
+// (parity runs) runs the same kernels with an FFMA stand-in for mma.sync in
+// the same fragment layout, its weights read through the cache.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "mma_tile.cuh"
 
 namespace {
 
-using tile::Acc;
 using tile::bf16;
 using tile::from_f;
 using tile::to_f;
 
 constexpr int H = 128;
-constexpr int TM = 16;                   // points per tile
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int PAD = 8;                   // row padding against bank conflicts
 constexpr int LDZR = 2 * H + PAD;        // shared-memory row strides (elements)
 constexpr int LDQ = H + PAD;
 constexpr int XMAX = 64;
+constexpr int KMAX = H + XMAX;
+// Blocks of the main kernel and of the dW product: one wave on an H100 SXM
+// (one block an SM).  A constant, so that the partials depend on the shape
+// alone.
+constexpr int WAVE = 132;
+// Points of a main-kernel tile: each warp holds RT 16-row tiles, so that
+// each B fragment it loads serves RT products (238 registers in bf16, no
+// spills; one 16-row tile read slower on the H100).
+constexpr int RT = 2;
+constexpr int TM = 16 * RT;
+
+// Rows of a dW stage: 64 in bf16 (172 KB for 4 stages; 32 read 24% slower
+// on the H100), 32 in f32.
+template <typename T> __host__ __device__ constexpr int dw_rows() {
+  return 128 / (int)sizeof(T);
+}
+constexpr int DW_STAGES = 4;
+constexpr int DW_N = 128;                // output columns of a dW block
+constexpr int DW_LDA = KMAX + PAD;       // stage strides (elements)
+constexpr int DW_LDB = DW_N + PAD;
+template <typename T> __host__ __device__ constexpr int dw_stage() {
+  return dw_rows<T>() * (DW_LDA + DW_LDB);
+}
 
 __device__ __forceinline__ float sigmoid_f32(float v) { return 1.f / (1.f + expf(-v)); }
 
 __host__ __device__ inline size_t align256(size_t v) { return (v + 255) & ~(size_t)255; }
 
-// Region reused by the operand tiles [h|x], [r*h|x] and then by ds_q, ds_zr.
-__host__ __device__ inline int region_elems(int lda) {
-  const int a = 2 * lda, b = LDQ + LDZR;
-  return TM * (a > b ? a : b);
+// ------------------------------------------------------- warp products
+// ldsm4 and mma16816 are copies of cbg.cu's (that file stays as it is).
+// Four 8x8 bf16 matrices from shared memory; lane l gives the row address
+// of matrix l/8.  With trans, each is read transposed.
+template <bool TRANS>
+__device__ __forceinline__ void ldsm4(unsigned (&r)[4], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  if constexpr (TRANS)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
 }
 
-template <typename T>
-size_t main_smem_bytes(int k) {
-  const int lda = k + PAD;
-  const bool w_smem = sizeof(T) == 2;
-  size_t s = 0;
-  if (w_smem) s += (size_t)k * (LDZR + LDQ) * sizeof(T);
-  s += (size_t)region_elems(lda) * sizeof(T);
-  s += (size_t)5 * TM * H * 4 + (size_t)TM * XMAX * 4;  // h z r q dh, dx
-  s += (size_t)WARPS * 256 * 4 + 2 * 3 * H * 4;          // staging, b, db
-  return s;
+// Two 8x8 bf16 matrices; lanes 0-15 give the row addresses.
+__device__ __forceinline__ void ldsm2(unsigned (&r)[2], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(a));
 }
 
-// Scratch layout (each piece 256-byte aligned).
-struct Scratch {
-  size_t hsave, sp_hx, sp_u, sp_dszr, sp_dsq, db_part, part_zr, part_q, total;
-  int slices, kpad;
-};
-
-__host__ inline Scratch scratch_layout(int m, int xdim, int iters, int esz, int grid) {
-  Scratch s;
-  const size_t rows = (size_t)iters * m;
-  const int k = H + xdim;
-  s.kpad = (k + 63) / 64 * 64;
-  long long sl = ((long long)rows + 2047) / 2048;
-  s.slices = (int)(sl < 1 ? 1 : (sl > 64 ? 64 : sl));
-  size_t o = 0;
-  s.hsave = o;   o += align256(rows * H * 4);
-  s.sp_hx = o;   o += align256(rows * k * esz);
-  s.sp_u = o;    o += align256(rows * k * esz);
-  s.sp_dszr = o; o += align256(rows * 2 * H * esz);
-  s.sp_dsq = o;  o += align256(rows * H * esz);
-  s.db_part = o; o += align256((size_t)grid * 3 * H * 4);
-  s.part_zr = o; o += align256((size_t)s.slices * s.kpad * 2 * H * 4);
-  s.part_q = o;  o += align256((size_t)s.slices * s.kpad * H * 4);
-  s.total = o;
-  return s;
+__device__ __forceinline__ void mma16816(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// One warp's 16 x (16·ncols) slice of a [TM, *] product, the epilogue
-// applied per element through a 16x16 f32 staging tile.
-template <typename T, bool B_ROW, typename Epi>
-__device__ __forceinline__ void gemm_tile(const T* a, int lda, const T* b, int ldb,
-                                          int ksteps, int ct, float* stage, Epi epi) {
-  Acc<T> acc;
-  acc.zero();
-  for (int kk = 0; kk < ksteps; ++kk) {
-    const T* bp = B_ROW ? b + kk * 16 * ldb + ct * 16 : b + ct * 16 * ldb + kk * 16;
-    acc.template mma<true, B_ROW>(a + kk * 16, lda, bp, ldb);
+// The f32 stand-in for one m16n8k16 step, in mma.sync's accumulator layout
+// (lane l: rows l/4 and l/4 + 8, columns 2(l%4) and 2(l%4) + 1):
+// A(i, k) = a[i * lda + k] (a[k * lda + i] when AT), B(k, j) = b[k * ldb + j]
+// (KN) or b[j * ldb + k].
+template <bool AT, bool KN>
+__device__ __forceinline__ void fma16816(float (&d)[4], const float* a, int lda, const float* b,
+                                         int ldb) {
+  const int l = threadIdx.x & 31, g = l >> 2, c = (l & 3) * 2;
+#pragma unroll 4
+  for (int k = 0; k < 16; ++k) {
+    const float a0 = AT ? a[k * lda + g] : a[g * lda + k];
+    const float a1 = AT ? a[k * lda + g + 8] : a[(g + 8) * lda + k];
+    const float b0 = KN ? b[k * ldb + c] : b[c * ldb + k];
+    const float b1 = KN ? b[k * ldb + c + 1] : b[(c + 1) * ldb + k];
+    d[0] = fmaf(a0, b0, d[0]);
+    d[1] = fmaf(a0, b1, d[1]);
+    d[2] = fmaf(a1, b0, d[2]);
+    d[3] = fmaf(a1, b1, d[3]);
   }
-  acc.store(stage, 16);
-  __syncwarp();
-  const int lane = threadIdx.x & 31;
-  for (int e = lane; e < 256; e += 32) epi(e / 16, ct * 16 + e % 16, stage[e]);
-  __syncwarp();
+}
+
+// acc[rt][j] (16 x 16: rows 16·rt.., columns n0[j]..) and, when x8,
+// acc8[rt] (16 x 8 at column n8; B(k, n) = b[n * ldb + k] only) += A · B
+// over ks 16-deep steps.  A [TM][lda] row-major in shared memory;
+// B(k, n) = b[k * ldb + n] (KN) or b[n * ldb + k].  bf16: each A fragment
+// serves every column tile, each B fragment every row tile.
+template <typename T, int NJ, bool KN>
+__device__ __forceinline__ void warp_mma(float (&acc)[RT][NJ][2][4], float (&acc8)[RT][4],
+                                         bool x8, const T* a, int lda, const T* b, int ldb,
+                                         int ks, const int (&n0)[NJ], int n8) {
+  const int l = threadIdx.x & 31;
+  if constexpr (std::is_same<T, bf16>::value) {
+    for (int kk = 0; kk < ks; ++kk) {
+      unsigned fa[RT][4];
+#pragma unroll
+      for (int rt = 0; rt < RT; ++rt)
+        ldsm4<false>(fa[rt], a + (rt * 16 + (l & 15)) * lda + kk * 16 + (l >> 4) * 8);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        unsigned fb[4];
+        if constexpr (KN)
+          ldsm4<true>(fb, b + (kk * 16 + (l & 15)) * ldb + n0[j] + (l >> 4) * 8);
+        else
+          ldsm4<false>(fb, b + (n0[j] + (l >> 4) * 8 + (l & 7)) * ldb + kk * 16 + (l >> 3 & 1) * 8);
+#pragma unroll
+        for (int rt = 0; rt < RT; ++rt) {
+          mma16816(acc[rt][j][0], fa[rt], fb[0], fb[1]);
+          mma16816(acc[rt][j][1], fa[rt], fb[2], fb[3]);
+        }
+      }
+      if (x8) {
+        unsigned fb[2];
+        ldsm2(fb, b + (n8 + (l & 7)) * ldb + kk * 16 + (l >> 3 & 1) * 8);
+#pragma unroll
+        for (int rt = 0; rt < RT; ++rt) mma16816(acc8[rt], fa[rt], fb[0], fb[1]);
+      }
+    }
+  } else {
+    for (int kk = 0; kk < ks; ++kk) {
+      const int k0 = kk * 16;
+#pragma unroll
+      for (int rt = 0; rt < RT; ++rt) {
+        const T* ap = a + rt * 16 * lda + k0;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            fma16816<false, KN>(acc[rt][j][h], ap, lda,
+                                KN ? b + k0 * ldb + n0[j] + h * 8 : b + (n0[j] + h * 8) * ldb + k0,
+                                ldb);
+        if (x8) fma16816<false, false>(acc8[rt], ap, lda, b + n8 * ldb + k0, ldb);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ float2 ld2(const float* p) { return *reinterpret_cast<const float2*>(p); }
+__device__ __forceinline__ float2 ld2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void st2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void st2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The first nrows rows of a shared [TM][ld] tile, COLS columns, to
+// dst[(row_base + r) * COLS ..], 16 bytes a thread.
+template <typename T, int COLS>
+__device__ __forceinline__ void spill(T* __restrict__ dst, const T* src, int ld,
+                                      long long row_base, int nrows) {
+  constexpr int CPR = COLS * (int)sizeof(T) / 16;
+  for (int i = threadIdx.x; i < TM * CPR; i += THREADS) {
+    const int r = i / CPR, c = i % CPR * (16 / (int)sizeof(T));
+    if (r < nrows)
+      *reinterpret_cast<uint4*>(dst + (row_base + r) * COLS + c) =
+          *reinterpret_cast<const uint4*>(src + r * ld + c);
+  }
+}
+
+// ------------------------------------------------------- main kernel
+template <typename T>
+__host__ __device__ inline size_t main_smem_bytes(int k) {
+  const size_t lda = k + PAD;
+  const size_t w = sizeof(T) == 2 ? (size_t)k * (LDZR + LDQ) : 0;
+  return (w + TM * (2 * lda + LDQ + LDZR)) * sizeof(T);
 }
 
 template <typename T>
@@ -126,260 +259,450 @@ gru_bwd_kernel(const T* __restrict__ h0, const T* __restrict__ x,
                const T* __restrict__ w_zr, const T* __restrict__ b_zr,
                const T* __restrict__ w_q, const T* __restrict__ b_q,
                const T* __restrict__ g, int m, int xdim, int iters,
-               T* __restrict__ dh0, T* __restrict__ dx_out,
-               float* __restrict__ hsave, T* __restrict__ sp_hx, T* __restrict__ sp_u,
-               T* __restrict__ sp_dszr, T* __restrict__ sp_dsq,
-               float* __restrict__ db_part) {
+               T* __restrict__ dh0, T* __restrict__ dx_out, float* __restrict__ hsave,
+               T* __restrict__ sp_h, T* __restrict__ sp_u, T* __restrict__ sp_dszr,
+               T* __restrict__ sp_dsq, float* __restrict__ db_part) {
+  constexpr int V = 16 / (int)sizeof(T);           // elements a 16-byte chunk
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr bool W_SMEM = sizeof(T) == 2;
-  const int K = H + xdim;
-  const int LDA = K + PAD;
-  const int KS = K / 16;
-  unsigned char* p = smem;
+  const int K = H + xdim, LDA = K + PAD, KS = K / 16;
+  const int tid = threadIdx.x, warp = tid >> 5, l = tid & 31;
+  const int gr = l >> 2, c2 = (l & 3) * 2, cw = 16 * warp;
+  T* s = reinterpret_cast<T*>(smem);
   const T* wzr = w_zr;
   const T* wq = w_q;
   int ldzr = 2 * H, ldq = H;
-  if (W_SMEM) {
-    T* s_wzr = (T*)p; p += (size_t)K * LDZR * sizeof(T);
-    T* s_wq = (T*)p;  p += (size_t)K * LDQ * sizeof(T);
-    for (int i = threadIdx.x; i < K * 2 * H; i += THREADS)
-      s_wzr[(i / (2 * H)) * LDZR + i % (2 * H)] = w_zr[i];
-    for (int i = threadIdx.x; i < K * H; i += THREADS)
-      s_wq[(i / H) * LDQ + i % H] = w_q[i];
-    wzr = s_wzr; wq = s_wq; ldzr = LDZR; ldq = LDQ;
+  if constexpr (sizeof(T) == 2) {
+    T* s_wzr = s;
+    T* s_wq = s_wzr + K * LDZR;
+    s = s_wq + K * LDQ;
+    for (int i = tid; i < K * (2 * H / V); i += THREADS) {
+      const int r = i / (2 * H / V), c = i % (2 * H / V) * V;
+      *reinterpret_cast<uint4*>(s_wzr + r * LDZR + c) =
+          *reinterpret_cast<const uint4*>(w_zr + r * 2 * H + c);
+    }
+    for (int i = tid; i < K * (H / V); i += THREADS) {
+      const int r = i / (H / V), c = i % (H / V) * V;
+      *reinterpret_cast<uint4*>(s_wq + r * LDQ + c) =
+          *reinterpret_cast<const uint4*>(w_q + r * H + c);
+    }
+    wzr = s_wzr;
+    wq = s_wq;
+    ldzr = LDZR;
+    ldq = LDQ;
   }
-  T* s_hx = (T*)p;                         // [TM][LDA]  [h | x]
-  T* s_u = s_hx + TM * LDA;                // [TM][LDA]  [r*h | x]
-  T* s_dsq = s_hx;                         // [TM][LDQ]  reuses the region
-  T* s_dszr = s_hx + TM * LDQ;             // [TM][LDZR]
-  p += (size_t)region_elems(LDA) * sizeof(T);
-  float* s_h = (float*)p;                  // [TM][H]  h, then h_in
-  float* s_z = s_h + TM * H;               // z, then ds_z
-  float* s_r = s_z + TM * H;               // r, then ds_r
-  float* s_q = s_r + TM * H;               // q, then ds_q
-  float* s_dh = s_q + TM * H;
-  float* s_dx = s_dh + TM * H;             // [TM][xdim]
-  float* s_stage = s_dx + TM * XMAX;       // [WARPS][256]
-  float* s_b = s_stage + WARPS * 256;      // [3H] b_zr | b_q
-  float* s_db = s_b + 3 * H;               // [3H] db_zr | db_q
+  T* s_hx = s;                             // [TM][LDA]   [bf16(h) | x]
+  T* s_u = s_hx + TM * LDA;                // [TM][LDA]   [bf16(r*h) | x]
+  T* s_dsq = s_u + TM * LDA;               // [TM][LDQ]
+  T* s_dszr = s_dsq + TM * LDQ;            // [TM][LDZR]  [ds_z | ds_r]
 
-  const int tid = threadIdx.x, warp = tid / 32;
-  float* stage = s_stage + warp * 256;
-  for (int i = tid; i < 2 * H; i += THREADS) s_b[i] = to_f(b_zr[i]);
-  for (int i = tid; i < H; i += THREADS) s_b[2 * H + i] = to_f(b_q[i]);
-  for (int i = tid; i < 3 * H; i += THREADS) s_db[i] = 0.f;
-  const T zero = from_f<T>(0.f);
+  // This lane's columns of a warp tile: cw + 8h + c2 + (e & 1), rows
+  // 16·rt + gr + 8·(e >> 1), for h in {0, 1}, e in 0..3.
+  float bz[2][2], br[2][2], bq[2][2];
+  float dbz[2][2] = {}, dbr[2][2] = {}, dbq[2][2] = {};
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = cw + 8 * h + c2 + e;
+      bz[h][e] = to_f(b_zr[c]);
+      br[h][e] = to_f(b_zr[H + c]);
+      bq[h][e] = to_f(b_q[c]);
+    }
+  const bool x8 = 8 * warp < xdim;         // this warp's 8 columns of x
+  const int nzr[2] = {cw, H + cw}, nw[1] = {cw};
+  const int slots = iters > 1 ? iters - 1 : 0;
+  float4* hslots = reinterpret_cast<float4*>(hsave) + (size_t)blockIdx.x * slots * 2 * RT * THREADS;
+
+  float hs[RT][2][4], dh[RT][2][4], z[RT][2][4], r[RT][2][4], q[RT][2][4], hn[RT][2][4];
+  float dx[RT][4];
+
+  // v (this warp's columns) into a shared tile at column offset coff, as T
+  auto put = [&](T* dst, int ld, const float (&v)[RT][2][4], int coff) {
+#pragma unroll
+    for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          st2(dst + (16 * rt + gr + 8 * e) * ld + coff + 8 * h + c2, v[rt][h][2 * e],
+              v[rt][h][2 * e + 1]);
+  };
+  // z, r = sigmoid([h | x] W_zr + b_zr) from s_hx; bf16(r * h) into s_u
+  auto gates_zr = [&]() {
+    float acc[RT][2][2][4] = {}, none[RT][4];
+    warp_mma<T, 2, true>(acc, none, false, s_hx, LDA, wzr, ldzr, KS, nzr, 0);
+    float rh[RT][2][4];
+#pragma unroll
+    for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          z[rt][h][e] = sigmoid_f32(acc[rt][0][h][e] + bz[h][e & 1]);
+          r[rt][h][e] = sigmoid_f32(acc[rt][1][h][e] + br[h][e & 1]);
+          rh[rt][h][e] = r[rt][h][e] * hs[rt][h][e];
+        }
+    put(s_u, LDA, rh, cw);
+  };
+  // q = tanh([r*h | x] W_q + b_q) from s_u
+  auto gate_q = [&]() {
+    float acc[RT][1][2][4] = {}, none[RT][4];
+    warp_mma<T, 1, true>(acc, none, false, s_u, LDA, wq, ldq, KS, nw, 0);
+#pragma unroll
+    for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) q[rt][h][e] = tanhf(acc[rt][0][h][e] + bq[h][e & 1]);
+  };
+  auto slot = [&](int it) { return hslots + (size_t)it * 2 * RT * THREADS + tid; };
 
   const int tiles = (m + TM - 1) / TM;
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const long long row0 = (long long)t * TM;
-    __syncthreads();
-    for (int i = tid; i < TM * H; i += THREADS) {
-      const long long row = row0 + i / H;
-      const int c = i % H;
-      s_h[i] = row < m ? to_f(h0[row * H + c]) : 0.f;
-      s_dh[i] = row < m ? to_f(g[row * H + c]) : 0.f;
+    const int row0 = t * TM;
+    const int nrows = m - row0 < TM ? m - row0 : TM;
+    // x into both operand tiles; this warp's columns of h0 and g
+    const int xc = xdim / V;
+    for (int i = tid; i < TM * xc; i += THREADS) {
+      const int rr = i / xc, c = (i - rr * xc) * V;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (rr < nrows) v = *reinterpret_cast<const uint4*>(x + (size_t)(row0 + rr) * xdim + c);
+      *reinterpret_cast<uint4*>(s_hx + rr * LDA + H + c) = v;
+      *reinterpret_cast<uint4*>(s_u + rr * LDA + H + c) = v;
     }
-    for (int i = tid; i < TM * xdim; i += THREADS) s_dx[i] = 0.f;
-
-    // x into the operand tiles (the ds tiles overwrite them in the backward)
-    auto load_x = [&]() {
-      for (int i = tid; i < TM * xdim; i += THREADS) {
-        const int r = i / xdim, c = i % xdim;
-        const long long row = row0 + r;
-        const T v = row < m ? x[row * xdim + c] : zero;
-        s_hx[r * LDA + H + c] = v;
-        s_u[r * LDA + H + c] = v;
-      }
-    };
-    auto spill = [&](T* dst, const T* src, int lds, int cols, int it) {
-      for (int i = tid; i < TM * cols; i += THREADS) {
-        const int r = i / cols, c = i % cols;
-        const long long row = row0 + r;
-        if (row < m) dst[((long long)it * m + row) * cols + c] = src[r * lds + c];
-      }
-    };
-    // zr = sigmoid([h | x] @ W_zr + b_zr) into s_z, s_r (from s_hx)
-    auto gate_zr = [&]() {
-      for (int ct = warp; ct < 2 * H / 16; ct += WARPS)
-        gemm_tile<T, true>(s_hx, LDA, wzr, ldzr, KS, ct, stage,
-                           [&](int r, int c, float v) {
-          const float s = sigmoid_f32(v + s_b[c]);
-          if (c < H) s_z[r * H + c] = s; else s_r[r * H + c - H] = s;
-        });
-    };
-    auto make_u = [&]() {
-      for (int i = tid; i < TM * H; i += THREADS)
-        s_u[(i / H) * LDA + i % H] = from_f<T>(s_r[i] * s_h[i]);
-    };
-
-    load_x();
-    // ---- forward, spilling each iteration's input state
-    for (int it = 0; it < iters; ++it) {
-      for (int i = tid; i < TM * H; i += THREADS) {
-        const int r = i / H, c = i % H;
-        const long long row = row0 + r;
-        if (row < m) hsave[((long long)it * m + row) * H + c] = s_h[i];
-        s_hx[r * LDA + c] = from_f<T>(s_h[i]);
-      }
-      __syncthreads();
-      gate_zr();
-      __syncthreads();
-      make_u();
-      __syncthreads();
-      for (int ct = warp; ct < H / 16; ct += WARPS)
-        gemm_tile<T, true>(s_u, LDA, wq, ldq, KS, ct, stage,
-                           [&](int r, int c, float v) {
-          const float q = tanhf(v + s_b[2 * H + c]);
-          const float z = s_z[r * H + c];
-          s_h[r * H + c] = (1.f - z) * s_h[r * H + c] + z * q;
-        });
-      __syncthreads();
-    }
-
-    // ---- backward, iterations in reverse
-    for (int it = iters - 1; it >= 0; --it) {
-      load_x();
-      for (int i = tid; i < TM * H; i += THREADS) {
-        const int r = i / H, c = i % H;
-        const long long row = row0 + r;
-        const float hv = row < m ? hsave[((long long)it * m + row) * H + c] : 0.f;
-        s_h[i] = hv;
-        s_hx[r * LDA + c] = from_f<T>(hv);
-      }
-      __syncthreads();
-      spill(sp_hx, s_hx, LDA, K, it);
-      gate_zr();
-      __syncthreads();
-      make_u();
-      __syncthreads();
-      spill(sp_u, s_u, LDA, K, it);
-      for (int ct = warp; ct < H / 16; ct += WARPS)
-        gemm_tile<T, true>(s_u, LDA, wq, ldq, KS, ct, stage,
-                           [&](int r, int c, float v) {
-          s_q[r * H + c] = tanhf(v + s_b[2 * H + c]);
-        });
-      __syncthreads();                     // the operand region is free now
-      for (int i = tid; i < TM * H; i += THREADS) {
-        const int r = i / H, c = i % H;
-        const float z = s_z[i], q = s_q[i], dh = s_dh[i];
-        const float dsz = dh * (q - s_h[i]) * z * (1.f - z);
-        const float dsq = dh * z * (1.f - q * q);
-        s_dh[i] = dh * (1.f - z);
-        s_z[i] = dsz;
-        s_q[i] = dsq;
-        s_dszr[r * LDZR + c] = from_f<T>(dsz);
-        s_dsq[r * LDQ + c] = from_f<T>(dsq);
-      }
-      __syncthreads();
-      spill(sp_dsq, s_dsq, LDQ, H, it);
-      // du = ds_q @ W_q^T: [TM, K]
-      for (int ct = warp; ct < KS; ct += WARPS)
-        gemm_tile<T, false>(s_dsq, LDQ, wq, ldq, H / 16, ct, stage,
-                            [&](int r, int c, float v) {
-          if (c < H) {
-            const float rr = s_r[r * H + c];
-            s_dh[r * H + c] += v * rr;
-            const float dsr = v * s_h[r * H + c] * rr * (1.f - rr);
-            s_r[r * H + c] = dsr;
-            s_dszr[r * LDZR + H + c] = from_f<T>(dsr);
-          } else {
-            s_dx[r * xdim + c - H] += v;
+#pragma unroll
+    for (int rt = 0; rt < RT; ++rt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int rr = 16 * rt + gr + 8 * e;
+          float2 hv = make_float2(0.f, 0.f), gv = hv;
+          if (rr < nrows) {
+            const size_t o = (size_t)(row0 + rr) * H + cw + 8 * h + c2;
+            hv = ld2(h0 + o);
+            gv = ld2(g + o);
           }
-        });
-      __syncthreads();
-      spill(sp_dszr, s_dszr, LDZR, 2 * H, it);
-      for (int c = tid; c < 3 * H; c += THREADS) {
-        const float* src = c < H ? s_z + c : (c < 2 * H ? s_r + c - H : s_q + c - 2 * H);
-        float s = 0.f;
-        for (int r = 0; r < TM; ++r) s += src[r * H];
-        s_db[c] += s;
-      }
-      // dhx = ds_zr @ W_zr^T: [TM, K]
-      for (int ct = warp; ct < KS; ct += WARPS)
-        gemm_tile<T, false>(s_dszr, LDZR, wzr, ldzr, 2 * H / 16, ct, stage,
-                            [&](int r, int c, float v) {
-          if (c < H) s_dh[r * H + c] += v;
-          else s_dx[r * xdim + c - H] += v;
-        });
-      __syncthreads();
+          hs[rt][h][2 * e] = hv.x;
+          hs[rt][h][2 * e + 1] = hv.y;
+          dh[rt][h][2 * e] = gv.x;
+          dh[rt][h][2 * e + 1] = gv.y;
+        }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dx[rt][e] = 0.f;
+    }
+    put(s_hx, LDA, hs, cw);
+    __syncthreads();
+
+    // ---- forward over iters - 1 iterations, keeping each input state
+    for (int it = 0; it + 1 < iters; ++it) {
+      float4* sl = slot(it);
+#pragma unroll
+      for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          sl[(rt * 2 + h) * THREADS] =
+              make_float4(hs[rt][h][0], hs[rt][h][1], hs[rt][h][2], hs[rt][h][3]);
+      gates_zr();
+      __syncthreads();                     // s_u complete, s_hx read
+      gate_q();
+#pragma unroll
+      for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            hs[rt][h][e] = (1.f - z[rt][h][e]) * hs[rt][h][e] + z[rt][h][e] * q[rt][h][e];
+      put(s_hx, LDA, hs, cw);
+      __syncthreads();                     // s_hx complete, s_u read
     }
 
-    for (int i = tid; i < TM * H; i += THREADS) {
-      const long long row = row0 + i / H;
-      if (row < m) dh0[row * H + i % H] = from_f<T>(s_dh[i]);
+    // ---- backward, iterations in reverse; hs is this iteration's input
+    for (int it = iters - 1; it >= 0; --it) {
+      if (it > 0) {                        // the next input state, under this iteration
+        const float4* sl = slot(it - 1);
+#pragma unroll
+        for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float4 v = sl[(rt * 2 + h) * THREADS];
+            hn[rt][h][0] = v.x;
+            hn[rt][h][1] = v.y;
+            hn[rt][h][2] = v.z;
+            hn[rt][h][3] = v.w;
+          }
+      }
+      const long long base = (long long)it * m + row0;
+      gates_zr();
+      __syncthreads();                     // s_u complete
+      spill<T, H>(sp_h, s_hx, LDA, base, nrows);
+      spill<T, H>(sp_u, s_u, LDA, base, nrows);
+      gate_q();
+      {
+        float dsz[RT][2][4], dsq[RT][2][4];
+#pragma unroll
+        for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float zv = z[rt][h][e], qv = q[rt][h][e], d = dh[rt][h][e];
+              dsz[rt][h][e] = d * (qv - hs[rt][h][e]) * zv * (1.f - zv);
+              dsq[rt][h][e] = d * zv * (1.f - qv * qv);
+              dh[rt][h][e] = d * (1.f - zv);
+              dbz[h][e & 1] += dsz[rt][h][e];
+              dbq[h][e & 1] += dsq[rt][h][e];
+            }
+        put(s_dszr, LDZR, dsz, cw);
+        put(s_dsq, LDQ, dsq, cw);
+      }
+      __syncthreads();                     // ds_q, ds_z complete
+      spill<T, H>(sp_dsq, s_dsq, LDQ, base, nrows);
+      {
+        // du = ds_q W_q^T: h columns (ds_r, dh) and x columns (dx)
+        float acc[RT][1][2][4] = {}, acc8[RT][4] = {};
+        warp_mma<T, 1, false>(acc, acc8, x8, s_dsq, LDQ, wq, ldq, H / 16, nw, H + 8 * warp);
+        float dsr[RT][2][4];
+#pragma unroll
+        for (int rt = 0; rt < RT; ++rt) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float drh = acc[rt][0][h][e], rv = r[rt][h][e];
+              dh[rt][h][e] += drh * rv;
+              dsr[rt][h][e] = drh * hs[rt][h][e] * rv * (1.f - rv);
+              dbr[h][e & 1] += dsr[rt][h][e];
+            }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dx[rt][e] += acc8[rt][e];
+        }
+        put(s_dszr, LDZR, dsr, H + cw);
+      }
+      __syncthreads();                     // ds_zr complete
+      spill<T, 2 * H>(sp_dszr, s_dszr, LDZR, base, nrows);
+      {
+        // dhx = ds_zr W_zr^T
+        float acc[RT][1][2][4] = {}, acc8[RT][4] = {};
+        warp_mma<T, 1, false>(acc, acc8, x8, s_dszr, LDZR, wzr, ldzr, 2 * H / 16, nw,
+                                  H + 8 * warp);
+#pragma unroll
+        for (int rt = 0; rt < RT; ++rt) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) dh[rt][h][e] += acc[rt][0][h][e];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dx[rt][e] += acc8[rt][e];
+        }
+      }
+      if (it > 0) {
+#pragma unroll
+        for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) hs[rt][h][e] = hn[rt][h][e];
+        put(s_hx, LDA, hs, cw);
+      }
+      __syncthreads();                     // s_hx complete; every tile read
     }
-    for (int i = tid; i < TM * xdim; i += THREADS) {
-      const long long row = row0 + i / xdim;
-      if (row < m) dx_out[row * xdim + i % xdim] = from_f<T>(s_dx[i]);
-    }
+
+#pragma unroll
+    for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int rr = 16 * rt + gr + 8 * e;
+        if (rr >= nrows) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          st2(dh0 + (size_t)(row0 + rr) * H + cw + 8 * h + c2, dh[rt][h][2 * e],
+              dh[rt][h][2 * e + 1]);
+        if (x8)
+          st2(dx_out + (size_t)(row0 + rr) * xdim + 8 * warp + c2, dx[rt][2 * e],
+              dx[rt][2 * e + 1]);
+      }
   }
-  __syncthreads();
-  for (int i = tid; i < 3 * H; i += THREADS) db_part[blockIdx.x * 3 * H + i] = s_db[i];
+
+  // db: the lanes of a column (l % 4) summed in a fixed order, one row of
+  // partials a block
+  float* out = db_part + (size_t)blockIdx.x * 3 * H;
+  auto put_db = [&](float (&v)[2][2], int off) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float s = v[h][e];
+        s += __shfl_xor_sync(0xffffffffu, s, 4);
+        s += __shfl_xor_sync(0xffffffffu, s, 8);
+        s += __shfl_xor_sync(0xffffffffu, s, 16);
+        if (l < 4) out[off + cw + 8 * h + c2 + e] = s;
+      }
+  };
+  put_db(dbz, 0);
+  put_db(dbr, H);
+  put_db(dbq, 2 * H);
 }
 
-// part[slice][m][n] = sum over the slice's rows r of A[r][m] · B[r][n] for one
-// 64x64 output tile (A [rows, mo], B [rows, no], row-major; part rows padded
-// to a multiple of 64).
-constexpr int AT_ROWS = 32;
-constexpr int AT_LD = 64 + PAD;
+// ------------------------------------------------------- dW product
+// dW[k][n] = Σ_rows A[row][k] · B[row][n] for one slice of rows and 128
+// output columns cb: cb 0, 1 the two halves of dW_zr (A = [h | x], B =
+// ds_zr), cb 2 dW_q (A = [r*h | x], B = ds_q); x at row mod m.  Warp
+// (wm, wn) owns dW rows 48·wm .. +48 and columns 64·wn .. +64 of the block.
+template <typename T>
+__device__ __forceinline__ void dw_step(float (&acc)[3][8][4], const T* sa, const T* sb,
+                                        int wm, int wn, int ks) {
+  const int l = threadIdx.x & 31;
+  if constexpr (std::is_same<T, bf16>::value) {
+    unsigned fa[3][4], fb[4][4];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      if (3 * wm + i < ks)
+        ldsm4<true>(fa[i], sa + ((l >> 4) * 8 + (l & 7)) * DW_LDA + (3 * wm + i) * 16 +
+                               (l >> 3 & 1) * 8);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      ldsm4<true>(fb[j], sb + (l & 15) * DW_LDB + wn * 64 + j * 16 + (l >> 4) * 8);
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      if (3 * wm + i < ks)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          mma16816(acc[i][2 * j], fa[i], fb[j][0], fb[j][1]);
+          mma16816(acc[i][2 * j + 1], fa[i], fb[j][2], fb[j][3]);
+        }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      if (3 * wm + i < ks)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          fma16816<true, true>(acc[i][j], sa + (3 * wm + i) * 16, DW_LDA, sb + wn * 64 + j * 8,
+                               DW_LDB);
+  }
+}
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-atb_kernel(const T* __restrict__ a, const T* __restrict__ b, long long rows,
-           int mo, int no, int slices, float* __restrict__ part) {
-  __shared__ __align__(128) T s_a[AT_ROWS * AT_LD];
-  __shared__ __align__(128) T s_b[AT_ROWS * AT_LD];
-  const int tiles_n = no / 64;
-  const int m0 = (blockIdx.x / tiles_n) * 64, n0 = (blockIdx.x % tiles_n) * 64;
-  const int slice = blockIdx.y;
-  const long long per = (rows + slices - 1) / slices;
+__global__ void __launch_bounds__(THREADS, 1)
+gru_bwd_dw_kernel(const T* __restrict__ sp_h, const T* __restrict__ sp_u,
+                  const T* __restrict__ sp_dszr, const T* __restrict__ sp_dsq,
+                  const T* __restrict__ x, int m, int xdim, long long rows, int slices,
+                  float* __restrict__ part_zr, float* __restrict__ part_q) {
+  constexpr int V = 16 / (int)sizeof(T), ROWS = dw_rows<T>(), STAGE = dw_stage<T>();
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* stages = reinterpret_cast<T*>(smem);
+  const int tid = threadIdx.x, warp = tid >> 5, l = tid & 31;
+  const int cb = blockIdx.x % 3, slice = blockIdx.x / 3;
+  const T* a = cb < 2 ? sp_h : sp_u;
+  const T* b = cb < 2 ? sp_dszr + cb * DW_N : sp_dsq;
+  const int ldb = cb < 2 ? 2 * H : H;
+  const int K = H + xdim, KS = K / 16, xc = xdim / V;
+  const long long per = ((rows + slices - 1) / slices + ROWS - 1) / ROWS * ROWS;
   const long long r_begin = slice * per;
   const long long r_end = r_begin + per < rows ? r_begin + per : rows;
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int rt = warp % 4, ct0 = (warp / 4) * 2;
-  Acc<T> acc[2];
-  acc[0].zero();
-  acc[1].zero();
-  const T zero = from_f<T>(0.f);
-  for (long long r0 = r_begin; r0 < r_end; r0 += AT_ROWS) {
-    __syncthreads();
-    for (int i = tid; i < AT_ROWS * 64; i += THREADS) {
-      const int r = i / 64, c = i % 64;
-      const long long row = r0 + r;
-      const bool ok = row < r_end;
-      s_a[r * AT_LD + c] = ok && m0 + c < mo ? a[row * mo + m0 + c] : zero;
-      s_b[r * AT_LD + c] = ok ? b[row * no + n0 + c] : zero;
+  const int steps = r_end > r_begin ? (int)((r_end - r_begin + ROWS - 1) / ROWS) : 0;
+
+  auto load = [&](int step) {
+    T* sa = stages + (step % DW_STAGES) * STAGE;
+    T* sb = sa + ROWS * DW_LDA;
+    const long long r0 = r_begin + (long long)step * ROWS;
+    for (int i = tid; i < ROWS * (H / V); i += THREADS) {
+      const int rr = i / (H / V), c = i % (H / V) * V;
+      const bool ok = r0 + rr < r_end;
+      cp_async16(sa + rr * DW_LDA + c, ok ? a + (r0 + rr) * H + c : a, ok);
     }
-    __syncthreads();
+    for (int i = tid; i < ROWS * xc; i += THREADS) {
+      const int rr = i / xc, c = (i - rr * xc) * V;
+      const bool ok = r0 + rr < r_end;
+      const unsigned xr = ok ? (unsigned)(r0 + rr) % (unsigned)m : 0u;
+      cp_async16(sa + rr * DW_LDA + H + c, x + (size_t)xr * xdim + c, ok);
+    }
+    for (int i = tid; i < ROWS * (DW_N / V); i += THREADS) {
+      const int rr = i / (DW_N / V), c = i % (DW_N / V) * V;
+      const bool ok = r0 + rr < r_end;
+      cp_async16(sb + rr * DW_LDB + c, ok ? b + (r0 + rr) * ldb + c : b, ok);
+    }
+  };
+
+  float acc[3][8][4] = {};
+  const int wm = warp & 3, wn = warp >> 2;
 #pragma unroll
-    for (int kk = 0; kk < AT_ROWS / 16; ++kk)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        acc[j].template mma<false, true>(s_a + kk * 16 * AT_LD + rt * 16, AT_LD,
-                                         s_b + kk * 16 * AT_LD + (ct0 + j) * 16, AT_LD);
+  for (int s = 0; s < DW_STAGES - 1; ++s) {
+    if (s < steps) load(s);
+    cp_async_commit();
   }
-  const int kpad = (mo + 63) / 64 * 64;
-  float* out = part + (long long)slice * kpad * no;
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<DW_STAGES - 2>();
+    __syncthreads();                       // this stage landed; the oldest is free
+    if (step + DW_STAGES - 1 < steps) load(step + DW_STAGES - 1);
+    cp_async_commit();
+    const T* sa = stages + (step % DW_STAGES) * STAGE;
+    const T* sb = sa + ROWS * DW_LDA;
 #pragma unroll
-  for (int j = 0; j < 2; ++j)
-    acc[j].store(out + (long long)(m0 + rt * 16) * no + n0 + (ct0 + j) * 16, no);
+    for (int kk = 0; kk < ROWS / 16; ++kk)
+      dw_step<T>(acc, sa + kk * 16 * DW_LDA, sb + kk * 16 * DW_LDB, wm, wn, KS);
+  }
+  cp_async_wait<0>();
+
+  float* part = cb < 2 ? part_zr + (size_t)slice * K * 2 * H + cb * DW_N
+                       : part_q + (size_t)slice * K * H;
+  const int ldp = cb < 2 ? 2 * H : H;
+  const int gr = l >> 2, c2 = (l & 3) * 2;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    if (3 * wm + i < KS)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          *reinterpret_cast<float2*>(part + (size_t)((3 * wm + i) * 16 + gr + 8 * e) * ldp +
+                                     wn * 64 + j * 8 + c2) =
+              make_float2(acc[i][j][2 * e], acc[i][j][2 * e + 1]);
+}
+
+// ------------------------------------------------------- host side
+// Scratch layout (each piece 256-byte aligned) and the launch shapes, all
+// from (m, xdim, iters) alone.
+struct Scratch {
+  size_t hsave, sp_h, sp_u, sp_dszr, sp_dsq, db_part, part_zr, part_q, total;
+  int grid, slices;
+};
+
+template <typename T>
+Scratch scratch_layout(int m, int xdim, int iters) {
+  const size_t esz = sizeof(T), rows = (size_t)iters * m;
+  const int k = H + xdim, tiles = (m + TM - 1) / TM;
+  Scratch s;
+  s.grid = tiles < WAVE ? (tiles > 0 ? tiles : 1) : WAVE;
+  // slices of at least 8 stages, at most a wave of blocks over the 3 column
+  // blocks
+  const long long sl = ((long long)rows + 8 * dw_rows<T>() - 1) / (8 * dw_rows<T>());
+  s.slices = (int)(sl < 1 ? 1 : (sl > WAVE / 3 ? WAVE / 3 : sl));
+  size_t o = 0;
+  s.hsave = o;   o += align256((size_t)s.grid * (iters > 1 ? iters - 1 : 0) * TM * H * 4);
+  s.sp_h = o;    o += align256(rows * H * esz);
+  s.sp_u = o;    o += align256(rows * H * esz);
+  s.sp_dszr = o; o += align256(rows * 2 * H * esz);
+  s.sp_dsq = o;  o += align256(rows * H * esz);
+  s.db_part = o; o += align256((size_t)s.grid * 3 * H * 4);
+  s.part_zr = o; o += align256((size_t)s.slices * k * 2 * H * 4);
+  s.part_q = o;  o += align256((size_t)s.slices * k * H * 4);
+  s.total = o;
+  return s;
 }
 
 template <typename T>
 int run(const void* h0, const void* x, const void* w_zr, const void* b_zr,
         const void* w_q, const void* b_q, const void* g, int m, int xdim, int iters,
         void* dh0, void* dx, void* dwzr, void* dbzr, void* dwq, void* dbq,
-        void* scratch, int grid_blocks, cudaStream_t st) {
+        void* scratch, cudaStream_t st) {
   const int k = H + xdim;
-  const int tiles = (m + TM - 1) / TM;
-  const int grid = tiles < grid_blocks ? (tiles > 0 ? tiles : 1) : grid_blocks;
-  const Scratch sc = scratch_layout(m, xdim, iters, sizeof(T), grid_blocks);
+  const Scratch sc = scratch_layout<T>(m, xdim, iters);
   unsigned char* s = (unsigned char*)scratch;
   float* db_part = (float*)(s + sc.db_part);
   float* part_zr = (float*)(s + sc.part_zr);
   float* part_q = (float*)(s + sc.part_q);
-  T* sp_hx = (T*)(s + sc.sp_hx);
+  T* sp_h = (T*)(s + sc.sp_h);
   T* sp_u = (T*)(s + sc.sp_u);
   T* sp_dszr = (T*)(s + sc.sp_dszr);
   T* sp_dsq = (T*)(s + sc.sp_dsq);
@@ -389,29 +712,27 @@ int run(const void* h0, const void* x, const void* w_zr, const void* b_zr,
     e = cudaFuncSetAttribute(gru_bwd_kernel<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    gru_bwd_kernel<T><<<grid, THREADS, smem, st>>>(
+    gru_bwd_kernel<T><<<sc.grid, THREADS, smem, st>>>(
         (const T*)h0, (const T*)x, (const T*)w_zr, (const T*)b_zr, (const T*)w_q,
         (const T*)b_q, (const T*)g, m, xdim, iters, (T*)dh0, (T*)dx,
-        (float*)(s + sc.hsave), sp_hx, sp_u, sp_dszr, sp_dsq, db_part);
+        (float*)(s + sc.hsave), sp_h, sp_u, sp_dszr, sp_dsq, db_part);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  } else if ((e = cudaMemsetAsync(db_part, 0, 3 * H * 4, st)) != cudaSuccess) {
+    return (int)e;
   }
-  const long long rows = (long long)iters * m;
-  const int mt = sc.kpad / 64;
-  atb_kernel<T><<<dim3(mt * 4, sc.slices), THREADS, 0, st>>>(
-      sp_hx, sp_dszr, rows, k, 2 * H, sc.slices, part_zr);
+  const size_t dw_smem = (size_t)DW_STAGES * dw_stage<T>() * sizeof(T);
+  e = cudaFuncSetAttribute(gru_bwd_dw_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)dw_smem);
+  if (e != cudaSuccess) return (int)e;
+  gru_bwd_dw_kernel<T><<<3 * sc.slices, THREADS, dw_smem, st>>>(
+      sp_h, sp_u, sp_dszr, sp_dsq, (const T*)x, m, xdim, (long long)iters * m, sc.slices,
+      part_zr, part_q);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  atb_kernel<T><<<dim3(mt * 2, sc.slices), THREADS, 0, st>>>(
-      sp_u, sp_dsq, rows, k, H, sc.slices, part_q);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  const int db_slices = m > 0 ? grid : 0;
-  if (db_slices == 0) {
-    if ((e = cudaMemsetAsync(db_part, 0, 3 * H * 4, st)) != cudaSuccess) return (int)e;
-  }
-  const int dbn = db_slices > 0 ? db_slices : 1;
-  if ((e = tile::launch_reduce<T>(part_zr, sc.slices, (long long)sc.kpad * 2 * H,
+  const int dbn = m > 0 ? sc.grid : 1;
+  if ((e = tile::launch_reduce<T>(part_zr, sc.slices, (long long)k * 2 * H,
                                   (long long)k * 2 * H, (T*)dwzr, st)) != cudaSuccess) return (int)e;
-  if ((e = tile::launch_reduce<T>(part_q, sc.slices, (long long)sc.kpad * H,
-                                  (long long)k * H, (T*)dwq, st)) != cudaSuccess) return (int)e;
+  if ((e = tile::launch_reduce<T>(part_q, sc.slices, (long long)k * H, (long long)k * H,
+                                  (T*)dwq, st)) != cudaSuccess) return (int)e;
   if ((e = tile::launch_reduce<T>(db_part, dbn, 3 * H, 2 * H, (T*)dbzr, st)) != cudaSuccess) return (int)e;
   return (int)tile::launch_reduce<T>(db_part + 2 * H, dbn, 3 * H, H, (T*)dbq, st);
 }
@@ -422,28 +743,30 @@ extern "C" {
 
 const char* error_string(int e) { return cudaGetErrorString((cudaError_t)e); }
 
-// Bytes of device scratch fused_gru_bwd needs (spilled states and operands,
-// per-block and per-slice partials).
-long long fused_gru_bwd_scratch_bytes(int m, int xdim, int iters, int is_bf16,
-                                      int grid_blocks) {
-  return (long long)scratch_layout(m, xdim, iters, is_bf16 ? 2 : 4, grid_blocks).total;
+// Bytes of device scratch fused_gru_bwd needs (kept input states, dW
+// operands, per-block and per-slice partials).
+long long fused_gru_bwd_scratch_bytes(int m, int xdim, int iters, int is_bf16) {
+  return (long long)(is_bf16 ? scratch_layout<bf16>(m, xdim, iters).total
+                             : scratch_layout<float>(m, xdim, iters).total);
 }
 
 // h0, g [m, 128]; x [m, xdim]; w_zr [128 + xdim, 256], b_zr [256];
-// w_q [128 + xdim, 128], b_q [128]; all f32 or all bf16, gradients in the
-// same shapes and dtype.  xdim % 16 == 0 and xdim <= 64.  grid_blocks:
-// persistent blocks of the main kernel (one per SM).
+// w_q [128 + xdim, 128], b_q [128]; all f32 or all bf16, 16-byte aligned,
+// gradients in the same shapes and dtype.  xdim % 16 == 0, xdim <= 64,
+// iters * m < 2^31.
 int fused_gru_bwd(const void* h0, const void* x, const void* w_zr, const void* b_zr,
                   const void* w_q, const void* b_q, const void* g, int m, int xdim,
                   int iters, void* dh0, void* dx, void* dwzr, void* dbzr, void* dwq,
-                  void* dbq, void* scratch, int is_bf16, int grid_blocks, void* stream) {
-  if (xdim % 16 != 0 || xdim > XMAX || xdim <= 0) return (int)cudaErrorInvalidValue;
+                  void* dbq, void* scratch, int is_bf16, void* stream) {
+  if (xdim % 16 != 0 || xdim > XMAX || xdim <= 0 || iters < 0 || m < 0 ||
+      (long long)iters * m >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (is_bf16)
     return run<bf16>(h0, x, w_zr, b_zr, w_q, b_q, g, m, xdim, iters, dh0, dx, dwzr,
-                     dbzr, dwq, dbq, scratch, grid_blocks, st);
+                     dbzr, dwq, dbq, scratch, st);
   return run<float>(h0, x, w_zr, b_zr, w_q, b_q, g, m, xdim, iters, dh0, dx, dwzr,
-                    dbzr, dwq, dbq, scratch, grid_blocks, st);
+                    dbzr, dwq, dbq, scratch, st);
 }
 
 }  // extern "C"

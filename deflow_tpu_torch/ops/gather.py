@@ -33,13 +33,6 @@ def _setup(lib):
     lib.sorted_gather.argtypes = [vp, vp, i64, i64, i64, vp, ctypes.c_int, vp]
 
 
-def _vec_bytes(row_bytes: int, *ptrs: int) -> int:
-    for v in (16, 8, 4, 2):
-        if row_bytes % v == 0 and all(p % v == 0 for p in ptrs):
-            return v
-    raise ValueError(f"row of {row_bytes} bytes: no supported vector width")
-
-
 def sorted_rows_gather(table: torch.Tensor, ids: torch.Tensor,
                        num_rows: Optional[int] = None) -> torch.Tensor:
     """``table [R, C]`` rows at ``ids [M]`` → ``[M, C]``; ids ≥ ``num_rows``
@@ -58,13 +51,14 @@ def sorted_rows_gather(table: torch.Tensor, ids: torch.Tensor,
         raise ValueError(f"unsupported device {table.device}")
     if not (table.is_contiguous() and ids.is_contiguous()):
         raise ValueError("table and ids must be contiguous")
+    cols = table.shape[1]
+    if max(ids.shape[0], table.shape[0]) * cols >= 2 ** 31:
+        raise ValueError(f"table {tuple(table.shape)} / ids {tuple(ids.shape)}: "
+                         "beyond int32 indexing")
     lib = _build.load("sorted_gather", _setup)
-    out = torch.empty(ids.shape[0], table.shape[1], dtype=table.dtype,
-                      device=table.device)
-    row_bytes = table.shape[1] * table.element_size()
-    vec = _vec_bytes(row_bytes, table.data_ptr(), out.data_ptr())
-    rc = lib.sorted_gather(table.data_ptr(), ids.data_ptr(), ids.shape[0],
-                           row_bytes, num_rows, out.data_ptr(), vec,
+    out = torch.empty(ids.shape[0], cols, dtype=table.dtype, device=table.device)
+    rc = lib.sorted_gather(table.data_ptr(), ids.data_ptr(), ids.shape[0], cols,
+                           num_rows, out.data_ptr(), table.element_size(),
                            _build.stream_ptr(table))
     _build.check(lib, rc, "sorted_gather")
     sorted_rows_gather.launches += 1

@@ -145,10 +145,9 @@ def fused_gru_bwd_plain(h0, x, w_zr, b_zr, w_q, b_q, g, num_iters: int):
 def _setup_bwd(lib):
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.fused_gru_bwd_scratch_bytes.restype = ctypes.c_longlong
-    lib.fused_gru_bwd_scratch_bytes.argtypes = [i32, i32, i32, i32, i32]
+    lib.fused_gru_bwd_scratch_bytes.argtypes = [i32, i32, i32, i32]
     lib.fused_gru_bwd.restype = i32
-    lib.fused_gru_bwd.argtypes = ([vp] * 7 + [i32, i32, i32] + [vp] * 7
-                                  + [i32, i32, vp])
+    lib.fused_gru_bwd.argtypes = [vp] * 7 + [i32, i32, i32] + [vp] * 7 + [i32, vp]
 
 
 def fused_gru_bwd(h0, x, w_zr, b_zr, w_q, b_q, g, num_iters: int):
@@ -165,13 +164,14 @@ def fused_gru_bwd(h0, x, w_zr, b_zr, w_q, b_q, g, num_iters: int):
     bf16 = h0.dtype == torch.bfloat16
     for name, t in (("h0", h0), ("x", x), ("w_zr", w_zr), ("b_zr", b_zr),
                     ("w_q", w_q), ("b_q", b_q), ("g", g)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     if xdim % 16 or xdim > 64:
         raise ValueError("GRU backward kernel: xdim % 16 == 0, xdim <= 64")
+    if num_iters < 0 or num_iters * m >= 2 ** 31:
+        raise ValueError(f"num_iters {num_iters} x M {m}: 0 <= product < 2^31")
     lib = _build.load("fused_gru_bwd", _setup_bwd)
-    sms = torch.cuda.get_device_properties(h0.device).multi_processor_count
-    nbytes = lib.fused_gru_bwd_scratch_bytes(m, xdim, num_iters, int(bf16), sms)
+    nbytes = lib.fused_gru_bwd_scratch_bytes(m, xdim, num_iters, int(bf16))
     scratch = torch.empty(max(nbytes, 1), dtype=torch.uint8, device=h0.device)
     dh0, dx = torch.empty_like(h0), torch.empty_like(x)
     dwzr, dbzr = torch.empty_like(w_zr), torch.empty_like(b_zr)
@@ -180,7 +180,7 @@ def fused_gru_bwd(h0, x, w_zr, b_zr, w_q, b_q, g, num_iters: int):
         h0.data_ptr(), x.data_ptr(), w_zr.data_ptr(), b_zr.data_ptr(),
         w_q.data_ptr(), b_q.data_ptr(), g.data_ptr(), m, xdim, num_iters,
         dh0.data_ptr(), dx.data_ptr(), dwzr.data_ptr(), dbzr.data_ptr(),
-        dwq.data_ptr(), dbq.data_ptr(), scratch.data_ptr(), int(bf16), sms,
+        dwq.data_ptr(), dbq.data_ptr(), scratch.data_ptr(), int(bf16),
         _build.stream_ptr(h0))
     _build.check(lib, rc, "fused_gru_bwd")
     fused_gru_bwd.launches += 1

@@ -78,20 +78,60 @@ def test_segment_sum_all_sentinel_and_empty(dev):
     assert none.shape == (200, 3) and (none == 0).all()
 
 
+def _gather_ids(g, rows, dev):
+    """Ascending ids, then sentinels, out-of-range ids and unsorted ones."""
+    return torch.cat([torch.randint(0, rows, (700,), generator=g).sort().values,
+                      torch.full((13,), 2 ** 30), torch.tensor([-1, rows, 0]),
+                      torch.randint(0, rows, (300,), generator=g)]
+                     ).to(torch.int32).to(dev)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("c", [1, 3, 33, 128])
+@pytest.mark.parametrize("c", [1, 3, 8, 32, 33, 65, 128])
 def test_gather_is_bit_exact(dev, dtype, c):
     g = torch.Generator().manual_seed(c)
     rows = 1000
     table = torch.randn(rows, c, generator=g).to(dev, dtype)
-    ids = torch.cat([torch.randint(0, rows, (700,), generator=g).sort().values,
-                     torch.full((13,), 2 ** 30), torch.tensor([-1, rows, 0]),
-                     torch.randint(0, rows, (300,), generator=g)]
-                    ).to(torch.int32).to(dev)
+    ids = _gather_ids(g, rows, dev)
     k = gather.sorted_rows_gather(table, ids, rows)
     assert torch.equal(k, gather.gather_plain(table, ids, rows))
     short = gather.sorted_rows_gather(table, ids, rows // 2)
     assert torch.equal(short, gather.gather_plain(table, ids, rows // 2))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c", [1, 3, 8, 33])
+@pytest.mark.parametrize("m", [0, 1, 7])
+def test_gather_edge_sizes(dev, dtype, c, m):
+    """No ids, one id, and (m = 7 at c != 8) a flat output that is not a
+    whole number of 16-byte chunks, its last id a sentinel."""
+    g = torch.Generator().manual_seed(10 * m + c)
+    rows = 50
+    table = torch.randn(rows, c, generator=g).to(dev, dtype)
+    ids = torch.randint(0, rows, (m,), generator=g).sort().values
+    if m == 7:
+        ids[-1] = 2 ** 30
+    ids = ids.to(torch.int32).to(dev)
+    k = gather.sorted_rows_gather(table, ids, rows)
+    assert k.shape == (m, c) and k.dtype == dtype
+    assert torch.equal(k, gather.gather_plain(table, ids, rows))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c", [8, 33, 128])
+def test_gather_unaligned_table(dev, dtype, c):
+    """Tables whose base is aligned to one element only: a row slice of a
+    larger table (2-byte aligned in bf16 at c = 33) and a view that starts
+    one element into its storage (16-byte rows at c = 8 and 128)."""
+    g = torch.Generator().manual_seed(c + 1)
+    rows = 300
+    flat = torch.randn((rows + 1) * c + 1, generator=g).to(dev, dtype)
+    ids = _gather_ids(g, rows, dev)
+    for table in (flat[:(rows + 1) * c].view(rows + 1, c)[1:].contiguous(),
+                  flat[1:1 + rows * c].view(rows, c)):
+        assert table.is_contiguous()
+        k = gather.sorted_rows_gather(table, ids, rows)
+        assert torch.equal(k, gather.gather_plain(table, ids, rows))
 
 
 @pytest.mark.parametrize("dtype,xdim", [(torch.float32, 3),
@@ -141,12 +181,7 @@ def _rel_err(k, ref):
 GRAD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2 ** -6}
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("xdim", [16, 64])
-@pytest.mark.parametrize("m", [1, 31, 33, 1000])
-@pytest.mark.parametrize("iters", [0, 1, 4])
-def test_fused_gru_bwd(dev, dtype, xdim, m, iters):
-    g = torch.Generator().manual_seed(m * 11 + xdim + iters)
+def _gru_bwd_args(g, m, xdim, dtype, dev):
     k_in = 128 + xdim
     args = [torch.randn(m, 128, generator=g) * 0.5,
             torch.randn(m, xdim, generator=g) * 0.5,
@@ -155,7 +190,16 @@ def test_fused_gru_bwd(dev, dtype, xdim, m, iters):
             torch.randn(k_in, 128, generator=g) * 0.1,
             torch.randn(128, generator=g) * 0.1,
             torch.randn(m, 128, generator=g)]
-    args = [a.to(dev, dtype).contiguous() for a in args]
+    return [a.to(dev, dtype).contiguous() for a in args]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("xdim", [16, 64])
+@pytest.mark.parametrize("m", [1, 31, 33, 1000])
+@pytest.mark.parametrize("iters", [0, 1, 2, 4, 6])
+def test_fused_gru_bwd(dev, dtype, xdim, m, iters):
+    g = torch.Generator().manual_seed(m * 11 + xdim + iters)
+    args = _gru_bwd_args(g, m, xdim, dtype, dev)
     got = gru.fused_gru_bwd(*args, iters)
     want = gru.fused_gru_bwd_plain(*args, iters)
     torch.cuda.synchronize()
@@ -163,6 +207,23 @@ def test_fused_gru_bwd(dev, dtype, xdim, m, iters):
                             got, want):
         assert k.shape == ref.shape and k.dtype == ref.dtype, name
         assert _rel_err(k, ref) <= GRAD_TOL[dtype], (name, _rel_err(k, ref))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_gru_bwd_is_deterministic(dev, dtype):
+    """No float atomics and partials sized from the shape alone: two
+    launches agree bit for bit in all six gradients, at more 16-point tiles
+    than the main kernel has blocks and a ragged last tile."""
+    g = torch.Generator().manual_seed(17)
+    args = _gru_bwd_args(g, 4229, 64, dtype, dev)
+    first = gru.fused_gru_bwd(*args, 4)
+    second = gru.fused_gru_bwd(*args, 4)
+    want = gru.fused_gru_bwd_plain(*args, 4)
+    torch.cuda.synchronize()
+    for name, a, b, ref in zip(("dh0", "dx", "dw_zr", "db_zr", "dw_q", "db_q"),
+                               first, second, want):
+        assert torch.equal(a, b), name
+        assert _rel_err(a, ref) <= GRAD_TOL[dtype], (name, _rel_err(a, ref))
 
 
 def test_fused_gru_autograd_launches(dev):

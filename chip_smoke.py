@@ -379,7 +379,9 @@ def check_kernels(model, host_batch):
         if not ok:
             raise SystemExit("fused_gru disagrees with its plain version")
     m, xdim, hd = B * N, 64, 128
-    flops = 2.0 * m * (hd + xdim) * (3 * hd) * iters
+    # x·W_x is the same in every iteration: the function needs it once,
+    # and the h part of both products in each iteration
+    flops = 2.0 * m * (3 * hd) * (xdim + hd * iters)
     nbytes = 2 * m * (hd + xdim + hd) + 2 * (hd + xdim) * 3 * hd + 2 * 3 * hd
     b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
 
@@ -395,6 +397,12 @@ def check_kernels(model, host_batch):
         "library_call": "call sequence: the GRU loop with bf16 matmul operands "
                         "(cuBLAS, f32 accumulation), no autograd",
     }
+    # the kernel's time by iteration count: what a tile's loads, x·W_x and
+    # store take (0 iterations) and what each iteration adds
+    by_iters = {n: cuda_ms(lambda n=n: gru.fused_gru(*args, n), 10) for n in (0, 1, 2, 8)}
+    by_iters[iters] = results["fused_gru"]["ms"]
+    print("fused_gru by iterations: " + ", ".join(
+        f"{n}: {t:.4f} ms" for n, t in sorted(by_iters.items())))
     for name, r in results.items():
         print(f"{name} {r.get('shape', '')}: {r['ms']:.4f} ms (bound "
               f"{r['bound_ms']:.4f} ms by {r['bound_by']}, plain {r['plain_ms']:.4f} ms, "
@@ -894,7 +902,7 @@ def _category(name: str) -> str:
                       ("cbg_bwd", ("cbg_dgrad", "cbg_wgrad", "wgrad_reduce")),
                       ("segment_sum", ("segment_sum", "mark_runs")),
                       ("sorted_gather", ("gather_kernel",)),
-                      ("fused_gru", ("gru_bf16", "gru_f32")),
+                      ("fused_gru", ("gru_fwd", "gru_f32")),
                       ("conv/matmul (cuDNN, cuBLAS)",
                        ("conv", "cudnn", "xmma", "fprop", "implicit",
                         "winograd", "gemm")),

@@ -9,32 +9,51 @@
 // Replaces: deflow_tpu/ops/pallas_gru.py::_fused_fwd_impl (the Pallas kernel
 // _make_fwd_kernel), reached from fused_gru by ConvGRUDecoder.
 //
-// Bound on the H100: operations.  4 iterations over M = 393,216 points cost
-// 2·M·(192·256 + 192·128)·4 ≈ 232 GFLOP against ~252 MB of h0/x/out traffic,
-// far above the bf16 tensor-core ridge (~295 FLOP/B).
+// Bound on the H100: operations.  4 iterations over M = 393,216 points need
+// 2·M·384·(64 + 128·4) ≈ 174 GFLOP (x·W_x once, the h part every iteration)
+// against ~252 MB of h0/x/out traffic, far above the bf16 tensor-core ridge
+// (~295 FLOP/B).
 //
-// Design (bf16, the main path): a persistent block per SM holds both merged
-// weight matrices in shared memory as bf16 (150 KB at xdim 64 with rows
-// padded against bank conflicts; the f32 weights, 295 KB, would not fit),
-// loaded once.  It walks 32-point tiles:
-// h (f32), the bf16 operand rows [h | x] and [r*h | x], and z stay in shared
-// memory for all iterations, so the point buffer crosses device memory once.
-// Both products run on the tensor cores through WMMA (16x16x16 bf16, f32
-// accumulate); each warp keeps one A fragment per k-step and reuses it over
-// 4 (zr) or 2 (q) output tiles, and applies the gate epilogue through a
-// per-warp 16x16 f32 staging tile, since accumulator fragments have no fixed
-// element layout.  f32 inputs (parity runs) take a plain FFMA kernel: one
-// thread per hidden column, 16 points per block, weights read through the
-// cache.  The Pallas 128-lane padding of x is TPU-only and is not carried.
+// Design (bf16, the main path), the forward half of fused_gru_bwd.cu's main
+// kernel: a persistent block per SM holds both merged weight matrices in
+// shared memory as bf16 (150 KB at xdim 64, rows at strides 2H + 8 and
+// H + 8), loaded once, and walks tiles of TM = 16·RT points.  Warp w owns
+// hidden columns [16w, 16w + 16) of z, r and q: h and z stay f32 in
+// mma.sync m16n8k16 accumulator registers, and bias, sigmoid, tanh, r·h and
+// the state update run on the accumulators.  Only the bf16 operand tiles
+// [h | x] and [r*h] change hands, at a stride of width + 8 (16 bytes past
+// a multiple of 128: ldmatrix reads them without bank conflicts), so an
+// iteration has 2 block barriers.  What the forward does not carry (the
+// backward's dh, dx, db) pays for three things, each of which read faster
+// than going without it (PERF.md):
+//  - each warp holds RT = 4 16-row tiles, so each B fragment it loads serves
+//    4 products (255 registers, no spills);
+//  - the x part of both products is the same in every iteration, so
+//    x·W_x + b is computed once per tile and starts the accumulators; the
+//    iterations' products run over h's 128 columns only (K 192 → 128);
+//  - the next tile's [h0 | x] rows arrive by 16-byte cp.async copies into
+//    the other of two buffers under this tile's iterations.
+// A tile's buffer is its [h | x] operand: after the last iteration its first
+// H columns hold bf16(h), the output rounded once, written out 16 bytes a
+// store.  f32 inputs (parity runs) take a plain FFMA kernel: one thread per
+// hidden column, 16 points per block, weights read through the cache.  The
+// Pallas 128-lane padding of x is TPU-only and is not carried.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+
+#include "gru_tile.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-using namespace nvcuda;
+using gru_tile::bf16;
+using gru_tile::cp_async16;
+using gru_tile::cp_async_commit;
+using gru_tile::cp_async_wait;
+using gru_tile::ld2;
+using gru_tile::spill;
+using gru_tile::st2;
+using gru_tile::warp_mma;
 
 constexpr int H = 128;
 
@@ -110,165 +129,172 @@ gru_f32_kernel(const float* __restrict__ h0, const float* __restrict__ x,
   }
 }
 
-// ------------------------------------------------------------ bf16 WMMA
-constexpr int TM = 32;                    // points per tile
+// ------------------------------------------------------------ bf16 mma.sync
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
-constexpr int ROW_TILES = TM / 16;        // 2
-constexpr int WARPS_PER_ROW_TILE = WARPS / ROW_TILES;   // 4
-constexpr int ZR_COLS = 2 * H / 16 / WARPS_PER_ROW_TILE; // 4 col tiles / warp
-constexpr int Q_COLS = H / 16 / WARPS_PER_ROW_TILE;      // 2 col tiles / warp
-// Shared-memory rows are padded by 8 bf16 (16 bytes): with the bare 512-,
-// 256- and 384-byte strides every row of a 16x16 fragment starts on the same
-// bank, and the fragment loads serialise 8-16 ways.
-constexpr int PAD = 8;
-constexpr int LDZR = 2 * H + PAD;
+constexpr int PAD = 8;                   // row padding against bank conflicts
+constexpr int LDZR = 2 * H + PAD;        // shared-memory row strides (elements)
 constexpr int LDQ = H + PAD;
+constexpr int XMAX = 64;
+constexpr int RT = 4;                    // 16-row tiles a warp
+constexpr int TM = 16 * RT;              // points of a tile
 
+// weights, two [h0 | x] buffers and the [r*h] tile
 size_t bf16_smem_bytes(int k) {
-  return (size_t)k * LDZR * 2 + (size_t)k * LDQ * 2   // weights
-         + 2 * (size_t)TM * (k + PAD) * 2              // hx, u operands
-         + 2 * (size_t)TM * H * 4                      // h, z
-         + 3 * (size_t)H * 4                           // biases
-         + (size_t)WARPS * 256 * 4;                    // staging tiles
-}
-
-// [rows, cols] bf16 from global memory into shared rows of stride ld, in
-// 16-byte vectors (cols % 8 == 0).
-__device__ __forceinline__ void copy_rows(bf16* dst, int ld, const bf16* src,
-                                          int rows, int cols, int tid) {
-  const int vecs = cols / 8;
-  for (int i = tid; i < rows * vecs; i += THREADS) {
-    const int r = i / vecs, v = i % vecs;
-    *(uint4*)(dst + r * ld + v * 8) = *(const uint4*)(src + r * cols + v * 8);
-  }
+  return ((size_t)k * (LDZR + LDQ) + TM * (2 * (k + PAD) + LDQ)) * sizeof(bf16);
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
-gru_bf16_kernel(const bf16* __restrict__ h0, const bf16* __restrict__ x,
-                const bf16* __restrict__ w_zr, const bf16* __restrict__ b_zr,
-                const bf16* __restrict__ w_q, const bf16* __restrict__ b_q,
-                int m, int xdim, int iters, bf16* __restrict__ out) {
+gru_fwd_kernel(const bf16* __restrict__ h0, const bf16* __restrict__ x,
+               const bf16* __restrict__ w_zr, const bf16* __restrict__ b_zr,
+               const bf16* __restrict__ w_q, const bf16* __restrict__ b_q,
+               int m, int xdim, int iters, bf16* __restrict__ out) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int K = H + xdim;
-  const int LDA = K + PAD;
-  bf16* s_wzr = (bf16*)smem;              // [K][LDZR]
-  bf16* s_wq = s_wzr + K * LDZR;          // [K][LDQ]
-  bf16* s_hx = s_wq + K * LDQ;            // [TM][LDA]  = [h | x]
-  bf16* s_u = s_hx + TM * LDA;            // [TM][LDA]  = [r*h | x]
-  float* s_h = (float*)(s_u + TM * LDA);  // [TM][H]
-  float* s_z = s_h + TM * H;              // [TM][H]
-  float* s_bzr = s_z + TM * H;            // [2H]
-  float* s_bq = s_bzr + 2 * H;            // [H]
-  float* s_stage = s_bq + H;              // [WARPS][16*16]
+  const int K = H + xdim, LDA = K + PAD;
+  constexpr int KS = H / 16;               // 16-deep steps of an iteration's products
+  const int tid = threadIdx.x, warp = tid >> 5, l = tid & 31;
+  const int gr = l >> 2, c2 = (l & 3) * 2, cw = 16 * warp;
+  bf16* s_wzr = reinterpret_cast<bf16*>(smem);   // [K][LDZR]
+  bf16* s_wq = s_wzr + K * LDZR;                 // [K][LDQ]
+  bf16* s_in = s_wq + K * LDQ;                   // 2 x [TM][LDA]  [h0 | x], then [bf16(h) | x]
+  bf16* s_u = s_in + 2 * TM * LDA;               // [TM][LDQ]  bf16(r*h)
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  float* stage = s_stage + warp * 256;
-  const int rt = warp % ROW_TILES;        // this warp's 16-row tile
-  const int cg = warp / ROW_TILES;        // and its group of column tiles
-
-  copy_rows(s_wzr, LDZR, w_zr, K, 2 * H, tid);
-  copy_rows(s_wq, LDQ, w_q, K, H, tid);
-  for (int i = tid; i < 2 * H; i += THREADS) s_bzr[i] = __bfloat162float(b_zr[i]);
-  for (int i = tid; i < H; i += THREADS) s_bq[i] = __bfloat162float(b_q[i]);
-
-  const int num_tiles = (m + TM - 1) / TM;
-  for (int tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
-    const long long row0 = (long long)tile * TM;
-    __syncthreads();                      // weights in; last tile finished
-    for (int i = tid; i < TM * H; i += THREADS) {
-      const int r = i / H, c = i % H;
-      const long long row = row0 + r;
-      const bf16 v = row < m ? h0[row * H + c] : __float2bfloat16(0.f);
-      s_h[i] = __bfloat162float(v);
-      s_hx[r * LDA + c] = v;
+  // [h0 | x] of tile t into dst, 16 bytes a copy; rows past m zero-filled
+  const int hv = H / 8, rv = hv + xdim / 8;
+  auto fetch = [&](int t, bf16* dst) {
+    const int row0 = t * TM;
+    for (int i = tid; i < TM * rv; i += THREADS) {
+      const int r = i / rv, c = i - r * rv;
+      const bool ok = row0 + r < m;
+      const size_t row = ok ? (size_t)(row0 + r) : 0;
+      cp_async16(dst + r * LDA + c * 8,
+                 c < hv ? h0 + row * H + c * 8 : x + row * xdim + (c - hv) * 8, ok);
     }
-    for (int i = tid; i < TM * xdim; i += THREADS) {
-      const int r = i / xdim, c = i % xdim;
-      const long long row = row0 + r;
-      const bf16 v = row < m ? x[row * xdim + c] : __float2bfloat16(0.f);
-      s_hx[r * LDA + H + c] = v;
-      s_u[r * LDA + H + c] = v;
+  };
+  for (int i = tid; i < K * (2 * H / 8); i += THREADS) {
+    const int r = i / (2 * H / 8), c = i % (2 * H / 8) * 8;
+    cp_async16(s_wzr + r * LDZR + c, w_zr + r * 2 * H + c, true);
+  }
+  for (int i = tid; i < K * (H / 8); i += THREADS) {
+    const int r = i / (H / 8), c = i % (H / 8) * 8;
+    cp_async16(s_wq + r * LDQ + c, w_q + r * H + c, true);
+  }
+  const int tiles = (m + TM - 1) / TM;
+  fetch(blockIdx.x, s_in);                 // the grid is at most the tiles
+  cp_async_commit();
+
+  // This lane's columns of a warp tile: cw + 8h + c2 + (e & 1), rows
+  // 16·rt + gr + 8·(e >> 1), for h in {0, 1}, e in 0..3.
+  float bz[2][2], br[2][2], bq[2][2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = cw + 8 * h + c2 + e;
+      bz[h][e] = __bfloat162float(b_zr[c]);
+      br[h][e] = __bfloat162float(b_zr[H + c]);
+      bq[h][e] = __bfloat162float(b_q[c]);
     }
-    __syncthreads();
+  const int nzr[2] = {cw, H + cw}, nw[1] = {cw};
+  float none[RT][4];
+  // v (this warp's columns) into a shared tile, as bf16
+  auto put = [&](bf16* dst, int ld, const float (&v)[RT][2][4]) {
+#pragma unroll
+    for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          st2(dst + (16 * rt + gr + 8 * e) * ld + cw + 8 * h + c2, v[rt][h][2 * e],
+              v[rt][h][2 * e + 1]);
+  };
+
+  int buf = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int row0 = t * TM;
+    const int nrows = m - row0 < TM ? m - row0 : TM;
+    bf16* s_hx = s_in + buf * TM * LDA;
+    cp_async_wait<0>();
+    __syncthreads();                       // [h0 | x] (and the weights) landed; the last tile written out
+    if (t + (int)gridDim.x < tiles) fetch(t + gridDim.x, s_in + (buf ^ 1) * TM * LDA);
+    cp_async_commit();
+    buf ^= 1;
+
+    // this warp's columns of h0, and the accumulators' starting values:
+    // x·W_x + b
+    float hs[RT][2][4], szr[RT][2][2][4], sq[RT][1][2][4];
+#pragma unroll
+    for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float2 v = ld2(s_hx + (16 * rt + gr + 8 * e) * LDA + cw + 8 * h + c2);
+          hs[rt][h][2 * e] = v.x;
+          hs[rt][h][2 * e + 1] = v.y;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          szr[rt][0][h][e] = bz[h][e & 1];
+          szr[rt][1][h][e] = br[h][e & 1];
+          sq[rt][0][h][e] = bq[h][e & 1];
+        }
+      }
+    warp_mma<bf16, 2, true>(szr, none, false, s_hx + H, LDA, s_wzr + H * LDZR, LDZR,
+                            xdim / 16, nzr, 0);
+    warp_mma<bf16, 1, true>(sq, none, false, s_hx + H, LDA, s_wq + H * LDQ, LDQ, xdim / 16,
+                            nw, 0);
 
     for (int it = 0; it < iters; ++it) {
-      // ---- zr = sigmoid([h | x] @ w_zr + b_zr): z kept, r*h → u
+      float z[RT][2][4];
       {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[ZR_COLS];
+        // z, r = sigmoid(h W_h,zr + (x W_x,zr + b_zr)); bf16(r * h) into s_u
+        float acc[RT][2][2][4], rh[RT][2][4];
 #pragma unroll
-        for (int c = 0; c < ZR_COLS; ++c) wmma::fill_fragment(acc[c], 0.f);
-        for (int kk = 0; kk < K / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::load_matrix_sync(a, s_hx + rt * 16 * LDA + kk * 16, LDA);
+        for (int rt = 0; rt < RT; ++rt)
 #pragma unroll
-          for (int c = 0; c < ZR_COLS; ++c) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-            wmma::load_matrix_sync(
-                b, s_wzr + kk * 16 * LDZR + (cg * ZR_COLS + c) * 16, LDZR);
-            wmma::mma_sync(acc[c], a, b, acc[c]);
-          }
-        }
+          for (int j = 0; j < 2; ++j)
 #pragma unroll
-        for (int c = 0; c < ZR_COLS; ++c) {
-          wmma::store_matrix_sync(stage, acc[c], 16, wmma::mem_row_major);
-          __syncwarp();
-          for (int e = lane; e < 256; e += 32) {
-            const int row = rt * 16 + e / 16;
-            const int col = (cg * ZR_COLS + c) * 16 + e % 16;
-            const float g = sigmoid_f32(stage[e] + s_bzr[col]);
-            if (col < H) {
-              s_z[row * H + col] = g;
-            } else {
-              const int hc = col - H;
-              s_u[row * LDA + hc] = __float2bfloat16(g * s_h[row * H + hc]);
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[rt][j][h][e] = szr[rt][j][h][e];
+        warp_mma<bf16, 2, true>(acc, none, false, s_hx, LDA, s_wzr, LDZR, KS, nzr, 0);
+#pragma unroll
+        for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              z[rt][h][e] = sigmoid_f32(acc[rt][0][h][e]);
+              rh[rt][h][e] = sigmoid_f32(acc[rt][1][h][e]) * hs[rt][h][e];
             }
-          }
-          __syncwarp();
-        }
+        put(s_u, LDQ, rh);
       }
-      __syncthreads();
-      // ---- q = tanh([r*h | x] @ w_q + b_q); h = (1 - z) h + z q
+      __syncthreads();                     // s_u complete, s_hx read
       {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[Q_COLS];
+        // q = tanh((r*h) W_h,q + (x W_x,q + b_q)); h = (1 - z) h + z q; bf16(h) into s_hx
+        float acc[RT][1][2][4];
 #pragma unroll
-        for (int c = 0; c < Q_COLS; ++c) wmma::fill_fragment(acc[c], 0.f);
-        for (int kk = 0; kk < K / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::load_matrix_sync(a, s_u + rt * 16 * LDA + kk * 16, LDA);
+        for (int rt = 0; rt < RT; ++rt)
 #pragma unroll
-          for (int c = 0; c < Q_COLS; ++c) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-            wmma::load_matrix_sync(
-                b, s_wq + kk * 16 * LDQ + (cg * Q_COLS + c) * 16, LDQ);
-            wmma::mma_sync(acc[c], a, b, acc[c]);
-          }
-        }
+          for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int c = 0; c < Q_COLS; ++c) {
-          wmma::store_matrix_sync(stage, acc[c], 16, wmma::mem_row_major);
-          __syncwarp();
-          for (int e = lane; e < 256; e += 32) {
-            const int row = rt * 16 + e / 16;
-            const int col = (cg * Q_COLS + c) * 16 + e % 16;
-            const float q = tanhf(stage[e] + s_bq[col]);
-            const float z = s_z[row * H + col];
-            const float hn = (1.f - z) * s_h[row * H + col] + z * q;
-            s_h[row * H + col] = hn;
-            s_hx[row * LDA + col] = __float2bfloat16(hn);
-          }
-          __syncwarp();
-        }
+            for (int e = 0; e < 4; ++e) acc[rt][0][h][e] = sq[rt][0][h][e];
+        warp_mma<bf16, 1, true>(acc, none, false, s_u, LDQ, s_wq, LDQ, KS, nw, 0);
+#pragma unroll
+        for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              hs[rt][h][e] = (1.f - z[rt][h][e]) * hs[rt][h][e] +
+                             z[rt][h][e] * tanhf(acc[rt][0][h][e]);
+        put(s_hx, LDA, hs);
       }
-      __syncthreads();
+      __syncthreads();                     // s_hx complete, s_u read
     }
-
-    for (int i = tid; i < TM * H; i += THREADS) {
-      const long long row = row0 + i / H;
-      if (row < m) out[row * H + i % H] = __float2bfloat16(s_h[i]);
-    }
+    // s_hx[:, :H] holds bf16(h): the output, rounded once
+    spill<bf16, H, TM, THREADS>(out, s_hx, LDA, row0, nrows);
   }
 }
 
@@ -280,8 +306,9 @@ const char* error_string(int e) { return cudaGetErrorString((cudaError_t)e); }
 
 // h0 [m, 128], x [m, xdim], w_zr [128 + xdim, 256], b_zr [256],
 // w_q [128 + xdim, 128], b_q [128], out [m, 128]; all f32 or all bf16.
-// bf16 needs xdim % 16 == 0 and xdim <= 64 (shared-memory budget);
-// f32 needs xdim <= 128.  grid_blocks: persistent bf16 blocks (one per SM).
+// bf16 needs xdim % 16 == 0, xdim <= 64 (shared-memory budget) and h0, x,
+// the weights and out 16-byte aligned; f32 needs xdim <= 128.
+// grid_blocks: persistent bf16 blocks (one per SM).
 int fused_gru(const void* h0, const void* x, const void* w_zr, const void* b_zr,
               const void* w_q, const void* b_q, int m, int xdim, int iters,
               void* out, int is_bf16, int grid_blocks, void* stream) {
@@ -295,14 +322,14 @@ int fused_gru(const void* h0, const void* x, const void* w_zr, const void* b_zr,
         iters, (float*)out);
     return (int)cudaGetLastError();
   }
-  if (xdim % 16 != 0 || xdim > 64) return (int)cudaErrorInvalidValue;
+  if (xdim % 16 != 0 || xdim > XMAX) return (int)cudaErrorInvalidValue;
   const size_t smem = bf16_smem_bytes(H + xdim);
   cudaError_t e = cudaFuncSetAttribute(
-      gru_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      gru_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int tiles = (m + TM - 1) / TM;
   const int blocks = tiles < grid_blocks ? tiles : grid_blocks;
-  gru_bf16_kernel<<<blocks, THREADS, smem, st>>>(
+  gru_fwd_kernel<<<blocks, THREADS, smem, st>>>(
       (const bf16*)h0, (const bf16*)x, (const bf16*)w_zr, (const bf16*)b_zr,
       (const bf16*)w_q, (const bf16*)b_q, m, xdim, iters, (bf16*)out);
   return (int)cudaGetLastError();

@@ -72,18 +72,23 @@ def fused_gru(h0, x, w_zr, b_zr, w_q, b_q, num_iters: int) -> torch.Tensor:
         raise ValueError(f"unsupported device {h0.device}")
     m, xdim = h0.shape[0], x.shape[-1]
     bf16 = h0.dtype == torch.bfloat16
+    # the bf16 kernel moves h0, x, the weights and the output 16 bytes at a
+    # time; the biases are read an element at a time
+    aligned = ("h0", "x", "w_zr", "w_q") if bf16 else ("h0", "x")
     for name, t in (("h0", h0), ("x", x), ("w_zr", w_zr), ("b_zr", b_zr),
                     ("w_q", w_q), ("b_q", b_q)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if bf16 and (xdim % 16 or xdim > 64
-                 or w_zr.data_ptr() % 16 or w_q.data_ptr() % 16):
-        raise ValueError("bf16 kernel: xdim % 16 == 0, xdim <= 64, "
-                         "16-byte aligned weights")
+        if name in aligned and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    if bf16 and (xdim % 16 or xdim > 64):
+        raise ValueError("bf16 kernel: xdim % 16 == 0, xdim <= 64")
     if not bf16 and xdim > 128:
         raise ValueError("f32 kernel: xdim <= 128")
     lib = _build.load("fused_gru", _setup)
     out = torch.empty_like(h0)
+    if out.data_ptr() % 16:
+        raise ValueError("out must be 16-byte aligned")
     sms = torch.cuda.get_device_properties(h0.device).multi_processor_count
     rc = lib.fused_gru(h0.data_ptr(), x.data_ptr(), w_zr.data_ptr(),
                        b_zr.data_ptr(), w_q.data_ptr(), b_q.data_ptr(),

@@ -139,9 +139,12 @@ def test_gather_unaligned_table(dev, dtype, c):
                                         (torch.float32, 100),
                                         (torch.bfloat16, 16),
                                         (torch.bfloat16, 64)])
-@pytest.mark.parametrize("m", [1, 31, 33, 1000])
-@pytest.mark.parametrize("iters", [0, 1, 4])
+@pytest.mark.parametrize("m", [1, 31, 33, 63, 64, 65, 1000, 4229, 20000])
+@pytest.mark.parametrize("iters", [0, 1, 2, 4, 6])
 def test_fused_gru(dev, dtype, xdim, m, iters):
+    """M at the bf16 kernel's 64-point tile edges, and at more tiles than
+    the card has SMs (20,000: each block walks 2-3 tiles, so the prefetch
+    buffers alternate)."""
     g = torch.Generator().manual_seed(m * 7 + xdim)
     k_in = 128 + xdim
     args = [torch.randn(m, 128, generator=g) * 0.5,
@@ -157,6 +160,36 @@ def test_fused_gru(dev, dtype, xdim, m, iters):
     assert k.shape == (m, 128) and k.dtype == dtype
     rtol, atol = (1e-5, 1e-4) if dtype == torch.float32 else (2 ** -6, 4e-3)
     torch.testing.assert_close(k.float(), ref.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_gru_rejects_unaligned(dev, dtype):
+    """A contiguous h0 one element past 16-byte alignment: the wrapper
+    raises rather than falling back to the plain version."""
+    g = torch.Generator().manual_seed(5)
+    args = _gru_bwd_args(g, 65, 64, dtype, dev)[:6]
+    flat = torch.empty(65 * 128 + 1, dtype=dtype, device=dev)
+    h0 = flat[1:].view(65, 128)
+    h0.copy_(args[0])
+    assert h0.is_contiguous() and h0.data_ptr() % 16
+    before = gru.fused_gru.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        gru.fused_gru(h0, *args[1:], 4)
+    assert gru.fused_gru.launches == before
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_gru_is_deterministic(dev, dtype):
+    """Two launches at M = 4,229 (a ragged last tile) agree bit for bit."""
+    g = torch.Generator().manual_seed(19)
+    args = _gru_bwd_args(g, 4229, 64, dtype, dev)[:6]
+    first = gru.fused_gru(*args, 4)
+    second = gru.fused_gru(*args, 4)
+    want = gru.fused_gru_plain(*args, 4)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    rtol, atol = (1e-5, 1e-4) if dtype == torch.float32 else (2 ** -6, 4e-3)
+    torch.testing.assert_close(first.float(), want.float(), rtol=rtol, atol=atol)
 
 
 def test_wrappers_count_launches(dev):

@@ -13,7 +13,8 @@ Phases (any failure exits non-zero):
    kernels they launch); the segment-sum and the row gather also as each
    other's backward on the train path's ids; the fused conv3x3+BN+GELU
    kernels at both chain widths; the SSL kernels on an SSL batch: the cell
-   sweep (both directions), the lane segment-sum of the chamfer VJP (beside
+   sweep (both directions, and on skewed clouds: blocks per chunk and
+   pieces), the lane segment-sum of the chamfer VJP (beside
    the pillar segment-sum at the same shape) and the brute search at 2 x
    16,384; the row gather, the
    lane segment-sum and their library calls also timed as 20 launches
@@ -36,7 +37,8 @@ Phases (any failure exits non-zero):
    2 x 98,304, which takes the grid branch: per step the train path's
    counts plus 2 cell sweeps and 1 lane segment-sum; peak memory and one
    profiled step; then 3 steps at 2 x 16,384 (the brute branch under the
-   same rule): 4 brute searches and no sweep per step;
+   same rule): 4 brute searches and no sweep per step, and one profiled
+   step;
 7. reference checks in f32 on small inputs, the card against the CPU
    (plain PyTorch versions): the eval output, and one train step's loss,
    gradient norm, per-parameter gradients and updated parameters, for
@@ -72,10 +74,14 @@ TRUNCATE = 2.0
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 67e12
-# f32 operations per (query, candidate) pair: the sweep's d is 8 flops,
-# the flag lane one add, and each reduced lane a compare; the brute
-# search's d is 8 flops (5 for the dot) and one compare
-SWEEP_OPS_PER_PAIR = {True: 11, False: 9}
+# f32 instructions outside the tensor cores, one operation each: 128 lanes
+# x 132 SMs x 1.98 GHz.  The sweep and the brute search round once per
+# operation, as their plain versions and the Pallas kernels do, so no FMA
+# may fuse a product and a sum, and the 67 TFLOP/s above (an FMA counted
+# as two flops) is out of their reach.
+F32_NO_FMA_OPS_PER_S = 128 * 132 * 1.98e9
+# the brute search's f32 operations per (p, q) pair: d is 8 (5 for the
+# dot), and one compare
 BRUTE_OPS_PER_PAIR = 9
 
 
@@ -117,6 +123,22 @@ def make_batch(seed: int, b: int = B, n: int = N, valid: int = VALID,
         hb["dufo_label0"] = (rng.random((b, n)) < 0.15).astype(np.int32)
         hb["dufo_label1"] = (rng.random((b, n)) < 0.15).astype(np.int32)
     return hb
+
+
+def skewed_cloud(rng, n, valid):
+    """Near-field-heavy radial density and two dense clusters, as AV2's near
+    field (a copy of tools/sweep_check.py's ``skewed_cloud``)."""
+    r = np.clip(rng.gamma(2.0, 8.0, n), 1.5, 51.0)
+    th = rng.uniform(0, 2 * np.pi, n)
+    pts = np.stack([r * np.cos(th), r * np.sin(th),
+                    rng.uniform(-2.8, 2.8, n)], -1).astype(np.float32)
+    k = n // 16
+    for c in ((8.0, 3.0), (-5.0, -12.0)):
+        sel = rng.integers(0, n, k)
+        pts[sel, :2] = np.asarray(c) + rng.normal(0, 0.6, (k, 2))
+    mask = np.arange(n) < valid
+    pts[~mask] = 0
+    return pts, mask
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -502,7 +524,9 @@ def check_train_kernels(model, host_batch, splits: list):
         leaves = [a.detach().requires_grad_() for a in args[:6]]
         return torch.autograd.grad(gru_loop_bf16(*leaves, iters), leaves, args[6])
 
-    flops = 3 * 2.0 * m * (hd + xdim) * (3 * hd) * iters
+    # three products (the forward recomputed, dh and dW), each with x·W_x
+    # once and the h products every iteration
+    flops = 3 * 2.0 * m * (3 * hd) * (xdim + hd * iters)
     nbytes = 2 * m * (hd + xdim + hd) * 2 + 2 * (hd + xdim) * 3 * hd * 2
     b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
     results["fused_gru_bwd"] = {
@@ -619,21 +643,75 @@ def ssl_clouds(db, spec):
     return c0, c1, (warped, pc1, m0, m1, f0, f1)
 
 
-def _rel_d(k, ref) -> float:
-    """Largest |k − ref| / |ref| (ref > 0 where compared)."""
-    return ((k - ref).abs() / ref.abs().clamp(min=1e-30)).max().item()
+def sweep_ops(args) -> float:
+    """The f32 operations the dual sweep's inputs need: for every pair of a
+    chunk's query and a visited candidate, d (8, 11 with the w term on a
+    dirty chunk) and a compare; for every pair with a flagged candidate one
+    more add and compare (the other rows can never win the flag lane)."""
+    import torch
+
+    from deflow_tpu_torch.ops import sweep
+
+    _, c_slab, cs, cn, dirty = args
+    ncc = c_slab.shape[0]
+    lo = cs.long().clamp(0, ncc)
+    hi = torch.maximum((cs.long() + cn.long()).clamp(max=ncc), lo)
+    flagged = torch.cat([torch.zeros(1, dtype=torch.long, device=cs.device),
+                         (c_slab[:, 4] < 3e38).sum(1).cumsum(0)])
+    pairs = (hi - lo).sum(1) * (sweep.CHUNK_C * sweep.CHUNK_Q)
+    flag_pairs = (flagged[hi] - flagged[lo]).sum(1) * sweep.CHUNK_Q
+    ops = pairs * (9 + 3 * dirty.long()) + 2 * flag_pairs
+    return float(ops.sum())
+
+
+def hold_sweep(what: str, qc, cc, spec) -> dict:
+    """The cell sweep of queries ``qc`` against candidates ``cc`` (dual, the
+    SSL loss's), bit for bit against its plain version; its blocks per
+    chunk, pieces, time and bound."""
+    import torch
+
+    from deflow_tpu_torch.ops import chamfer, sweep
+
+    args = chamfer.sweep_inputs(qc, cc, spec)
+    k = sweep.cell_sweep(*args, dual=True)
+    ref = sweep.cell_sweep_plain(*args, dual=True)
+    torch.cuda.synchronize()
+    same = torch.equal(k, ref)
+    blocks = args[3].sum(1)
+    pieces = int(torch.where(blocks > 0, -(-blocks // sweep.PIECE_BLOCKS), 1).sum())
+    pairs = int(blocks.sum()) * sweep.CHUNK_C * sweep.CHUNK_Q
+    nq, ncc = args[0].shape[0], args[1].shape[0]
+    print(f"cell_sweep {what}: {nq} queries, {ncc} candidate blocks, {pairs:.4g} "
+          f"pairs visited, blocks per chunk mean {blocks.float().mean().item():.2f} "
+          f"max {int(blocks.max())}, {pieces} pieces of at most "
+          f"{sweep.PIECE_BLOCKS} blocks, {float(args[4].float().mean()):.3f} of the "
+          f"chunks dirty; output {'bit-identical to' if same else 'DIFFERS from'} "
+          "the plain version")
+    if not same:
+        raise SystemExit(f"cell_sweep ({what}) disagrees with its plain version")
+    nbytes = (args[0].numel() + args[1].numel() + k.numel()) * 4 + 7 * nq // sweep.CHUNK_Q * 4
+    b_ms, b_by = bound(nbytes, sweep_ops(args), F32_NO_FMA_OPS_PER_S)
+    return {"max_abs_err": (k - ref).abs().max().item(), "pairs": pairs,
+            "blocks_per_chunk_mean": blocks.float().mean().item(),
+            "blocks_per_chunk_max": int(blocks.max()), "pieces": pieces,
+            "ms": cuda_ms(lambda: sweep.cell_sweep(*args, dual=True), 20),
+            "plain_ms": cuda_ms(lambda: sweep.cell_sweep_plain(*args, dual=True), 1),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "shape": f"{what}, {nq}x8 vs {ncc}x8x{sweep.CHUNK_C}"}
 
 
 def check_ssl_kernels(ssl_batch, brute_batch):
     """Phase 3, the SSL kernels at the SSL path's shapes (B = TRAIN_B):
     the cell sweep on both directions of a 2 x 98,304 batch (pc1 from the
-    host cell prep), the lane segment-sum of the pc1→pc0 matches (the
-    chamfer VJP's one scatter), and the brute search at 2 x 16,384; each
-    against its plain version: distances within 1e-6 relative, indices
-    exactly equal, the lane sums within 1e-6 of their largest element."""
+    host cell prep) and of two skewed 2 x 98,304 clouds (AV2's dense near
+    field), the lane segment-sum of the pc1→pc0 matches (the chamfer VJP's
+    one scatter), and the brute search at 2 x 16,384; each against its
+    plain version: the sweep and the brute search bit-identical, the lane
+    sums within 1e-6 of their largest element."""
     import torch
 
-    from deflow_tpu_torch.ops import chamfer, nn, scatter, sweep
+    from deflow_tpu_torch.data.host_prep import chamfer_cell_prep
+    from deflow_tpu_torch.ops import chamfer, nn, scatter
     from deflow_tpu_torch.trainer import SSL_TRAIN_KEYS, device_batch
 
     dev = torch.device("cuda")
@@ -643,35 +721,25 @@ def check_ssl_kernels(ssl_batch, brute_batch):
     db = device_batch(ssl_batch, dev, SSL_TRAIN_KEYS)
     c0, c1, _ = ssl_clouds(db, spec)
 
-    # -- kernel 8: both directions, dual (the SSL loss's sweeps)
-    timed = {}
-    for what, (qc, cc) in (("pc0->pc1", (c0, c1)), ("pc1->pc0", (c1, c0))):
-        args = chamfer.sweep_inputs(qc, cc, spec)
-        k = sweep.cell_sweep(*args, dual=True)
-        ref = sweep.cell_sweep_plain(*args, dual=True)
-        torch.cuda.synchronize()
-        d_err = _rel_d(k[:, [0, 2]], ref[:, [0, 2]])
-        same_i = torch.equal(k[:, [1, 3]], ref[:, [1, 3]])
-        err = (k[:, :4] - ref[:, :4]).abs().max().item()
-        blocks = args[3].sum(1)
-        pairs = int(blocks.sum()) * sweep.CHUNK_C * sweep.CHUNK_Q
-        nq, ncc = args[0].shape[0], args[1].shape[0]
-        print(f"cell_sweep {what}: {nq} queries, {ncc} candidate blocks, "
-              f"{pairs:.4g} pairs visited, blocks per chunk mean "
-              f"{blocks.float().mean().item():.2f} max {int(blocks.max())}, "
-              f"{float(args[4].float().mean()):.3f} of the chunks dirty; d rel err "
-              f"{d_err:.3e} (tol 1e-6), indices {'equal' if same_i else 'DIFFER'}")
-        if not (d_err <= 1e-6 and same_i):
-            raise SystemExit(f"cell_sweep ({what}) disagrees with its plain version")
-        nbytes = (args[0].numel() + args[1].numel() + k.numel()) * 4 + 7 * nq // sweep.CHUNK_Q * 4
-        b_ms, b_by = bound(nbytes, pairs * SWEEP_OPS_PER_PAIR[True], F32_FLOP_PER_S)
-        timed[what] = {
-            "max_abs_err": err, "pairs": pairs,
-            "ms": cuda_ms(lambda: sweep.cell_sweep(*args, dual=True), 20),
-            "plain_ms": cuda_ms(lambda: sweep.cell_sweep_plain(*args, dual=True), 1),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "shape": f"{nq}x8 vs {ncc}x8x{sweep.CHUNK_C}"}
+    # -- kernel 8: both directions, dual (the SSL loss's sweeps), on the
+    # SSL batch's uniform clouds and on skewed ones
+    timed = {what: hold_sweep(what, qc, cc, spec)
+             for what, (qc, cc) in (("pc0->pc1", (c0, c1)), ("pc1->pc0", (c1, c0)))}
     results["cell_sweep"] = {**timed["pc0->pc1"], "pc1_to_pc0": timed["pc1->pc0"]}
+    rng = np.random.default_rng(5)
+    pts, masks = zip(*(skewed_cloud(rng, N, VALID) for _ in range(2 * TRAIN_B)))
+    pts = torch.from_numpy(np.stack(pts)).reshape(2, TRAIN_B, N, 3)
+    masks = torch.from_numpy(np.stack(masks)).reshape(2, TRAIN_B, N)
+    flags = masks & torch.from_numpy(rng.random(masks.shape) < 0.15)
+    s0 = chamfer._sweep_sort(pts[0].to(dev), masks[0].to(dev), flags[0].to(dev), spec)
+    cps = [chamfer_cell_prep(pts[1, i].numpy(), masks[1, i].numpy(), flags[1, i].numpy(),
+                             cell=spec.cell) for i in range(TRAIN_B)]
+    s1 = chamfer._sweep_cloud_from_host(
+        *(torch.from_numpy(np.stack([c[k] for c in cps])).to(dev)
+          for k in ("lanes", "sid", "start")), spec)
+    results["cell_sweep"]["skewed"] = {
+        what: hold_sweep(f"{what} skewed", qc, cc, spec)
+        for what, (qc, cc) in (("pc0->pc1", (s0, s1)), ("pc1->pc0", (s1, s0)))}
 
     # -- kernel 7: the pc1->pc0 matches (all and dynamic) scattered into
     # pc0's B·N rows, sorted as the chamfer VJP sorts them
@@ -719,10 +787,10 @@ def check_ssl_kernels(ssl_batch, brute_batch):
     kd, ki = nn.chamfer_min(p, q, m1)
     rd, ri = nn.chamfer_min_plain(p, q, m1)
     torch.cuda.synchronize()
-    d_err, same_i = _rel_d(kd, rd), torch.equal(ki, ri)
-    print(f"chamfer_brute {tuple(p.shape)} x {tuple(q.shape)}: d rel err {d_err:.3e} "
-          f"(tol 1e-6), indices {'equal' if same_i else 'DIFFER'}")
-    if not (d_err <= 1e-6 and same_i):
+    same = torch.equal(kd, rd) and torch.equal(ki, ri)
+    print(f"chamfer_brute {tuple(p.shape)} x {tuple(q.shape)}: distances and indices "
+          f"{'bit-identical to' if same else 'DIFFER from'} the plain version's")
+    if not same:
         raise SystemExit("chamfer_brute disagrees with its plain version")
     qf = torch.where(m1[..., None], q, 1e6)
 
@@ -734,7 +802,7 @@ def check_ssl_kernels(ssl_batch, brute_batch):
 
     pairs = p.shape[0] * p.shape[1] * q.shape[1]
     b_ms, b_by = bound((p.numel() + q.numel() + m1.numel() / 4 + 2 * kd.numel()) * 4,
-                       pairs * BRUTE_OPS_PER_PAIR, F32_FLOP_PER_S)
+                       pairs * BRUTE_OPS_PER_PAIR, F32_NO_FMA_OPS_PER_S)
     results["chamfer_brute"] = {
         "max_abs_err": (kd - rd).abs().max().item(), "pairs": pairs,
         "shape": f"{p.shape[0]}x{p.shape[1]}x{q.shape[1]}",
@@ -743,8 +811,10 @@ def check_ssl_kernels(ssl_batch, brute_batch):
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(library, 3),
         "library_call": "call sequence: torch.cdist in 4096-row chunks + min",
     }
+    skewed = results["cell_sweep"]["skewed"]
     for name, r in results.items():
-        for rr in (r, r.get("pc1_to_pc0")):
+        for rr in (r, r.get("pc1_to_pc0"), *(skewed.values() if r is results["cell_sweep"]
+                                            else ())):
             if rr:
                 lib = "none" if rr["library_ms"] is None else f"{rr['library_ms']:.4f} ms"
                 print(f"{name} {rr['shape']}: {rr['ms']:.4f} ms (bound "
@@ -851,8 +921,7 @@ def read_launches() -> dict:
     return {name: w.launches for name, w in _wrappers().items()}
 
 
-def run_train_path(model, batches, loss_name="deflowLoss", label="train",
-                   profile=True):
+def run_train_path(model, batches, loss_name="deflowLoss", label="train"):
     """Phases 5 and 6: ``make_train_step`` over the batches (one Adam step
     each); returns per-step aux, device ms per step and the launch counts."""
     import torch
@@ -885,8 +954,7 @@ def run_train_path(model, batches, loss_name="deflowLoss", label="train",
     bad = [k for a in auxes for k, v in a.items() if not np.isfinite(v)]
     if bad or not all(torch.isfinite(p).all() for p in model.parameters()):
         raise SystemExit(f"{label} step gave non-finite values {bad}")
-    if profile:
-        profile_step(lambda: train_step(state, device_batches[0]))
+    profile_step(lambda: train_step(state, device_batches[0]))
     return auxes, device_ms, launches
 
 
@@ -1133,8 +1201,7 @@ def main() -> int:
             ("ssl", "seflowLoss", ssl_batches, {"cell_sweep": 2, "segment_sum_lanes": 1}),
             ("ssl 2 x 16,384", "seflowLoss", brute_batches, {"chamfer_brute": 4})):
         torch.cuda.reset_peak_memory_stats()
-        _, step_ms, launches = run_train_path(model, bts, loss_name, label,
-                                              profile=label != "ssl 2 x 16,384")
+        _, step_ms, launches = run_train_path(model, bts, loss_name, label)
         want = {k: (extra.get(k, v)) * len(bts) for k, v in per_step.items()}
         print(f"launches on the {label} path: {launches} (want {want})")
         if launches != want:

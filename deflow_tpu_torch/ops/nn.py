@@ -32,13 +32,12 @@ def _sq3(v: torch.Tensor) -> torch.Tensor:
     return v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1] + v[..., 2] * v[..., 2]
 
 
-def chamfer_min_plain(p: torch.Tensor, q: torch.Tensor,
-                      q_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The same expanded formula in PyTorch, tiled over q so that a full-width
-    call holds one [B, N, PLAIN_TILE] block at a time."""
-    batched = p.dim() == 3
-    if not batched:
-        p, q, q_mask = p[None], q[None], q_mask[None]
+def chamfer_min_unclamped(p: torch.Tensor, q: torch.Tensor,
+                          q_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The strict < scan of ``chamfer_min_plain`` before its clamp, batched
+    only: (d [B, N] f32, which may be negative, idx [B, N] int64); tiled
+    over q so that a full-width call holds one [B, N, PLAIN_TILE] block at
+    a time."""
     p, q = p.float(), q.float()
     b, n, _ = p.shape
     q = torch.where(q_mask[..., None], q, _FAR)
@@ -56,6 +55,17 @@ def chamfer_min_plain(p: torch.Tensor, q: torch.Tensor,
         take = m < best
         best = torch.where(take, m, best)
         best_i = torch.where(take, first, best_i)
+    return best, best_i
+
+
+def chamfer_min_plain(p: torch.Tensor, q: torch.Tensor,
+                      q_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The same expanded formula in PyTorch: the unclamped scan, then
+    max(d, 0)."""
+    batched = p.dim() == 3
+    if not batched:
+        p, q, q_mask = p[None], q[None], q_mask[None]
+    best, best_i = chamfer_min_unclamped(p, q, q_mask)
     dist, idx = best.clamp(min=0.0), best_i.to(torch.int32)
     return (dist, idx) if batched else (dist[0], idx[0])
 
@@ -63,7 +73,9 @@ def chamfer_min_plain(p: torch.Tensor, q: torch.Tensor,
 def _setup(lib):
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.chamfer_brute.restype = i32
-    lib.chamfer_brute.argtypes = [vp, vp, vp, i32, i32, i32, vp, vp, vp]
+    lib.chamfer_brute.argtypes = [vp, vp, vp, i32, i32, i32, vp, vp, vp, vp, vp]
+    lib.chamfer_brute_pieces.restype = i32
+    lib.chamfer_brute_pieces.argtypes = [i32]
 
 
 def chamfer_min(p: torch.Tensor, q: torch.Tensor,
@@ -92,11 +104,17 @@ def chamfer_min(p: torch.Tensor, q: torch.Tensor,
     if max(b * n, b * m) * 3 >= 2 ** 31 or b >= 2 ** 16:
         raise ValueError("sizes beyond the kernel's indexing")
     lib = _build.load("chamfer_brute", _setup)
+    pieces = lib.chamfer_brute_pieces(m)
+    if pieces >= 2 ** 16:
+        raise ValueError("sizes beyond the kernel's indexing")
     dist = torch.empty(b, n, dtype=torch.float32, device=p.device)
     idx = torch.empty(b, n, dtype=torch.int32, device=p.device)
+    # each q piece's unclamped (d, index) per p row, merged in q order
+    part_d = torch.empty(pieces, b, n, dtype=torch.float32, device=p.device)
+    part_i = torch.empty(pieces, b, n, dtype=torch.int32, device=p.device)
     rc = lib.chamfer_brute(p.data_ptr(), q.data_ptr(), q_mask.data_ptr(), b, n,
-                           m, dist.data_ptr(), idx.data_ptr(),
-                           _build.stream_ptr(p))
+                           m, part_d.data_ptr(), part_i.data_ptr(),
+                           dist.data_ptr(), idx.data_ptr(), _build.stream_ptr(p))
     _build.check(lib, rc, "chamfer_brute")
     chamfer_min.launches += 1
     return (dist, idx) if batched else (dist[0], idx[0])

@@ -36,6 +36,7 @@ from deflow_tpu_torch.ops import _build
 
 CHUNK_Q = 256   # queries per chunk
 CHUNK_C = 512   # candidate rows per block
+PIECE_BLOCKS = 2   # the kernel's cut: candidate blocks per piece of a chunk
 _BIG = 3.0e38
 _CX, _CY, _CZ, _CW, _CFPEN, _CORIG = range(6)
 
@@ -93,7 +94,9 @@ def cell_sweep_plain(q_slab: torch.Tensor, c_slab: torch.Tensor,
 def _setup(lib):
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.cell_sweep.restype = i32
-    lib.cell_sweep.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, vp, vp]
+    lib.cell_sweep.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32, vp, vp, vp]
+    lib.cell_sweep_workspace.restype = i32
+    lib.cell_sweep_workspace.argtypes = [i32]
 
 
 def cell_sweep(q_slab: torch.Tensor, c_slab: torch.Tensor, cs: torch.Tensor,
@@ -123,12 +126,18 @@ def cell_sweep(q_slab: torch.Tensor, c_slab: torch.Tensor, cs: torch.Tensor,
         raise ValueError(f"unsupported device {q_slab.device}")
     if not all(t.is_contiguous() for t in (q_slab, c_slab, cs, cn, dirty)):
         raise ValueError("inputs must be contiguous")
+    if q_slab.data_ptr() % 16:
+        raise ValueError("q_slab must be 16-byte aligned")
     lib = _build.load("cell_sweep", _setup)
     out = torch.empty(nq, 8, dtype=torch.float32, device=q_slab.device)
+    # the piece table, work counter and per-chunk merge counters and locks:
+    # the kernel's first launch fills them, so any contents will do
+    ws = torch.empty(lib.cell_sweep_workspace(nchunks), dtype=torch.int32,
+                     device=q_slab.device)
     rc = lib.cell_sweep(q_slab.data_ptr(), c_slab.data_ptr(), cs.data_ptr(),
                         cn.data_ptr(), dirty.data_ptr(), nchunks,
-                        c_slab.shape[0], int(bool(dual)), out.data_ptr(),
-                        _build.stream_ptr(q_slab))
+                        c_slab.shape[0], int(bool(dual)), PIECE_BLOCKS,
+                        ws.data_ptr(), out.data_ptr(), _build.stream_ptr(q_slab))
     _build.check(lib, rc, "cell_sweep")
     cell_sweep.launches += 1
     return out

@@ -538,6 +538,46 @@ def _ssl_clouds(g, sizes, spread=7.5):
     return pts, mask, flag
 
 
+def _sweep_clouds(dev, spec, query, cand, hosted):
+    """The sweep clouds of (points, mask, flag) triples on the card: the
+    queries device-sorted, the candidates device-sorted or, with
+    ``hosted``, from the host cell prep (each sample's masked tail in
+    place)."""
+    from deflow_tpu_torch.data.host_prep import chamfer_cell_prep
+    from deflow_tpu_torch.ops import chamfer
+
+    qc = chamfer._sweep_sort(*(t.to(dev) for t in query), spec)
+    q, mq, fq = cand
+    if hosted:
+        cps = [chamfer_cell_prep(q[i].numpy(), mq[i].numpy(), fq[i].numpy(),
+                                 lo=spec.lo, hi=spec.hi) for i in range(q.shape[0])]
+        cc = chamfer._sweep_cloud_from_host(
+            *(torch.from_numpy(np.stack([c[k] for c in cps])).to(dev)
+              for k in ("lanes", "sid", "start")), spec)
+    else:
+        cc = chamfer._sweep_sort(q.to(dev), mq.to(dev), fq.to(dev), spec)
+    return qc, cc
+
+
+def _graph_replays(fn, times=2):
+    """``fn``'s outputs from a CUDA graph that captured one call (after a
+    warm-up call on a side stream), cloned after each of ``times`` replays."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    outs = []
+    for _ in range(times):
+        graph.replay()
+        torch.cuda.synchronize()
+        outs.append([o.clone() for o in (out if isinstance(out, tuple) else (out,))])
+    return outs
+
+
 SWEEP_CASES = {   # (query valid counts, candidate valid counts)
     "ragged": ([300, 1200], [700, 900]),
     "empty_sample": ([0, 400], [350, 0]),
@@ -553,7 +593,6 @@ def test_cell_sweep_matches_plain(dev, case, hosted, dual):
     """Bit-exact against the plain version: both round once per operation
     and share the tie rules.  Multi-sample clouds put dirty chunks at the
     sample boundaries and all-sentinel chunks at the tail."""
-    from deflow_tpu_torch.data.host_prep import chamfer_cell_prep
     from deflow_tpu_torch.ops import chamfer, sweep
 
     g = torch.Generator().manual_seed(len(case) + 2 * hosted + dual)
@@ -563,15 +602,7 @@ def test_cell_sweep_matches_plain(dev, case, hosted, dual):
     q, mq, fq = _ssl_clouds(g, cs_)
     if case == "single_point":
         q[1, :550] = q[1, 0]                  # exact duplicates across blocks
-    qc = chamfer._sweep_sort(p.to(dev), mp.to(dev), fp.to(dev), spec)
-    if hosted:
-        cps = [chamfer_cell_prep(q[i].numpy(), mq[i].numpy(), fq[i].numpy(),
-                                 lo=spec.lo, hi=spec.hi) for i in range(q.shape[0])]
-        cc = chamfer._sweep_cloud_from_host(
-            *(torch.from_numpy(np.stack([c[k] for c in cps])).to(dev)
-              for k in ("lanes", "sid", "start")), spec)
-    else:
-        cc = chamfer._sweep_sort(q.to(dev), mq.to(dev), fq.to(dev), spec)
+    qc, cc = _sweep_clouds(dev, spec, (p, mp, fp), (q, mq, fq), hosted)
     for a, b in ((qc, cc), (cc, qc)):
         args = chamfer.sweep_inputs(a, b, spec)
         k = sweep.cell_sweep(*args, dual=dual)
@@ -582,8 +613,128 @@ def test_cell_sweep_matches_plain(dev, case, hosted, dual):
         assert (args[4] == 0).any() and (args[4] == 1).any()
 
 
+def _skewed_cloud(rng, n, valid):
+    """Near-field-heavy radial density and two dense clusters, as AV2's near
+    field (a copy of tools/sweep_check.py's ``skewed_cloud``)."""
+    r = np.clip(rng.gamma(2.0, 8.0, n), 1.5, 51.0)
+    th = rng.uniform(0, 2 * np.pi, n)
+    pts = np.stack([r * np.cos(th), r * np.sin(th),
+                    rng.uniform(-2.8, 2.8, n)], -1).astype(np.float32)
+    k = n // 16
+    for c in ((8.0, 3.0), (-5.0, -12.0)):
+        sel = rng.integers(0, n, k)
+        pts[sel, :2] = np.asarray(c) + rng.normal(0, 0.6, (k, 2))
+    mask = np.arange(n) < valid
+    pts[~mask] = 0
+    return pts, mask
+
+
+def _sweep_both_ways(qc, cc, spec, dual):
+    """Both directions' kernel and plain outputs and inputs."""
+    from deflow_tpu_torch.ops import chamfer, sweep
+
+    res = []
+    for a, b in ((qc, cc), (cc, qc)):
+        args = chamfer.sweep_inputs(a, b, spec)
+        res.append((sweep.cell_sweep(*args, dual=dual),
+                    sweep.cell_sweep_plain(*args, dual=dual), args))
+    torch.cuda.synchronize()
+    return res
+
+
+@pytest.mark.parametrize("dual", [True, False])
+@pytest.mark.parametrize("piece_blocks", [1, 2, 3])
+def test_cell_sweep_many_pieces(dev, monkeypatch, piece_blocks, dual):
+    """A hosted two-sample cloud whose first sample's masked tail spans
+    more than 8 blocks: the query chunk that straddles the samples sweeps
+    many pieces; bit-exact against the plain version."""
+    from deflow_tpu_torch.ops import chamfer, sweep
+
+    monkeypatch.setattr(sweep, "PIECE_BLOCKS", piece_blocks)
+    g = torch.Generator().manual_seed(40 + piece_blocks)
+    spec = chamfer.NNSpec(method="grid", lo=(-8.0, -8.0), hi=(8.0, 8.0))
+    p, mp, fp = _ssl_clouds(g, [1500, 1500])
+    q, mq, fq = _ssl_clouds(g, [1000, 1200])
+    pad = lambda x, k: torch.cat([x, x.new_zeros((x.shape[0], k) + x.shape[2:])], 1)
+    p, mp, fp = (pad(x, 1500) for x in (p, mp, fp))
+    q, mq, fq = (pad(x, 4000) for x in (q, mq, fq))
+    qc, cc = _sweep_clouds(dev, spec, (p, mp, fp), (q, mq, fq), hosted=True)
+    res = _sweep_both_ways(qc, cc, spec, dual)
+    assert int(res[0][2][3].sum(1).max()) > 3 * piece_blocks
+    for k, ref, _ in res:
+        assert torch.equal(k, ref)
+
+
+@pytest.mark.parametrize("dual", [True, False])
+@pytest.mark.parametrize("hosted", [False, True])
+def test_cell_sweep_duplicates_across_pieces(dev, monkeypatch, hosted, dual):
+    """1,200 exact copies of one point span three candidate blocks, each its
+    own piece (the earlier piece must win); a few copies of another sit in
+    one block (the larger orig row must win)."""
+    from deflow_tpu_torch.ops import chamfer, sweep
+
+    monkeypatch.setattr(sweep, "PIECE_BLOCKS", 1)
+    g = torch.Generator().manual_seed(50 + 2 * hosted + dual)
+    spec = chamfer.NNSpec(method="grid", lo=(-8.0, -8.0), hi=(8.0, 8.0))
+    p, mp, fp = _ssl_clouds(g, [600, 500])
+    q, mq, fq = _ssl_clouds(g, [2600, 900])
+    q[0, 100:1300] = q[0, 100]
+    q[0, 1400:1410] = q[0, 1450]
+    fq[0, 100:1300] = torch.arange(1200) % 3 == 0
+    fq[0, 1400:1410] = torch.arange(10) % 2 == 0
+    p[0, :5], p[0, 5:10] = q[0, 100], q[0, 1450]
+    qc, cc = _sweep_clouds(dev, spec, (p, mp, fp), (q, mq, fq), hosted)
+    res = _sweep_both_ways(qc, cc, spec, dual)
+    assert int(res[0][2][3].sum(1).max()) >= 3
+    for k, ref, _ in res:
+        assert torch.equal(k, ref)
+
+
+@pytest.mark.parametrize("hosted", [False, True])
+def test_cell_sweep_skewed(dev, hosted):
+    """The skewed density of AV2's near field at 2 x 32,768 (dense clusters:
+    chunks with twice the mean's blocks), on the loss's grid; bit-exact."""
+    from deflow_tpu_torch.ops import chamfer
+
+    rng = np.random.default_rng(60 + hosted)
+    n = 32768
+    spec = chamfer._resolve_spec("grid", n, n, 2.0, None)
+    clouds = []
+    for valid in ((28672, 26624), (27525, 29491)):
+        pts, mask = zip(*(_skewed_cloud(rng, n, v) for v in valid))
+        pts, mask = torch.from_numpy(np.stack(pts)), torch.from_numpy(np.stack(mask))
+        clouds.append((pts, mask, mask & torch.from_numpy(rng.random(mask.shape) < 0.15)))
+    qc, cc = _sweep_clouds(dev, spec, *clouds, hosted)
+    res = _sweep_both_ways(qc, cc, spec, True)
+    blocks = res[0][2][3].sum(1).float()
+    assert blocks.max() >= 2 * blocks.mean()
+    for k, ref, _ in res:
+        assert torch.equal(k, ref)
+
+
+def test_cell_sweep_repeats_and_replays(dev):
+    """Two launches are bit-identical, and a CUDA graph of one call replays
+    to the same output twice (the per-chunk counters start from zero)."""
+    from deflow_tpu_torch.ops import chamfer, sweep
+
+    g = torch.Generator().manual_seed(70)
+    spec = chamfer.NNSpec(method="grid", lo=(-8.0, -8.0), hi=(8.0, 8.0))
+    qc, cc = _sweep_clouds(dev, spec, _ssl_clouds(g, [3000, 2500]),
+                           _ssl_clouds(g, [2600, 3100]), hosted=True)
+    args = chamfer.sweep_inputs(qc, cc, spec)
+    first = sweep.cell_sweep(*args)
+    again = sweep.cell_sweep(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    before = sweep.cell_sweep.launches
+    for (out,) in _graph_replays(lambda: sweep.cell_sweep(*args)):
+        assert torch.equal(out, first)
+    assert sweep.cell_sweep.launches == before + 2      # warm-up and capture
+
+
 @pytest.mark.parametrize("b,n,m", [(1, 1, 1), (1, 33, 1000), (2, 1000, 1025),
-                                   (3, 257, 2049)])
+                                   (3, 257, 2049), (1, 1025, 1023), (2, 5000, 3000),
+                                   (1, 4097, 4096)])
 def test_chamfer_min_matches_plain(dev, b, n, m):
     g = torch.Generator().manual_seed(b * n + m)
     p = (torch.rand(b, n, 3, generator=g) * 2 - 1) * 50
@@ -608,6 +759,64 @@ def test_chamfer_min_no_candidates(dev):
     p = torch.randn(1, 5, 3, device=dev)
     d, i = nn.chamfer_min(p, p[:, :0], torch.zeros(1, 0, dtype=torch.bool, device=dev))
     assert (d == 3e38).all() and (i == 0).all()
+
+
+def test_chamfer_min_duplicates_across_pieces(dev):
+    """Exact duplicates 1,024 rows apart, in different q pieces: the lower
+    index wins, bit-exact against the plain version."""
+    g = torch.Generator().manual_seed(80)
+    p = (torch.rand(2, 700, 3, generator=g) * 2 - 1) * 50
+    q = (torch.rand(2, 2600, 3, generator=g) * 2 - 1) * 50
+    q[:, 1034:1054] = q[:, 10:30]
+    q[:, 2058:2078] = q[:, 10:30]
+    p[:, :20] = q[:, 10:30]
+    mask = torch.ones(2, 2600, dtype=torch.bool)
+    p, q, mask = p.to(dev), q.to(dev), mask.to(dev)
+    d, i = nn.chamfer_min(p, q, mask)
+    rd, ri = nn.chamfer_min_plain(p, q, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(d, rd) and torch.equal(i, ri)
+    assert (i[:, :20] == torch.arange(10, 30, device=dev)).all()
+
+
+def test_chamfer_min_negative_d_in_two_pieces(dev):
+    """A p row at ±40 m whose expanded d is negative against a row of q
+    piece 0 and more negative against a row of piece 1: the kernel merges
+    the unclamped d and finds the later row, as the plain version does
+    (clamping the pieces first would keep the earlier)."""
+    rng = np.random.default_rng(5)
+    p = torch.tensor([[[39.2, -38.4, 32.0]]])
+    cand = (p[0] + torch.from_numpy(rng.normal(0, 1e-5, (4000, 3)))).float()
+    d, _ = nn.chamfer_min_unclamped(p.expand(4000, 1, 3), cand[:, None],
+                                    torch.ones(4000, 1, dtype=torch.bool))
+    d = d[:, 0]
+    neg = torch.nonzero(d < 0)[:, 0]
+    a, b = neg[d[neg].argmax()], neg[d[neg].argmin()]
+    assert d[b] < d[a] < 0
+    q = torch.full((1, 2100, 3), 30.0)
+    q[0, :, 0] += torch.arange(2100.0)
+    q[0, 3], q[0, 1031] = cand[a], cand[b]
+    mask = torch.ones(1, 2100, dtype=torch.bool)
+    kd, ki = nn.chamfer_min(p.to(dev), q.to(dev), mask.to(dev))
+    rd, ri = nn.chamfer_min_plain(p, q, mask)
+    torch.cuda.synchronize()
+    assert int(ri[0, 0]) == 1031 and float(rd[0, 0]) == 0.0
+    assert torch.equal(kd.cpu(), rd) and torch.equal(ki.cpu(), ri)
+
+
+def test_chamfer_min_repeats_and_replays(dev):
+    """Two launches are bit-identical, and a CUDA graph of one call replays
+    to the same output twice."""
+    g = torch.Generator().manual_seed(90)
+    p = ((torch.rand(2, 3000, 3, generator=g) * 2 - 1) * 50).to(dev)
+    q = ((torch.rand(2, 2500, 3, generator=g) * 2 - 1) * 50).to(dev)
+    mask = (torch.rand(2, 2500, generator=g) < 0.9).to(dev)
+    first = nn.chamfer_min(p, q, mask)
+    again = nn.chamfer_min(p, q, mask)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    for outs in _graph_replays(lambda: nn.chamfer_min(p, q, mask)):
+        assert all(torch.equal(a, b) for a, b in zip(outs, first))
 
 
 @pytest.mark.parametrize("hosted", [False, True])

@@ -28,7 +28,7 @@ import jax
 import jax.numpy as jnp
 
 from deflow_tpu_torch.ops import chamfer as TC
-from deflow_tpu_torch.ops.nn import chamfer_min, chamfer_min_plain
+from deflow_tpu_torch.ops.nn import chamfer_min, chamfer_min_plain, chamfer_min_unclamped
 from deflow_tpu_torch.ops.scatter import segment_sum_lanes, segment_sum_lanes_plain
 from deflow_tpu_torch.ops.sweep import cell_sweep, cell_sweep_plain
 
@@ -203,6 +203,79 @@ def test_cell_sweep_clean_chunks(interpret_pallas, monkeypatch, layout):
     _check_sweep(got.numpy(), want)
 
 
+def _piece_tables(cs, cn, ncc, piece_blocks):
+    """Each chunk's valid block list (window 0 first, blocks ascending) cut
+    at block boundaries into pieces of at most ``piece_blocks`` blocks: per
+    piece index j, the windows (cs_j, cn_j) [nchunks, 3] of every chunk's
+    j-th piece (no blocks where a chunk has fewer pieces)."""
+    cs, cn = np.asarray(cs, np.int64), np.asarray(cn, np.int64)
+    lo = np.clip(cs, 0, ncc)
+    ln = np.clip(np.minimum(cs + cn, ncc) - lo, 0, None)
+    first = np.cumsum(ln, 1) - ln                 # list position of each window
+    tables = []
+    for j in range(-(-int(ln.sum(1).max()) // piece_blocks)):
+        a = np.clip(j * piece_blocks - first, 0, ln)
+        b = np.clip((j + 1) * piece_blocks - first, 0, ln)
+        tables.append(((lo + a).astype(np.int32), (b - a).astype(np.int32)))
+    return tables
+
+
+def _merge_pieces(outs, in_order=True):
+    """Merge the pieces' sweep outputs: in piece order, a later piece wins
+    only when strictly smaller; or in reverse order on (d, piece index),
+    the lexicographic rule that makes the order of arrival irrelevant."""
+    order = range(len(outs)) if in_order else range(len(outs) - 1, -1, -1)
+    res, at = None, None
+    for j in order:
+        o = outs[j]
+        if res is None:
+            res, at = o.clone(), torch.full((o.shape[0], 2), j)
+            continue
+        for lane in (0, 1):
+            d, cur = o[:, 2 * lane], res[:, 2 * lane]
+            take = (d < cur) | ((d == cur) & (j < at[:, lane]))
+            res[take, 2 * lane:2 * lane + 2] = o[take, 2 * lane:2 * lane + 2]
+            at[take, lane] = j
+    return res
+
+
+@pytest.mark.parametrize("piece_blocks", [1, 2])
+@pytest.mark.parametrize("layout", ["sorted", "hosted"])
+def test_cell_sweep_pieces_merge_in_order(interpret_pallas, monkeypatch, layout,
+                                          piece_blocks):
+    """The exactness argument of the kernel's balanced design: the plain
+    sweep over each chunk's window list cut into pieces at block boundaries
+    (per-piece cs/cn), merged in piece order with a strict <, equals the
+    uncut plain sweep and the Pallas kernel; so does the merge in reverse
+    order on (d, piece index).  More than 512 copies of one point put
+    exact duplicates in several blocks, so in several pieces."""
+    JC = interpret_pallas
+    jspec, tspec = _specs()
+    p, q, mp, mq, fp, fq = _clouds(21, n=600, m=2600)
+    q[0, 100:1300] = q[0, 100]                # 1,200 copies: three blocks
+    q[0, 1400:1410] = q[0, 1450]              # a few copies in one block
+    mq[0, 100:1300] = mq[0, 1400:1410] = mq[0, 1450] = True
+    fq[0, 100:1300:3] = fq[0, 1400:1410:2] = True
+    p[0, :5], p[0, 5:10] = q[0, 100], q[0, 1450]
+    mp[0, :10] = True
+    jq, jc, tq, tc = _both_clouds(JC, p, q, mp, mq, fp, fq, layout, jspec, tspec)
+    for (jqc, jcc), (tqc, tcc) in (((jq, jc), (tq, tc)), ((jc, jq), (tc, tq))):
+        for dual in (True, False):
+            args = TC.sweep_inputs(tqc, tcc, tspec)
+            whole = cell_sweep_plain(*args, dual=dual)
+            tables = _piece_tables(args[2], args[3], args[1].shape[0], piece_blocks)
+            outs = [cell_sweep_plain(args[0], args[1], *_t(cs_j, cn_j), args[4], dual=dual)
+                    for cs_j, cn_j in tables]
+            assert torch.equal(_merge_pieces(outs), whole)
+            assert torch.equal(_merge_pieces(outs, in_order=False), whole)
+            _, want = _jax_sweep_args(JC, monkeypatch, jqc, jcc, jspec, dual)
+            _check_sweep(whole.numpy(), want)
+    # the duplicates did land in several pieces of one chunk
+    args = TC.sweep_inputs(tq, tc, tspec)
+    assert (args[3].sum(1) > piece_blocks).any()
+    assert len(_piece_tables(args[2], args[3], args[1].shape[0], piece_blocks)) > 1
+
+
 # ----------------------------------------------------------------- kernel 9
 def _expanded_atol(p, q, q_mask):
     """16·eps32·R² per sample, R² over p and the folded q ([..., 1])."""
@@ -246,6 +319,88 @@ def test_chamfer_min_matches_pallas(interpret_pallas, batched):
     assert (got_i.numpy().reshape(-1, n)[0, :20] == np.arange(100, 120)).all()
     k_d, k_i = chamfer_min(tp, tq, tm)
     assert torch.equal(k_d, got_d) and torch.equal(k_i, got_i)
+
+
+def _pieces_unclamped(p, q, q_mask, piece):
+    """``chamfer_min_unclamped`` over q cut into pieces of ``piece`` rows,
+    the pieces' unclamped d merged in q order with a strict < (ties to the
+    lower piece)."""
+    best = torch.full(p.shape[:2], 3.0e38)
+    best_i = torch.zeros(p.shape[:2], dtype=torch.int64)
+    for s0 in range(0, q.shape[1], piece):
+        d, i = chamfer_min_unclamped(p, q[:, s0:s0 + piece], q_mask[:, s0:s0 + piece])
+        take = d < best
+        best, best_i = torch.where(take, d, best), torch.where(take, i + s0, best_i)
+    return best, best_i
+
+
+@pytest.mark.parametrize("piece", [128, 300, 1024])
+def test_chamfer_min_pieces_merge_in_order(interpret_pallas, piece):
+    """The exactness argument of the kernel's split over q: the pieces'
+    unclamped (d, index) merged in q order by a strict < and clamped after
+    equal the uncut plain search, and both the Pallas kernel; exact
+    duplicates in different pieces go to the lower index."""
+    from deflow_tpu.ops.pallas_chamfer import chamfer_min_pallas
+
+    rng = np.random.default_rng(piece)
+    b, n, m = 2, 300, 2100
+    p = rng.uniform(-40, 40, (b, n, 3)).astype(np.float32)
+    q = rng.uniform(-40, 40, (b, m, 3)).astype(np.float32)
+    q[:, 1500:1520] = q[:, 100:120]          # duplicates in another piece
+    p[:, :20] = q[:, 100:120]
+    mq = rng.random((b, m)) > 0.2
+    mq[:, 100:120] = mq[:, 1500:1520] = True
+    tp, tq, tm = _t(p, q, mq)
+    d, i = _pieces_unclamped(tp, tq, tm, piece)
+    want_d, want_i = chamfer_min_plain(tp, tq, tm)
+    assert torch.equal(d.clamp(min=0.0), want_d) and torch.equal(i.to(torch.int32), want_i)
+    assert (want_i[:, :20] == torch.arange(100, 120)).all()
+    jd, ji = map(np.asarray, chamfer_min_pallas(*map(jnp.asarray, (p, q, mq))))
+    _check_brute(p, q, mq, want_d, want_i, jd, ji)
+
+
+def _two_negative_candidates(seed):
+    """One p row at ±40 m and two q rows near it whose expanded d are both
+    negative (the formula cancels), the second strictly more negative.
+    With |p|² just below 4096, |p|² + |q|² and 2p·q round on grids of
+    different spacing, so d < 0 takes more than one value."""
+    rng = np.random.default_rng(seed)
+    p = np.array([[[39.2, -38.4, 32.0]]], np.float32)
+    cand = (p[0] + rng.normal(0, 1e-5, (4000, 3))).astype(np.float32)
+    d, _ = chamfer_min_unclamped(torch.from_numpy(np.repeat(p, 4000, 1)).reshape(4000, 1, 3),
+                                 torch.from_numpy(cand)[:, None],
+                                 torch.ones(4000, 1, dtype=torch.bool))
+    d = d[:, 0].numpy()
+    neg = np.flatnonzero(d < 0)
+    a = neg[np.argmax(d[neg])]                # the least negative
+    bb = neg[np.argmin(d[neg])]               # the most negative
+    assert d[bb] < d[a] < 0
+    return p, cand[a], cand[bb]
+
+
+def test_chamfer_min_clamp_after_merge(interpret_pallas):
+    """Two pieces both give d < 0 for one row, the later one more negative:
+    merging the unclamped d finds the later row, as the uncut scan does;
+    clamping the pieces first would tie them at 0 and keep the earlier."""
+    from deflow_tpu.ops.pallas_chamfer import chamfer_min_pallas
+
+    p, qa, qb = _two_negative_candidates(5)
+    q = np.full((1, 2100, 3), 30.0, np.float32)
+    q[0, :, 0] += np.arange(2100, dtype=np.float32)   # far rows
+    q[0, 3], q[0, 1031] = qa, qb              # pieces 0 and 1 of 1024 rows
+    mq = np.ones((1, 2100), bool)
+    tp, tq, tm = _t(p, q, mq)
+    want_d, want_i = chamfer_min_plain(tp, tq, tm)
+    assert int(want_i[0, 0]) == 1031 and float(want_d[0, 0]) == 0.0
+    d, i = _pieces_unclamped(tp, tq, tm, 1024)
+    assert torch.equal(d.clamp(min=0.0), want_d) and torch.equal(i.to(torch.int32), want_i)
+    # clamped first, both pieces give 0: the later is not strictly smaller,
+    # so the merge would keep the earlier piece's row 3
+    (d0, i0), (d1, _) = [chamfer_min_plain(tp, tq[:, s:s + 1024], tm[:, s:s + 1024])
+                         for s in (0, 1024)]
+    assert float(d0[0, 0]) == float(d1[0, 0]) == 0.0 and int(i0[0, 0]) == 3
+    jd, ji = map(np.asarray, chamfer_min_pallas(*map(jnp.asarray, (p, q, mq))))
+    _check_brute(p, q, mq, want_d, want_i, jd, ji)
 
 
 # ------------------------------------------------------------ chamfer ops

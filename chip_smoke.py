@@ -10,7 +10,11 @@ Phases (any failure exits non-zero):
    error against its plain PyTorch version, its time, the plain version's
    time, a library call's (or call sequence's) time, and the bound (the GRU
    backward and the fused conv3x3+BN+GELU backward also split by the
-   kernels they launch); the segment-sum and the row gather also as each
+   kernels they launch); first, every plan fed to a segment-sum is checked
+   to ascend within each sample, sentinels last; the segment-sum also bit
+   for bit on integer features, at the train path's embedder shape and on
+   the skewed clouds' pillar ids (points per occupied pillar); the
+   segment-sum and the row gather also as each
    other's backward on the train path's ids; the fused conv3x3+BN+GELU
    kernels at both chain widths; the SSL kernels on an SSL batch: the cell
    sweep (both directions, and on skewed clouds: blocks per chunk and
@@ -25,8 +29,10 @@ Phases (any failure exits non-zero):
    bf16 compute, random weights from a seed) evaluates 5 synthetic batches
    of 4 x 98,304 point slots (86,016 valid) through ``run_validation``; the
    launch counters must show 2 scatters, 1 gather and 1 GRU per batch;
-   then one more step under torch.profiler: device time by kernel and the
-   device's idle share;
+   then two more steps under torch.profiler, the second read: device
+   time by kernel and the device's idle share (every profiled step must
+   show device time in the segment-sum categories of the kernels it
+   launched);
 5. the train path: the same model in train mode takes 5 Adam steps (lr
    2e-4, deflowLoss) on synthetic batches of 2 x 98,304 slots through
    ``make_train_step``; per step 3 scatters, 3 gathers, 1 GRU forward and
@@ -262,26 +268,49 @@ def bound(nbytes: float, flops: float, flop_rate: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def hold_segment_sum(what: str, feats32, ids, s: int) -> dict:
+def check_plan(what: str, ids, s: int, samples: int) -> None:
+    """Exit unless ``ids`` ascend within each of ``samples`` parts with
+    the sentinels last, as the segment-sum kernels' searches and runs need
+    (a plain torch diff on the card)."""
+    from deflow_tpu_torch.ops import scatter
+
+    ok = scatter.plan_is_sorted(ids, s, samples)
+    print(f"plan {what}: {ids.shape[0]} ids into {s} rows in {samples} part(s), "
+          f"{'ascending within each, sentinels last' if ok else 'NOT SORTED'}")
+    if not ok:
+        raise SystemExit(f"the plan {what} breaks the segment-sum's order")
+
+
+def hold_segment_sum(what: str, feats32, ids, s: int, samples: int = 1) -> dict:
     """The segment-sum of ``feats32 [n, c]`` (zero at sentinel ids) by the
-    flat ``ids`` into ``s`` rows, in f32 and bf16, against its plain
-    version; returns the bf16 measurements."""
+    flat ``ids`` into ``s`` rows in ``samples`` parts, in f32 and bf16,
+    against its plain version (and bit for bit on integer features, whose
+    sums are exact in any order: values in {-1, 0, 1}, so a sum stays
+    within bf16's exact integers for runs up to 256); returns the bf16
+    measurements and the points per occupied row."""
     import torch
 
     from deflow_tpu_torch.ops import scatter
 
+    g = torch.Generator(device=ids.device).manual_seed(ids.shape[0])
+    ints = torch.randint(-1, 2, feats32.shape, generator=g, device=ids.device).float()
     for dt in (torch.float32, torch.bfloat16):
         f = feats32.to(dt)
-        k = scatter.sorted_segment_sum(f, ids, s)
+        k = scatter.sorted_segment_sum(f, ids, s, samples)
         ref = scatter.segment_sum_plain(f, ids, s)
+        ki = scatter.sorted_segment_sum(ints.to(dt), ids, s, samples)
+        same = torch.equal(ki, scatter.segment_sum_plain(ints.to(dt), ids, s))
         torch.cuda.synchronize()
         err = (k.float() - ref.float()).abs().max().item()
         rtol, atol = ((1e-5, 1e-5) if dt == torch.float32 else (2 ** -7, 1e-6))
         ok = torch.allclose(k.float(), ref.float(), rtol=rtol, atol=atol)
         print(f"segment_sum {what} {dt}: max_abs_err {err:.3e} "
-              f"(tol rtol {rtol:g} atol {atol:g}) {'ok' if ok else 'FAIL'}")
-        if not ok:
+              f"(tol rtol {rtol:g} atol {atol:g}) {'ok' if ok else 'FAIL'}; integer "
+              f"features {'bit-identical to' if same else 'DIFFER from'} the plain version's")
+        if not (ok and same):
             raise SystemExit(f"segment_sum ({what}) disagrees with its plain version")
+    counts = torch.bincount(ids[ids < s].long(), minlength=s)
+    occupied = counts[counts > 0]
     n, c = f.shape
     isz = f.element_size()
     nv = int((ids < s).sum())          # rows at a sentinel id are not read
@@ -290,7 +319,9 @@ def hold_segment_sum(what: str, feats32, ids, s: int) -> dict:
     idx_lib = torch.where(ids < s, ids, s).long()
     return {
         "max_abs_err": err, "shape": f"{n}x{c}->{s}",
-        "ms": cuda_ms(lambda: scatter.sorted_segment_sum(f, ids, s), 50),
+        "points_per_occupied_row": {"mean": occupied.float().mean().item(),
+                                    "max": int(occupied.max())},
+        "ms": cuda_ms(lambda: scatter.sorted_segment_sum(f, ids, s, samples), 50),
         "plain_ms": cuda_ms(lambda: scatter.segment_sum_plain(f, ids, s), 10),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": cuda_ms(lambda: torch.zeros(
@@ -338,6 +369,16 @@ def hold_gather(what: str, table32, ids, rows: int) -> dict:
     return r
 
 
+def pillar_feats(ids, s: int, g):
+    """The embedder's scatter input at the flat ``ids``: 32 feature lanes
+    (relu of normals) and the count lane, zero at the sentinel."""
+    import torch
+
+    feats32 = torch.relu(torch.randn(ids.shape[0], 33, generator=g, device=ids.device))
+    feats32[:, 32] = 1.0
+    return torch.where((ids < s)[:, None], feats32, 0.0)
+
+
 def gather_ids(db, cfg, b: int):
     """pc0's PillarInfo and the decoder gather's flat ids over B·P rows."""
     import torch
@@ -370,10 +411,9 @@ def check_kernels(model, host_batch):
     # -- segment-sum: the embedder's 32 feature lanes + count lane, real ids
     seg = p + voxel.TRASH_PAD
     ids = voxel.make_presorted_plan(db["pc0_sorted"], seg)
-    feats32 = torch.relu(torch.randn(ids.shape[0], 33, generator=g, device=dev))
-    feats32[:, 32] = 1.0
-    feats32 = torch.where((ids < B * seg)[:, None], feats32, 0.0)
-    results["segment_sum"] = hold_segment_sum("(embedder)", feats32, ids, B * seg)
+    check_plan("(embedder)", ids, B * seg, B)
+    results["segment_sum"] = hold_segment_sum("(embedder)", pillar_feats(ids, B * seg, g),
+                                              ids, B * seg, B)
 
     # -- row gather: the decoder's [B*P, 128] table at pc0's real ids
     _, gids = gather_ids(db, cfg, B)
@@ -493,6 +533,9 @@ def check_train_kernels(model, host_batch, splits: list):
     # [B*(P+8), 33] cotangent at the scatter's flat ids, whose sentinel
     # (sentinel_for) runs sit between the samples
     sids = voxel.make_presorted_plan(db["pc0_sorted"], seg)
+    check_plan("(embedder, train)", sids, TRAIN_B * seg, TRAIN_B)
+    embedder = hold_segment_sum("(embedder, train)", pillar_feats(sids, TRAIN_B * seg, g),
+                                sids, TRAIN_B * seg, TRAIN_B)
     scatter_bwd = hold_gather("(the scatter's backward)",
                               torch.randn(TRAIN_B * seg, 33, generator=g, device=dev),
                               sids, TRAIN_B * seg)
@@ -500,9 +543,11 @@ def check_train_kernels(model, host_batch, splits: list):
     # 128] per-point cotangent, invalid slots zeroed and sent to the trash row
     info, _ = gather_ids(db, cfg, TRAIN_B)
     gplan = voxel.make_presorted_plan(torch.where(info.valid, info.pillar_id, p), seg)
+    check_plan("(the gather's backward)", gplan, TRAIN_B * seg, TRAIN_B)
     cot = torch.where(info.valid.reshape(-1, 1),
                       torch.randn(TRAIN_B * N, 128, generator=g, device=dev), 0.0)
-    gather_bwd = hold_segment_sum("(the gather's backward)", cot, gplan, TRAIN_B * seg)
+    gather_bwd = hold_segment_sum("(the gather's backward)", cot, gplan, TRAIN_B * seg,
+                                  TRAIN_B)
 
     # -- GRU backward: M = B*N points, the model's weights
     iters = model.head.num_iters
@@ -614,10 +659,10 @@ def check_train_kernels(model, host_batch, splits: list):
             else:
                 results[kname]["width_128"] = r
     results["sorted_gather"] = {"as_scatter_bwd": scatter_bwd}
-    results["segment_sum"] = {"as_gather_bwd": gather_bwd}
+    results["segment_sum"] = {"as_gather_bwd": gather_bwd, "train_embedder": embedder}
     for name, r in results.items():
         for rr in (r, *(r.get(k) for k in ("width_128", "as_scatter_bwd",
-                                            "as_gather_bwd"))):
+                                            "as_gather_bwd", "train_embedder"))):
             if rr and "ms" in rr:
                 print(f"{name} {rr.get('shape', '')}: {rr['ms']:.4f} ms (bound "
                       f"{rr['bound_ms']:.4f} ms by {rr['bound_by']}, plain "
@@ -711,7 +756,7 @@ def check_ssl_kernels(ssl_batch, brute_batch):
     import torch
 
     from deflow_tpu_torch.data.host_prep import chamfer_cell_prep
-    from deflow_tpu_torch.ops import chamfer, nn, scatter
+    from deflow_tpu_torch.ops import chamfer, nn, scatter, voxel
     from deflow_tpu_torch.trainer import SSL_TRAIN_KEYS, device_batch
 
     dev = torch.device("cuda")
@@ -741,6 +786,19 @@ def check_ssl_kernels(ssl_batch, brute_batch):
         what: hold_sweep(f"{what} skewed", qc, cc, spec)
         for what, (qc, cc) in (("pc0->pc1", (s0, s1)), ("pc1->pc0", (s1, s0)))}
 
+    # -- kernel 1 on the skewed clouds' pillar ids, the four as one eval
+    # batch: long runs in the dense near field and the two clusters
+    cfg = voxel.VoxelConfig(tuple(VOXEL), tuple(RANGE))
+    seg = cfg.num_pillars + voxel.TRASH_PAD
+    pid = voxel.compute_pillar_info(pts.reshape(-1, N, 3).to(dev),
+                                    masks.reshape(-1, N).to(dev), cfg).pillar_id
+    sk_ids = voxel.make_presorted_plan(pid.sort(dim=1).values, seg)
+    nb = pid.shape[0]
+    check_plan("(embedder, skewed clouds)", sk_ids, nb * seg, nb)
+    results["segment_sum"] = {"skewed": hold_segment_sum(
+        "(embedder, skewed clouds)", pillar_feats(sk_ids, nb * seg, g), sk_ids,
+        nb * seg, nb)}
+
     # -- kernel 7: the pc1->pc0 matches (all and dynamic) scattered into
     # pc0's B·N rows, sorted as the chamfer VJP sorts them
     _, i1a, _, i1f = chamfer._sweep_dir(c1, c0, spec, dual=True)
@@ -751,14 +809,18 @@ def check_ssl_kernels(ssl_batch, brute_batch):
                        idx + (torch.arange(bq, device=dev) * N)[:, None], segs)
     sid, order = torch.sort(flat.reshape(-1), stable=True)
     ids = sid.to(torch.int32)
+    check_plan("(the lane segment-sum)", ids, segs, 1)
     rows = torch.randn(bq * m, 4, generator=g, device=dev)[order].contiguous()
     k = scatter.segment_sum_lanes(rows, ids, segs)
     ref = scatter.segment_sum_lanes_plain(rows, ids, segs)
     torch.cuda.synchronize()
     err = _rel_err(k, ref)
+    # the kernel adds each run in row order, as index_add_ does on the CPU
+    serial = torch.equal(k.cpu(), scatter.segment_sum_lanes_plain(rows.cpu(), ids.cpu(), segs))
     print(f"segment_sum_lanes {bq * m}x4->{segs}: max rel err {err:.3e} "
-          f"(tol 1e-6 of max |ref|) {'ok' if err <= 1e-6 else 'FAIL'}")
-    if not err <= 1e-6:
+          f"(tol 1e-6 of max |ref|) {'ok' if err <= 1e-6 else 'FAIL'}; "
+          f"{'bit-identical to' if serial else 'DIFFERS from'} the plain version on the CPU")
+    if not (err <= 1e-6 and serial):
         raise SystemExit("segment_sum_lanes disagrees with its plain version")
     idx_lib = torch.where(ids < segs, ids, segs).long()
     b_ms, b_by = bound(rows.numel() * 4 + ids.numel() * 4 + segs * 4 * 4,
@@ -815,7 +877,7 @@ def check_ssl_kernels(ssl_batch, brute_batch):
     for name, r in results.items():
         for rr in (r, r.get("pc1_to_pc0"), *(skewed.values() if r is results["cell_sweep"]
                                             else ())):
-            if rr:
+            if rr and "ms" in rr:
                 lib = "none" if rr["library_ms"] is None else f"{rr['library_ms']:.4f} ms"
                 print(f"{name} {rr['shape']}: {rr['ms']:.4f} ms (bound "
                       f"{rr['bound_ms']:.4f} ms by {rr['bound_by']}, plain "
@@ -897,7 +959,7 @@ def run_main_path(model, batches):
     metrics = run_validation(timed_step, batches, three)
     launches = read_launches()
     db = device_batch(batches[0])
-    profile_step(lambda: eval_step(db))
+    profile_step(lambda: eval_step(db), launches)
     return metrics, three, device_ms, launches
 
 
@@ -954,22 +1016,22 @@ def run_train_path(model, batches, loss_name="deflowLoss", label="train"):
     bad = [k for a in auxes for k, v in a.items() if not np.isfinite(v)]
     if bad or not all(torch.isfinite(p).all() for p in model.parameters()):
         raise SystemExit(f"{label} step gave non-finite values {bad}")
-    profile_step(lambda: train_step(state, device_batches[0]))
+    profile_step(lambda: train_step(state, device_batches[0]), launches)
     return auxes, device_ms, launches
 
 
 def _category(name: str) -> str:
     n = name.lower()
     for cat, keys in (("cell_sweep", ("cell_sweep",)),
-                      ("segment_sum_lanes", ("lane_runs",)),
+                      ("segment_sum_lanes", ("lane_sum",)),
                       ("chamfer_brute", ("chamfer_brute",)),
                       ("sort/unsort (torch.sort, searchsorted, index writes)",
                        ("sort", "searchsorted", "index_put", "fill_index_and_segment")),
                       ("fused_gru_bwd", ("gru_bwd", "reduce_partials")),
                       ("cbg_fwd", ("cbg_fwd",)),
                       ("cbg_bwd", ("cbg_dgrad", "cbg_wgrad", "wgrad_reduce")),
-                      ("segment_sum", ("segment_sum", "mark_runs")),
-                      ("sorted_gather", ("gather_kernel",)),
+                      ("segment_sum", ("segment_sum",)),
+                      ("sorted_gather", ("rows_kernel", "chunk_kernel")),
                       ("fused_gru", ("gru_fwd", "gru_f32")),
                       ("conv/matmul (cuDNN, cuBLAS)",
                        ("conv", "cudnn", "xmma", "fprop", "implicit",
@@ -980,29 +1042,37 @@ def _category(name: str) -> str:
     return "other (elementwise, cat, permute, interpolate, optimizer)"
 
 
-def profile_step(step) -> None:
-    """One more step (``step()``, its batch already on the card) under
-    torch.profiler; device time by kernel category and name, and the
-    device's idle share of the step."""
+def profile_step(step, launched: dict) -> None:
+    """Two more steps (``step()``, its batch already on the card) under
+    torch.profiler, the second read (the profiler can miss the first
+    kernels it traces); device time by kernel category and name, and the
+    device's idle share of the step.  Exits if the profiler recorded no
+    device time, or a segment-sum kernel that the path ``launched`` shows
+    none in its category."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        with record_function("profiled step"):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    begin = min(e.time_range.start for e in events if e.name == "profiled step")
     # annotation ranges (e.g. "Optimizer.step#Adam.step") span kernels that
     # are listed on their own; counting them too would count time twice
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA
+                   for e in events if e.device_type == DeviceType.CUDA
+                   and e.time_range.start >= begin
                    and not getattr(e, "is_user_annotation", False)
                    and not e.name.startswith("Optimizer."))
     if not spans:
-        print("profile: the profiler recorded no device time")
-        return
+        raise SystemExit("profile: the profiler recorded no device time")
     by_name, by_cat = {}, {}
     busy, cur_end = 0.0, -1.0
     for start, end, name in spans:
@@ -1017,6 +1087,10 @@ def profile_step(step) -> None:
         print(f"  {ms:9.3f} ms  {cat}")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"  {ms:9.3f} ms  {name[:110]}")
+    for name in ("segment_sum", "segment_sum_lanes"):
+        if launched[name] and not by_cat.get(name):
+            raise SystemExit(f"profile: the path launched {name}, but its category "
+                             "shows no device time")
 
 
 def reference_check(seed: int) -> float:
@@ -1164,7 +1238,16 @@ def main() -> int:
     splits = []
     for name, r in check_train_kernels(model, train_batches[0], splits).items():
         kernels.setdefault(name, {}).update(r)
-    kernels.update(check_ssl_kernels(ssl_batches[0], brute_batches[0]))
+    for name, r in check_ssl_kernels(ssl_batches[0], brute_batches[0]).items():
+        kernels.setdefault(name, {}).update(r)
+    for what, r in (("eval", kernels["segment_sum"]),
+                    ("train", kernels["segment_sum"]["train_embedder"]),
+                    ("skewed, eval shape", kernels["segment_sum"]["skewed"])):
+        print(f"segment_sum embedder ({what}) {r['shape']}: points per occupied "
+              f"pillar mean {r['points_per_occupied_row']['mean']:.2f}, max "
+              f"{r['points_per_occupied_row']['max']}; {r['ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_ms'] / r['ms']:.0%}), plain "
+              f"{r['plain_ms']:.4f} ms, index_add_ {r['library_ms']:.4f} ms")
     for name, r, fn in splits:
         r["split_ms"] = kernel_split(fn, 10)
         print(f"{name} {r['shape']} split by kernel: " + ", ".join(

@@ -33,7 +33,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "int_div.cuh"
+
 namespace {
+
+using int_div::Divisor;
+using int_div::div_by;
+using int_div::divisor;
 
 constexpr int THREADS = 256;
 constexpr long long MAX_BLOCKS = 1LL << 20;   // grid-stride beyond this
@@ -53,15 +59,6 @@ rows_kernel(const uint4* __restrict__ table, const int* __restrict__ ids,
     if (id >= 0 && id < num_rows) v = table[(long long)id * vec_per_row + j];
     out[k] = v;
   }
-}
-
-// n / d for n < 2^31 as (umulhi(n, mul) >> shr) (d > 1) or n (d == 1).
-struct Divisor {
-  unsigned d, mul, shr;
-};
-
-__device__ __forceinline__ unsigned div_by(unsigned n, Divisor dv) {
-  return dv.d == 1 ? n : __umulhi(n, dv.mul) >> dv.shr;
 }
 
 // E: the element as raw bits (uint16_t for bf16, uint32_t for f32).
@@ -108,20 +105,6 @@ chunk_kernel(const E* __restrict__ table, const int* __restrict__ ids, unsigned 
 int grid_for(long long work) {
   const long long blocks = (work + THREADS - 1) / THREADS;
   return (int)(blocks < MAX_BLOCKS ? blocks : MAX_BLOCKS);
-}
-
-// The reciprocal of d for div_by: mul = ceil(2^p / d) with p = 31 +
-// ceil(log2 d), exact for every n < 2^31 (Granlund and Montgomery).
-Divisor divisor(unsigned d) {
-  Divisor dv{d, 0u, 0u};
-  if (d > 1) {
-    unsigned l = 0;
-    while ((1ull << l) < d) ++l;
-    const unsigned p = 31 + l;
-    dv.mul = (unsigned)(((1ull << p) + d - 1) / d);
-    dv.shr = p - 32;
-  }
-  return dv;
 }
 
 template <typename E>

@@ -6,9 +6,15 @@ takes the plain PyTorch version, ``segment_sum_plain``, only for CPU
 tensors.  Counterpart of ``deflow_tpu/ops/pallas_scatter.py``
 (``pillar_sum_scatter_pallas`` with a presorted plan).
 
-Contract: ``feats [N, C]`` (f32 or bf16) in ascending-id order, ``ids [N]``
-int32; ids ≥ ``num_segments`` (the sentinel) add nothing; empty rows are
-exact zeros; f32 accumulation, output in the input dtype.
+Contract: ``feats [N, C]`` (f32 or bf16), ``ids [N]`` int32, cut into
+``samples`` equal parts: part b holds positions ``[b·N/samples,
+(b+1)·N/samples)`` and owns rows ``[b·S/samples, (b+1)·S/samples)`` of the
+``S = num_segments`` rows.  Within each part the ids ascend, every id below
+S lies in the part's own rows, and the ids ≥ S (the sentinel) come last, a
+tail; ids outside ``[0, S)`` add nothing.  ``make_presorted_plan`` gives this
+with one part per sample; a stream with one part is ascending ids and a
+sentinel tail (``plan_is_sorted`` checks a plan).  Empty rows are exact
+zeros; f32 accumulation in point order, output in the input dtype.
 
 ``segment_sum_lanes`` (``csrc/segment_sum_lanes.cu``, plain version
 ``segment_sum_lanes_plain``) is the narrow-row counterpart of
@@ -45,39 +51,59 @@ def segment_sum_plain(feats: torch.Tensor, ids: torch.Tensor,
     return out[:s].to(feats.dtype)
 
 
+def plan_is_sorted(ids: torch.Tensor, num_segments: int, samples: int = 1) -> bool:
+    """Whether ``ids`` meets ``sorted_segment_sum``'s contract for
+    ``samples`` parts: in each part ascending, the ids ≥ ``num_segments``
+    last, every id in ``[0, num_segments)`` in the part's own rows (plain
+    torch, on the ids' device)."""
+    s_per = num_segments // samples
+    part = ids.reshape(samples, -1).long()
+    own = torch.arange(samples, device=ids.device)[:, None] * s_per
+    real = (part >= 0) & (part < num_segments)
+    in_own = ~real | ((part >= own) & (part < own + s_per))
+    key = part.clamp(max=num_segments)          # the sentinels tie, last
+    return bool(in_own.all() and (key[:, 1:] >= key[:, :-1]).all())
+
+
 def _setup(lib):
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.segment_sum.restype = i32
-    lib.segment_sum.argtypes = [vp, vp, i32, i32, i32, vp, vp, i32, vp]
+    lib.segment_sum.argtypes = [vp, vp, i32, i32, i32, i32, vp, i32, vp]
+    lib.segment_sum_max_cols.restype = i32
+    lib.segment_sum_max_cols.argtypes = []
 
 
 def sorted_segment_sum(feats: torch.Tensor, ids: torch.Tensor,
-                       num_segments: int) -> torch.Tensor:
-    """Segment-sum of ``feats [N, C]`` by ascending ``ids [N]`` into
-    ``[num_segments, C]``."""
+                       num_segments: int, samples: int = 1) -> torch.Tensor:
+    """Segment-sum of ``feats [N, C]`` by ``ids [N]``, ascending within
+    each of ``samples`` parts, into ``[num_segments, C]``."""
     if feats.dim() != 2 or ids.dim() != 1 or ids.shape[0] != feats.shape[0]:
         raise ValueError(f"feats {tuple(feats.shape)} / ids {tuple(ids.shape)}")
     if feats.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"feats dtype {feats.dtype}: f32 or bf16 only")
     if ids.dtype != torch.int32 or ids.device != feats.device:
         raise ValueError("ids must be int32 on the features' device")
+    n, c = feats.shape
+    if samples < 1 or n % samples or num_segments % samples:
+        raise ValueError(f"samples {samples} must divide the {n} points and "
+                         f"the {num_segments} rows")
     if feats.device.type == "cpu":
         return segment_sum_plain(feats, ids, num_segments)
     if feats.device.type != "cuda":
         raise ValueError(f"unsupported device {feats.device}")
     if not (feats.is_contiguous() and ids.is_contiguous()):
         raise ValueError("feats and ids must be contiguous")
-    n, c = feats.shape
-    if max(n * c, num_segments * c) >= 2 ** 31:
-        raise ValueError("sizes beyond int32 indexing")
+    if feats.data_ptr() % 16:
+        raise ValueError("feats must be 16-byte aligned")
+    if max(n, num_segments) * c * feats.element_size() >= 2 ** 31:
+        raise ValueError("tables of 2 GiB or more are beyond the kernel's 32-bit offsets")
     lib = _build.load("segment_sum", _setup)
+    if c > lib.segment_sum_max_cols():
+        raise ValueError(f"rows of {c} lanes beyond the kernel's "
+                         f"{lib.segment_sum_max_cols()}")
     out = torch.empty(num_segments, c, dtype=feats.dtype, device=feats.device)
-    # per-row run bounds, zeroed and filled by the kernel's marking pass
-    scratch = torch.empty(2 * num_segments, dtype=torch.int32,
-                          device=feats.device)
     rc = lib.segment_sum(feats.data_ptr(), ids.data_ptr(), n, c, num_segments,
-                         scratch.data_ptr(), out.data_ptr(),
-                         int(feats.dtype == torch.bfloat16),
+                         samples, out.data_ptr(), int(feats.dtype == torch.bfloat16),
                          _build.stream_ptr(feats))
     _build.check(lib, rc, "segment_sum")
     sorted_segment_sum.launches += 1

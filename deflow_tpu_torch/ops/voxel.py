@@ -172,16 +172,16 @@ class _SegmentSum(torch.autograd.Function):
     cotangent at the same flat ids (``pallas_scatter._planned_bwd``)."""
 
     @staticmethod
-    def forward(ctx, data, flat_ids, num_rows):
+    def forward(ctx, data, flat_ids, num_rows, samples):
         ctx.save_for_backward(flat_ids)
         ctx.num_rows = num_rows
-        return _scatter.sorted_segment_sum(data, flat_ids, num_rows)
+        return _scatter.sorted_segment_sum(data, flat_ids, num_rows, samples)
 
     @staticmethod
     def backward(ctx, g):
         (flat_ids,) = ctx.saved_tensors
         return (_gather.sorted_rows_gather(g.contiguous(), flat_ids, ctx.num_rows),
-                None, None)
+                None, None, None)
 
 
 def segment_sum_batched(data: torch.Tensor, sorted_id: torch.Tensor,
@@ -189,11 +189,11 @@ def segment_sum_batched(data: torch.Tensor, sorted_id: torch.Tensor,
     """[B, N, C] × ascending [B, N] ids → [B, num_segments, C].
 
     The batch is flattened into ONE sorted segment-sum over B·num_segments
-    rows (one kernel launch); its gradient is one sorted gather."""
+    rows in B parts (one kernel launch); its gradient is one sorted gather."""
     b, n, c = data.shape
     flat = _SegmentSum.apply(data.reshape(b * n, c),
                              make_presorted_plan(sorted_id, num_segments),
-                             b * num_segments)
+                             b * num_segments, b)
     return flat.reshape(b, num_segments, c)
 
 

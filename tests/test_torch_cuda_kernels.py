@@ -7,12 +7,15 @@ conftest imports JAX, which the card's machine does not have, so run:
     python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py
 
 Tolerances are chip_smoke's: the gather is bit-exact; the f32 segment-sum
-1e-5; bf16 one rounding of an f32 sum (rtol 2^-7); the GRU f32 1e-4 and
+1e-5; bf16 one rounding of an f32 sum (rtol 2^-7), and bit-exact on
+integer features (sums of small integers are exact in any order) and
+against the serial f32 sum in point order (its own arithmetic); the GRU f32 1e-4 and
 bf16 rtol 2^-6 / atol 4e-3.  The backward kernels (GRU backward, CBG
 forward and backward) are held relative to the largest reference element:
 2e-5 in f32, 2^-6 in bf16.  The SSL kernels: the lane segment-sum 1e-6 of
-the largest element (summation order: the plain version's index_add_ uses
-atomics on the card); the cell sweep and the brute search bit-exact (one
+the largest element against the plain version on the card (its
+index_add_ adds in another order, with atomics), bit for bit against the
+CPU's serial one; the cell sweep and the brute search bit-exact (one
 rounding per operation on both sides, the same tie rules).
 """
 
@@ -48,34 +51,118 @@ def _plan(g, sizes, num_segments, dev):
     return torch.cat(parts).to(torch.int32).to(dev)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("c", [1, 5, 33, 64])
-def test_segment_sum(dev, dtype, c):
-    g = torch.Generator().manual_seed(c)
-    seg = 300 + 8                     # not a multiple of the 128-row tile
-    ids = _plan(g, [(700, 650), (500, 0), (900, 900), (300, 120)], seg, dev)
-    # one long run: all 120 valid points of the last sample in one pillar
-    ids[-300:-180] = 3 * seg + 17
-    s = 4 * seg
-    feats = torch.randn(ids.shape[0], c, generator=g).to(dev, dtype)
-    k = scatter.sorted_segment_sum(feats, ids, s)
-    ref = scatter.segment_sum_plain(feats, ids, s)
+def _serial_segment_sum(feats, ids, s):
+    """The kernel's own arithmetic on the host: each row summed in f32 from
+    0 in ascending point order (numpy, one add at a time), rounded once to
+    the input dtype."""
+    x, i = feats.float().cpu().numpy(), ids.cpu().numpy()
+    out = np.zeros((s, x.shape[1]), np.float32)
+    for j in np.flatnonzero((i >= 0) & (i < s)):
+        out[i[j]] = out[i[j]] + x[j]
+    return torch.from_numpy(out).to(feats.dtype)
+
+
+def _held_segment_sum(feats, ids, s, samples=1, plain_tol=True):
+    """The kernel bit for bit against the serial sum in its own arithmetic
+    and, on integer features (values in {-1, 0, 1}: exact sums in any
+    order), against its plain version; on the given features within the
+    plain version's tolerance (``plain_tol``: index_add_ adds in another
+    order); exact zeros in the empty rows.  Returns the kernel's output."""
+    assert scatter.plan_is_sorted(ids, s, samples)
+    dtype = feats.dtype
+    k = scatter.sorted_segment_sum(feats, ids, s, samples)
+    g = torch.Generator().manual_seed(ids.shape[0])
+    ints = torch.randint(-1, 2, feats.shape, generator=g).to(feats.device, dtype)
+    ki = scatter.sorted_segment_sum(ints, ids, s, samples)
     torch.cuda.synchronize()
-    assert k.shape == (s, c) and k.dtype == dtype
-    rtol, atol = (1e-5, 1e-5) if dtype == torch.float32 else (2 ** -7, 1e-6)
-    torch.testing.assert_close(k.float(), ref.float(), rtol=rtol, atol=atol)
-    empty = torch.ones(s, dtype=torch.bool, device=dev)
-    empty[ids[ids < s].long()] = False
+    assert k.shape == (s, feats.shape[1]) and k.dtype == dtype
+    assert torch.equal(k.cpu(), _serial_segment_sum(feats, ids, s))
+    if plain_tol:
+        rtol, atol = (1e-5, 1e-5) if dtype == torch.float32 else (2 ** -7, 1e-6)
+        torch.testing.assert_close(k.float(), scatter.segment_sum_plain(feats, ids, s).float(),
+                                   rtol=rtol, atol=atol)
+    assert torch.equal(ki, scatter.segment_sum_plain(ints, ids, s))
+    empty = torch.ones(s, dtype=torch.bool, device=feats.device)
+    empty[ids[(ids >= 0) & (ids < s)].long()] = False
     assert (k[empty] == 0).all()
+    return k
 
 
-def test_segment_sum_all_sentinel_and_empty(dev):
-    feats = torch.ones(50, 3, device=dev)
-    ids = torch.full((50,), scatter.sentinel_for(200), dtype=torch.int32,
+@pytest.mark.parametrize("samples", [1, 4])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c", [1, 5, 33, 64, 128])
+def test_segment_sum(dev, dtype, c, samples):
+    """Four samples of 600 points (one all sentinel, one with 120 points in
+    one pillar), or one of 2,400 with a sentinel tail; 308 rows a sample,
+    so tiles and samples start mid-chunk."""
+    g = torch.Generator().manual_seed(10 * c + samples)
+    seg = 300 + 8
+    if samples == 4:
+        ids = _plan(g, [(600, 550), (600, 0), (600, 600), (600, 120)], seg, dev)
+        ids[1800:1920] = 3 * seg + 17       # the last sample's points in one pillar
+    else:
+        ids = _plan(g, [(2400, 2000)], 4 * seg, dev)
+    feats = torch.randn(ids.shape[0], c, generator=g).to(dev, dtype)
+    _held_segment_sum(feats, ids, 4 * seg, samples)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c", [33, 128])
+def test_segment_sum_dense_pillar_and_empty_tiles(dev, dtype, c):
+    """5,000 points in one pillar (more than a tile stages at once, at
+    either width), a few sparse pillars, and whole tiles with no point, in
+    two samples.  Sums of 5,000 f32 terms in index_add_'s order differ from
+    the point order by more than 1e-5, so the random features are held bit
+    for bit to the serial sum only."""
+    seg = 20000
+    parts = []
+    for b in range(2):
+        ids = torch.cat([torch.tensor([3, 3, 70]), torch.full((5000,), 4100 + b),
+                         torch.tensor([4101 + b, 15000, 19991]),
+                         torch.full((997,), 2 * seg + 1)])
+        parts.append(torch.where(ids < seg, ids + b * seg, ids))
+    ids = torch.cat(parts).to(torch.int32).to(dev)
+    g = torch.Generator().manual_seed(c)
+    feats = torch.randn(ids.shape[0], c, generator=g).to(dev, dtype)
+    k = _held_segment_sum(feats, ids, 2 * seg, 2, plain_tol=False)
+    assert (k[5000:14000] == 0).all()
+
+
+@pytest.mark.parametrize("samples", [1, 4])
+def test_segment_sum_all_sentinel_and_empty(dev, samples):
+    feats = torch.ones(48, 3, device=dev)
+    ids = torch.full((48,), scatter.sentinel_for(200), dtype=torch.int32,
                      device=dev)
-    assert (scatter.sorted_segment_sum(feats, ids, 200) == 0).all()
-    none = scatter.sorted_segment_sum(feats[:0], ids[:0], 200)
+    assert (scatter.sorted_segment_sum(feats, ids, 200, samples) == 0).all()
+    none = scatter.sorted_segment_sum(feats[:0], ids[:0], 200, samples)
     assert none.shape == (200, 3) and (none == 0).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_segment_sum_repeats_and_replays(dev, dtype):
+    """Two launches are bit-identical, and a CUDA graph of one call replays
+    to the same output twice (nothing to reset between calls)."""
+    g = torch.Generator().manual_seed(23)
+    seg = 5000
+    ids = _plan(g, [(3000, 2700), (3000, 2900)], seg, dev)
+    feats = torch.randn(ids.shape[0], 33, generator=g).to(dev, dtype)
+    first = scatter.sorted_segment_sum(feats, ids, 2 * seg, 2)
+    again = scatter.sorted_segment_sum(feats, ids, 2 * seg, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    before = scatter.sorted_segment_sum.launches
+    for (out,) in _graph_replays(lambda: scatter.sorted_segment_sum(feats, ids, 2 * seg, 2)):
+        assert torch.equal(out, first)
+    assert scatter.sorted_segment_sum.launches == before + 2      # warm-up and capture
+
+
+def test_segment_sum_refuses_bad_arguments(dev):
+    feats = torch.ones(6, 4, device=dev)
+    ids = torch.zeros(6, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="samples"):
+        scatter.sorted_segment_sum(feats, ids, 10, 4)
+    with pytest.raises(ValueError, match="beyond the kernel"):
+        scatter.sorted_segment_sum(torch.ones(6, 4096, device=dev), ids, 10)
 
 
 def _gather_ids(g, rows, dev):
@@ -514,9 +601,48 @@ def test_segment_sum_lanes(dev, lanes):
     torch.cuda.synchronize()
     assert k.shape == (s, lanes) and k.dtype == torch.float32
     assert _rel_err(k, ref) <= 1e-6
+    # row order: bit for bit the CPU's serial index_add_
+    assert torch.equal(k.cpu(), scatter.segment_sum_lanes_plain(rows.cpu(), ids.cpu(), s))
     empty = torch.ones(s, dtype=torch.bool, device=dev)
     empty[ids[ids < s].long()] = False
     assert (k[empty] == 0).all()
+
+
+@pytest.mark.parametrize("lanes", [1, 4, 7])
+def test_segment_sum_lanes_long_run_and_gaps(dev, lanes):
+    """A run of 1,000 rows from position 250 (across warp and CTA edges),
+    runs of 32 across warp edges, gaps of 37 rows at the start, 100 at the
+    end, 13 and 69 between (each zeroed by a warp) and of 2 (by a thread),
+    no sentinel tail; integer rows, so the sums are exact in any order and
+    held bit for bit."""
+    g = torch.Generator().manual_seed(31 + lanes)
+    s = 3000
+    ids = torch.cat([torch.arange(37, 287), torch.full((1000,), 300),
+                     torch.arange(301, 331).repeat_interleave(32),
+                     torch.arange(400, 2900, 3)]).to(torch.int32).to(dev)
+    rows = torch.randint(-3, 4, (ids.shape[0], lanes), generator=g).float().to(dev)
+    k = scatter.segment_sum_lanes(rows, ids, s)
+    torch.cuda.synchronize()
+    assert torch.equal(k, scatter.segment_sum_lanes_plain(rows, ids, s))
+    assert (k[:37] == 0).all() and (k[2900:] == 0).all() and (k[331:400] == 0).all()
+
+
+def test_segment_sum_lanes_repeats_and_replays(dev):
+    g = torch.Generator().manual_seed(37)
+    s = 20000
+    ids = torch.cat([torch.randint(0, s - 500, (30000,), generator=g).sort().values,
+                     torch.full((2000,), 17000), torch.full((900,), s)]
+                    ).sort().values.to(torch.int32).to(dev)
+    # integer rows: a 2,000-row run of normals, summed in another order,
+    # would differ from index_add_'s by more than 1e-6 of the largest sum
+    rows = torch.randint(-3, 4, (ids.shape[0], 4), generator=g).float().to(dev)
+    first = scatter.segment_sum_lanes(rows, ids, s)
+    again = scatter.segment_sum_lanes(rows, ids, s)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    assert torch.equal(first, scatter.segment_sum_lanes_plain(rows, ids, s))
+    for (out,) in _graph_replays(lambda: scatter.segment_sum_lanes(rows, ids, s)):
+        assert torch.equal(out, first)
 
 
 def test_segment_sum_lanes_all_sentinel_and_empty(dev):

@@ -115,6 +115,31 @@ def test_segment_sum_lanes_matches_pallas(interpret_pallas, lanes):
     assert (got[np.setdiff1d(np.arange(s), ids)] == 0).all()
 
 
+def test_lane_scatter_feeds_ascending_ids(monkeypatch):
+    """The chamfer VJP's lane scatter sorts its ids before the lane
+    segment-sum, which needs them ascending with the out-of-range ones
+    last; its result is the plain scatter-add's."""
+    from deflow_tpu_torch.ops import scatter
+
+    seen = []
+    orig = scatter.segment_sum_lanes
+
+    def spy(rows, ids, segs):
+        seen.append(scatter.plan_is_sorted(ids, segs))
+        return orig(rows, ids, segs)
+
+    monkeypatch.setattr(scatter, "segment_sum_lanes", spy)
+    rng = np.random.default_rng(6)
+    segs, n = 500, 3000
+    flat_i = rng.integers(-20, segs + 20, n)
+    w = rng.normal(0, 1, (n, 4)).astype(np.float32)
+    got = TC._scatter_lanes_flat(torch.from_numpy(flat_i), torch.from_numpy(w), segs)
+    want = np.zeros((segs + 1, 4))
+    np.add.at(want, np.where((flat_i >= 0) & (flat_i < segs), flat_i, segs), w)
+    assert seen == [True]
+    _close(got, want[:segs])
+
+
 # ----------------------------------------------------------------- kernel 8
 def _jax_sweep_args(JC, monkeypatch, qc, cc, spec, dual):
     """The Pallas sweep's arguments as ``_sweep_call`` builds them, and its

@@ -5,7 +5,12 @@
 
 Phases (any failure exits non-zero):
 1. the card's name and power limit (nvidia-smi);
-2. build every kernel from ``deflow_tpu_torch/csrc`` with nvcc (sm_90a);
+2. build every kernel from ``deflow_tpu_torch/csrc`` with nvcc (sm_90a),
+   and the C++ host ops (``csrc/pointops.cpp``) with g++; the host prep of
+   each path timed on one batch (median of 3): numpy, the C++ ops on one
+   thread and over a pool of min(8, cpu_count) threads (a thread a
+   sample).  Every batch any phase preps goes through the C++ host prep
+   and is held bit for bit against the numpy prep on every key;
 3. each kernel at its path's shapes, in bf16 and in f32 (TF32 off): its
    error against its plain PyTorch version, its time, the plain version's
    time, a library call's (or call sequence's) time, and the bound (the GRU
@@ -27,12 +32,20 @@ Phases (any failure exits non-zero):
    directions, all and dynamic candidates);
 4. the eval path: leaderboard DeFlow (512x512 grid, ConvGRU, 4 iterations,
    bf16 compute, random weights from a seed) evaluates 5 synthetic batches
-   of 4 x 98,304 point slots (86,016 valid) through ``run_validation``; the
-   launch counters must show 2 scatters, 1 gather and 1 GRU per batch;
-   then two more steps under torch.profiler, the second read: device
-   time by kernel and the device's idle share (every profiled step must
-   show device time in the segment-sum categories of the kernels it
-   launched);
+   of 4 x 98,304 point slots (86,016 valid) through ``run_validation``
+   (3-way and bucketed metrics); the launch counters must show 2 scatters,
+   1 gather and 1 GRU per batch; then two more steps under torch.profiler,
+   the second read: device time by kernel and the device's idle share
+   (every profiled step must show device time in the segment-sum
+   categories of the kernels it launched);
+4b. the eval entry: ``run_validation`` over an in-memory dataset of 16
+   batches of 4 x 98,304 samples, three ways, in the order a b c c b a:
+   (a) numpy prep, no overlap; (b) C++ prep, no overlap; (c) the
+   reference's form, the C++ prep in the loader's prefetch thread and the
+   copy by ``device_prefetch`` (all three with the metric terms in worker
+   processes); wall ms per batch and the steady period between eval steps
+   of each run, launches 2 / 1 / 1 per batch, the metrics of all runs
+   equal to 1e-6 relative;
 5. the train path: the same model in train mode takes 5 Adam steps (lr
    2e-4, deflowLoss) on synthetic batches of 2 x 98,304 slots through
    ``make_train_step``; per step 3 scatters, 3 gathers, 1 GRU forward and
@@ -55,7 +68,9 @@ cuDNN up); the eval phase also prints their mean.
 Needs one CUDA card; exits non-zero without one.
 """
 
+import copy
 import json
+import os
 import subprocess
 import sys
 import time
@@ -72,6 +87,10 @@ LEADERBOARD = {"voxel_size": VOXEL, "point_cloud_range": RANGE,
                "grid_feature_size": [512, 512], "feat_channels": 32,
                "decoder_option": "gru", "num_iters": 4}
 NUM_BATCHES = 5
+ENTRY_BATCHES = 16   # the eval-entry phase: 16 batches of B in-memory samples
+# host threads of the C++ host prep (samples of a batch in parallel) and of
+# the entry's loader
+HOST_WORKERS = min(8, os.cpu_count() or 1)
 SSL_STEPS = 5
 BRUTE_N, BRUTE_VALID, BRUTE_STEPS = 16384, 14336, 3   # 2 x 16,384: the brute branch
 TRUNCATE = 2.0
@@ -145,6 +164,62 @@ def skewed_cloud(rng, n, valid):
     mask = np.arange(n) < valid
     pts[~mask] = 0
     return pts, mask
+
+
+def same_bits(got: dict, want: dict) -> list:
+    """Keys whose arrays differ in dtype, shape or any bit (or are missing)."""
+    bad = sorted(set(got) ^ set(want))
+    for k in set(got) & set(want):
+        g, w = got[k], want[k]
+        if isinstance(w, np.ndarray) and not (
+                isinstance(g, np.ndarray) and g.dtype == w.dtype
+                and g.shape == w.shape and g.tobytes() == w.tobytes()):
+            bad.append(k)
+    return bad
+
+
+def held_prep(hb: dict, voxel=VOXEL):
+    """The C++ host prep of ``hb`` (every path's), held bit for bit against
+    the numpy prep on every key; exits on a mismatch.  Returns the prepped
+    batch and the C++ call's host ms."""
+    from deflow_tpu_torch.data.host_prep import attach_host_prep
+
+    want = attach_host_prep(copy.deepcopy(hb), voxel, RANGE, backend="numpy")
+    t0 = time.perf_counter()
+    got = attach_host_prep(hb, voxel, RANGE, num_workers=HOST_WORKERS)
+    ms = (time.perf_counter() - t0) * 1e3
+    bad = same_bits(got, want)
+    if bad:
+        raise SystemExit(f"the C++ host prep differs from numpy on {bad}")
+    return got, ms
+
+
+def host_prep_times(reps: int = 3) -> dict:
+    """Host ms per batch of each path's prep, median of ``reps``: numpy, the
+    C++ ops on one thread (samples in turn) and over the shared pool of
+    HOST_WORKERS threads (samples in parallel)."""
+    from deflow_tpu_torch.data.host_prep import attach_host_prep
+
+    out = {}
+    for path, b, n, valid, dufo in (("eval", B, N, VALID, False),
+                                    ("train", TRAIN_B, N, VALID, False),
+                                    ("ssl", TRAIN_B, N, VALID, True),
+                                    ("ssl 2 x 16,384", TRAIN_B, BRUTE_N,
+                                     BRUTE_VALID, True)):
+        hb = make_batch(1, b=b, n=n, valid=valid, dufo=dufo)
+        row = {}
+        for name, kw in (("numpy", {"backend": "numpy"}), ("cxx_1_thread", {}),
+                         ("cxx_pool", {"num_workers": HOST_WORKERS})):
+            attach_host_prep(copy.deepcopy(hb), VOXEL, RANGE, **kw)     # warm
+            ms = []
+            for _ in range(reps):
+                c = copy.deepcopy(hb)
+                t0 = time.perf_counter()
+                attach_host_prep(c, VOXEL, RANGE, **kw)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            row[name] = float(np.median(ms))
+        out[path] = row
+    return out
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -928,12 +1003,11 @@ def sweep_vs_brute(ssl_batch) -> float:
 
 def run_main_path(model, batches):
     """Phase 4: ``run_validation`` over the batches; returns the metrics,
-    the accumulator, per-batch device ms and the launch counts."""
+    the two accumulators, per-batch device ms and the launch counts."""
     import torch
 
     from deflow_tpu_torch.entry.evaluate import run_validation
-    from deflow_tpu_torch.metrics import ThreewayEPE
-    from deflow_tpu_torch.ops import gather, gru, scatter
+    from deflow_tpu_torch.metrics import BucketedEPE, ThreewayEPE
     from deflow_tpu_torch.trainer import device_batch, make_eval_step
 
     eval_step = make_eval_step(model)
@@ -955,12 +1029,125 @@ def run_main_path(model, batches):
         return out
 
     reset_launches()
-    three = ThreewayEPE()
-    metrics = run_validation(timed_step, batches, three)
+    three, bucketed = ThreewayEPE(), BucketedEPE()
+    metrics = run_validation(timed_step, batches, three=three, bucketed=bucketed)
     launches = read_launches()
     db = device_batch(batches[0])
     profile_step(lambda: eval_step(db), launches)
-    return metrics, three, device_ms, launches
+    return metrics, (three, bucketed), device_ms, launches
+
+
+def entry_dataset() -> list:
+    """An in-memory val split: ENTRY_BATCHES x B samples shaped like
+    ``HDF5Dataset.__getitem__``'s (labels, an eval mask of |x|, |y| < 35 m)."""
+    samples = []
+    for k in range(ENTRY_BATCHES):
+        hb = make_batch(500 + k)
+        for i in range(B):
+            s = {key: v[i] for key, v in hb.items()}
+            s["eval_mask"] = s["pc0_mask"] & (np.abs(s["pc0"][:, :2]) < 35).all(1)
+            s.update(scene_id=f"scene_{k:03d}", timestamp=str(1_000_000_000 + i),
+                     num_points0=np.int32(s["pc0_mask"].sum()))
+            samples.append(s)
+    return samples
+
+
+def run_entry_phase(model, device_median_ms: float) -> dict:
+    """Phase 4b: the eval entry over an in-memory dataset, three ways, in
+    the order a b c c b a: (a) the numpy prep, no overlap; (b) the C++ prep
+    on HOST_WORKERS threads, no overlap (loader prefetch 0, no
+    device_prefetch); (c) ``run_validation(eval_step, ds, cfg)``: the C++
+    prep in the loader's prefetch thread, the copy by ``device_prefetch``.
+    All three compute the metric terms in HOST_WORKERS worker processes.
+    Per run: wall ms per batch (the workers' start included) and the
+    steady period, the median time between two eval steps, with pairs/s;
+    launches 2 / 1 / 1 per batch; the metrics of (a), (b) and (c) equal to
+    1e-6 relative.  Returns the launch counts of a run."""
+    import torch
+
+    from deflow_tpu_torch.data.h5dataset import DataLoader, collate
+    from deflow_tpu_torch.data.host_prep import attach_host_prep
+    from deflow_tpu_torch.entry.evaluate import _sorted_prep, run_validation
+    from deflow_tpu_torch.metrics import BucketedEPE, ThreewayEPE
+    from deflow_tpu_torch.trainer import make_eval_step
+
+    ds = entry_dataset()
+    cfg = {"batch_size": B, "num_workers": HOST_WORKERS, "voxel_size": VOXEL,
+           "point_cloud_range": RANGE}
+    step = make_eval_step(model)
+    calls = []
+
+    def eval_step(batch):
+        calls.append(time.perf_counter())
+        return step(batch)
+
+    numpy_prep = lambda b: attach_host_prep(b, VOXEL, RANGE, backend="numpy")
+    ways = {
+        "a": ("numpy prep, no overlap", lambda: run_validation(
+            eval_step, DataLoader(ds, B, prefetch=0, post_collate=numpy_prep),
+            num_workers=HOST_WORKERS)),
+        "b": ("C++ prep, no overlap", lambda: run_validation(
+            eval_step, DataLoader(ds, B, prefetch=0, post_collate=_sorted_prep(cfg),
+                                  num_workers=HOST_WORKERS),
+            num_workers=HOST_WORKERS)),
+        "c": ("C++ prep, loader prefetch + device_prefetch",
+              lambda: run_validation(eval_step, ds, cfg)),
+    }
+    want = {name: 0 for name in _wrappers()}
+    want.update(segment_sum=2 * ENTRY_BATCHES, sorted_gather=ENTRY_BATCHES,
+                fused_gru=ENTRY_BATCHES)
+    runs = {}
+    for way in "abccba":
+        torch.cuda.synchronize()
+        reset_launches()
+        calls.clear()
+        t0 = time.perf_counter()
+        metrics = ways[way][1]()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / ENTRY_BATCHES
+        launches = read_launches()
+        if launches != want:
+            raise SystemExit(f"entry ({way}) launched {launches}, want {want}")
+        period = float(np.median(np.diff(calls))) * 1e3
+        runs.setdefault(way, []).append((ms, period, metrics))
+    for way, (what, _) in ways.items():
+        print(f"entry ({way}) {what}: " + "; ".join(
+            f"{ms:.1f} ms per batch = {B / ms * 1e3:.2f} pairs/s, steady "
+            f"{p:.1f} ms = {B / p * 1e3:.2f} pairs/s" for ms, p, _ in runs[way]))
+    print(f"entry: eval step device median {device_median_ms:.3f} ms = "
+          f"{B / device_median_ms * 1e3:.2f} pairs/s; launches per batch 2 / 1 / 1 "
+          f"(segment_sum / sorted_gather / fused_gru), {ENTRY_BATCHES} batches "
+          f"of {B} x {N} slots, {HOST_WORKERS} host threads and metric processes")
+    ref = runs["a"][0][2]
+    worst = 0.0
+    for way in "bc":
+        for _, _, m in runs[way]:
+            if m.keys() != ref.keys():
+                raise SystemExit(f"entry ({way}) metrics have other keys")
+            for k, v in m.items():
+                if np.isnan(ref[k]) != np.isnan(v):
+                    raise SystemExit(f"entry ({way}) {k}: {v} vs {ref[k]}")
+                if not np.isnan(v):
+                    worst = max(worst, abs(v - ref[k]) / max(abs(ref[k]), 1e-30))
+    print(f"entry metrics (3-way and bucketed, {len(ref)} values): largest "
+          f"relative difference of (b) and (c) from (a) {worst:.3e} (tol 1e-6)")
+    if not worst <= 1e-6:
+        raise SystemExit("the entry's metrics depend on the host prep or the overlap")
+    # every entry batch's C++ prep, held against numpy bit for bit
+    for k in range(ENTRY_BATCHES):
+        held_prep(collate(ds[k * B:(k + 1) * B]))
+    # the metric updates alone, per batch, serial on the host
+    hb = collate(ds[:B])
+    three, bucketed = ThreewayEPE(), BucketedEPE()
+    t0 = time.perf_counter()
+    for i in range(B):
+        args = (hb["flow"][i] + 0.01, hb["flow"][i], hb["flow_category_indices"][i],
+                hb["flow"][i] * 0.5, hb["pc0_mask"][i] & hb["eval_mask"][i])
+        three.update(*args)
+        bucketed.update(*args)
+    print(f"entry: the 3-way and bucketed metric updates take "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms of host time per batch")
+    return launches
 
 
 def _wrappers():
@@ -1095,16 +1282,12 @@ def profile_step(step, launched: dict) -> None:
 
 def reference_check(seed: int) -> float:
     """Phase 7a: f32 model on a small input, card vs CPU; max |Δ pred_flow|."""
-    import torch
-
-    from deflow_tpu_torch.data.host_prep import attach_host_prep
     from deflow_tpu_torch.models import build_model
     from deflow_tpu_torch.trainer import make_eval_step
 
     small = dict(LEADERBOARD, voxel_size=[1.6, 1.6, 6.0],
                  grid_feature_size=[64, 64])
-    hb = attach_host_prep(make_batch(seed, b=2, n=4096, valid=3500),
-                          small["voxel_size"], RANGE)
+    hb, _ = held_prep(make_batch(seed, b=2, n=4096, valid=3500), small["voxel_size"])
     outs = []
     for dev in ("cuda", "cpu"):
         model = build_model(small, precision="fp32", device=dev, seed=seed)
@@ -1136,16 +1319,14 @@ def train_reference_check(seed: int, loss_name: str = "deflowLoss",
     so a gradient difference far inside the gradient tolerance moves such
     an element's step past 1e-6 + lr*1e-2; the gradient of the element
     farthest off is printed beside it."""
-    from deflow_tpu_torch.data.host_prep import attach_host_prep
     from deflow_tpu_torch.models import build_model
     from deflow_tpu_torch.ops import chamfer
     from deflow_tpu_torch.trainer import init_train_state, make_train_step
 
     small = dict(LEADERBOARD, voxel_size=[1.6, 1.6, 6.0],
                  grid_feature_size=[64, 64])
-    hb = attach_host_prep(make_batch(seed, b=2, n=4096, valid=3500,
-                                     dufo=loss_name != "deflowLoss"),
-                          small["voxel_size"], RANGE)
+    hb, _ = held_prep(make_batch(seed, b=2, n=4096, valid=3500,
+                                 dufo=loss_name != "deflowLoss"), small["voxel_size"])
     auxes, grads, states = [], [], []
     threshold = chamfer._AUTO_GRID_PAIRS
     chamfer._AUTO_GRID_PAIRS = 0 if grid else threshold
@@ -1196,9 +1377,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
-    from deflow_tpu_torch.data.host_prep import attach_host_prep
     from deflow_tpu_torch.models import build_model
     from deflow_tpu_torch.ops import _build
+    from deflow_tpu_torch.utils import native
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1214,17 +1395,25 @@ def main() -> int:
     for name, info in logs.items():
         for line in ptxas_lines(info["log"]):
             print(f"  {name}: {line}")
+    t0 = time.perf_counter()
+    native.build(force=True)
+    print(f"host ops build (g++ {' '.join(native.CXX_FLAGS)}): "
+          f"{time.perf_counter() - t0:.1f} s; host cpu_count {os.cpu_count()}")
+    for path, row in host_prep_times().items():
+        print(f"host prep {path}: numpy {row['numpy']:.1f} ms, C++ 1 thread "
+              f"{row['cxx_1_thread']:.1f} ms, C++ pool of {HOST_WORKERS} "
+              f"{row['cxx_pool']:.1f} ms per batch (median of 3)")
 
     model = build_model(LEADERBOARD, precision="bf16", seed=0)
 
     def prep(what, seeds, b, n=N, valid=VALID, dufo=False):
         out, ms = [], []
         for sd in seeds:
-            hb = make_batch(sd, b=b, n=n, valid=valid, dufo=dufo)
-            t0 = time.perf_counter()
-            out.append(attach_host_prep(hb, VOXEL, RANGE))
-            ms.append((time.perf_counter() - t0) * 1e3)
-        print(f"{what} host prep ms per batch: " + ", ".join(f"{t:.1f}" for t in ms))
+            hb, t = held_prep(make_batch(sd, b=b, n=n, valid=valid, dufo=dufo))
+            out.append(hb)
+            ms.append(t)
+        print(f"{what} host prep (C++, pool of {HOST_WORKERS}) ms per batch: "
+              + ", ".join(f"{t:.1f}" for t in ms) + "; held bit for bit to numpy")
         return out
 
     batches = prep("eval", range(100, 100 + NUM_BATCHES), B)
@@ -1260,21 +1449,24 @@ def main() -> int:
         raise SystemExit("the sweep and the brute search disagree below the radius")
 
     no_ssl = {"segment_sum_lanes": 0, "cell_sweep": 0, "chamfer_brute": 0}
-    metrics, three, device_ms, eval_launches = run_main_path(model, batches)
+    metrics, tables, device_ms, eval_launches = run_main_path(model, batches)
     want = {"segment_sum": 2 * NUM_BATCHES, "sorted_gather": NUM_BATCHES,
             "fused_gru": NUM_BATCHES, "fused_gru_bwd": 0, "cbg_fwd": 0, "cbg_bwd": 0,
             **no_ssl}
     print(f"launches on the eval path: {eval_launches} (want {want})")
     if eval_launches != want:
         raise SystemExit("the eval path did not launch every kernel as expected")
-    print(three.table())
+    for table in tables:
+        print(table.table())
     med, mean = float(np.median(device_ms[1:])), float(np.mean(device_ms[1:]))
     print("eval step device ms per batch: "
           + ", ".join(f"{t:.3f}" for t in device_ms)
           + f"; steady median {med:.3f} ms = {B / med * 1e3:.2f} pairs/s"
           + f" (mean {mean:.3f} ms = {B / mean * 1e3:.2f} pairs/s)")
-    if not np.isfinite(metrics["EPE_3way_mean"]):
-        raise SystemExit("3-way EPE is not finite")
+    if not all(np.isfinite(metrics[k]) for k in ("EPE_3way_mean", "Static_EPE_mean",
+                                                   "Dynamic_NormEPE_mean")):
+        raise SystemExit("the 3-way or bucketed EPE is not finite")
+    entry_launches = run_entry_phase(model, med)
 
     per_step = {"segment_sum": 3, "sorted_gather": 3, "fused_gru": 1,
                 "fused_gru_bwd": 1, "cbg_fwd": 6, "cbg_bwd": 6, **no_ssl}
@@ -1341,7 +1533,8 @@ def main() -> int:
              "launches_per_train_step": per("train", name),
              "launches_per_ssl_step": per("ssl", name),
              "launches_per_ssl_brute_step": per("ssl 2 x 16,384", name),
-             **({"eval_launches": eval_launches[name]} if eval_launches[name] else {}),
+             **({"eval_launches": eval_launches[name],
+                 "entry_launches": entry_launches[name]} if eval_launches[name] else {}),
              **kernels[name]}
             for name, (src, rep) in sources.items()]
     print(json.dumps({"kernels": rows}))

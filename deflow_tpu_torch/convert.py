@@ -6,11 +6,13 @@ prefix): Conv HWIO → OIHW, Dense → Linear ``[O, I]``, GRU gates as Conv1d
 ``[O, I, 1]``, BatchNorm scale/bias → weight/bias and batch_stats →
 running_mean/running_var, and the module renames below.  So one loader takes
 both the JAX package's variables (via :func:`state_dict_from_flax`) and a
-reference Lightning ``state_dict``.
+reference Lightning ``state_dict``; :func:`load_weights` reads a checkpoint
+file into a model.
 """
 
 from __future__ import annotations
 
+import os
 import re
 from typing import Dict, Mapping
 
@@ -88,3 +90,22 @@ def load_reference_state_dict(model: torch.nn.Module,
         sd[k] = v if isinstance(v, torch.Tensor) else torch.from_numpy(
             np.asarray(v))
     model.load_state_dict(sd, strict=True)
+
+
+def load_weights(model: torch.nn.Module, path: str) -> torch.nn.Module:
+    """Load a checkpoint file in the reference torch layout into ``model``:
+    a Lightning ``.ckpt`` (its ``state_dict``), or a ``.pth``/``.pt`` holding
+    a state dict or ``{"state_dict": ...}`` (what the JAX package's
+    ``save_torch_checkpoint`` writes).  Read with ``weights_only=True``, so
+    a file that holds more than tensors and plain containers is refused.
+    Every key must match the model."""
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is a directory (an orbax checkpoint of the JAX package?); "
+            "the port reads .ckpt/.pth/.pt files in the reference torch "
+            "layout: convert with deflow_tpu.convert.save_torch_checkpoint")
+    if not path.endswith((".ckpt", ".pth", ".pt")):
+        raise ValueError(f"unsupported checkpoint {path!r}: want .ckpt, .pth or .pt")
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    load_reference_state_dict(model, ckpt.get("state_dict", ckpt))
+    return model

@@ -1,1 +1,1 @@
-"""Host-side data preparation (numpy)."""
+"""Host-side data: the AV2 .h5 loader, synthetic scenes and the host prep."""

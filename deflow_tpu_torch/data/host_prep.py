@@ -1,11 +1,12 @@
-"""Host-side ragged bookkeeping for the device (numpy).
+"""Host-side ragged bookkeeping for the device.
 
 The port's own copy of ``deflow_tpu/data/host_prep.py`` (``prep_sample`` and
-``attach_host_prep(sort=True)``) together with the numpy versions of the
-native helpers they call (``deflow_tpu/utils/native.py``).  Per cloud the
-host does the ego compensation, pillar binning, the stable sort by pillar id
-and the sorted 9-lane PFN record, and permutes every per-point array into
-ascending-id order, so the device runs no sort and no permute.
+``attach_host_prep(sort=True)``).  Per cloud the host does the ego
+compensation, pillar binning, the stable sort by pillar id and the sorted
+9-lane PFN record, and permutes every per-point array into ascending-id
+order, so the device runs no sort and no permute.  The work runs in the C++
+host ops (``utils/native.py``, the default) or in the numpy versions here,
+the plain versions the C++ matches bit for bit (``backend="numpy"``).
 
 Pillar ids use the s2d order on even grids,
 ``((y>>1)·W/2 + (x>>1))·4 + (y&1)·2 + (x&1)``, row-major otherwise; invalid
@@ -26,9 +27,12 @@ and, when the batch carries DUFO labels (SSL), pc1's chamfer cell sort
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Dict, Sequence
 
 import numpy as np
+
+from deflow_tpu_torch.utils import native
 
 HOST_PREP_KEYS = (
     "pc0_transformed",
@@ -46,9 +50,7 @@ _PC0_ALIGNED = ("pc0", "pc0_mask", "flow", "flow_is_valid",
 _PC1_ALIGNED = ("pc1", "pc1_mask", "dufo_label1")
 
 
-def use_s2d(grid) -> bool:
-    """s2d pillar-id order on even grids."""
-    return int(grid[0]) % 2 == 0 and int(grid[1]) % 2 == 0
+use_s2d = native.use_s2d
 
 
 def encode_ids(cx, cy, grid):
@@ -163,9 +165,10 @@ def prep_sample(
     pc0_mask: np.ndarray, pc1_mask: np.ndarray,
     pose0: np.ndarray, pose1: np.ndarray,
     voxel_size: Sequence[float], point_cloud_range: Sequence[float],
-    ego_motion: np.ndarray = None,
+    ego_motion: np.ndarray = None, backend: str = "native",
 ) -> Dict[str, np.ndarray]:
     """Per-sample host prep in the clouds' original point order."""
+    ops = _ops(backend)
     lo = np.asarray(point_cloud_range[:3], np.float32)
     hi = np.asarray(point_cloud_range[3:], np.float32)
     vs = np.asarray(voxel_size, np.float32)
@@ -174,16 +177,16 @@ def prep_sample(
     if ego_motion is None:
         ego_motion = np.linalg.inv(np.asarray(pose1, np.float64)) @ np.asarray(
             pose0, np.float64)
-    tpc0 = se3_transform(pc0, ego_motion)
+    tpc0 = ops.se3_transform(pc0, ego_motion)
 
     out = {"pc0_transformed": tpc0}
     for tag, pts, mask in (("pc0", tpc0, pc0_mask), ("pc1", pc1, pc1_mask)):
-        pid, order, iperm, sid = pillar_prep(pts, mask, lo, vs, grid)
+        pid, order, iperm, sid = ops.pillar_prep(pts, mask, lo, vs, grid)
         out[f"{tag}_ids"] = pid
         out[f"{tag}_order"] = order
         out[f"{tag}_iperm"] = iperm
         out[f"{tag}_sorted"] = sid
-        out[f"{tag}_sorted_rec"] = sorted_record(pts, order, sid, lo, vs, grid)
+        out[f"{tag}_sorted_rec"] = ops.sorted_record(pts, order, sid, lo, vs, grid)
     return out
 
 
@@ -191,14 +194,20 @@ def attach_host_prep(
     batch: Dict[str, np.ndarray],
     voxel_size: Sequence[float],
     point_cloud_range: Sequence[float],
+    num_workers: int = 0,
+    backend: str = "native",
 ) -> Dict[str, np.ndarray]:
     """Augment a collated batch in place with the fully sorted host prep.
 
     Every per-point array is permuted into ascending-pillar-id order, so the
     model runs no permute; ``pc{0,1}_unsort`` restores the original order
-    on the host (``out_orig = out_sorted[unsort]``)."""
-    per = []
-    for i in range(batch["pc0"].shape[0]):
+    on the host (``out_orig = out_sorted[unsort]``).  ``backend`` is
+    ``"native"`` (the C++ host ops; raises if they cannot be built) or
+    ``"numpy"``.  ``num_workers > 1`` preps the samples in parallel on
+    ``utils.native.shared_pool`` (the C++ calls release the GIL)."""
+    ops = _ops(backend)
+
+    def one(i):
         p = prep_sample(
             batch["pc0"][i], batch["pc1"][i],
             batch["pc0_mask"][i], batch["pc1_mask"][i],
@@ -206,24 +215,32 @@ def attach_host_prep(
             voxel_size, point_cloud_range,
             ego_motion=(batch["ego_motion"][i]
                         if "ego_motion" in batch else None),
+            backend=backend,
         )
         for keys, o in ((_PC0_ALIGNED, p["pc0_order"]),
                         (_PC1_ALIGNED, p["pc1_order"])):
             for k in keys:
                 if k in batch:
-                    batch[k][i] = permute_rows(batch[k][i], o)
-        p["pc0_transformed"] = permute_rows(p["pc0_transformed"], p["pc0_order"])
+                    batch[k][i] = ops.permute_rows(batch[k][i], o)
+        p["pc0_transformed"] = ops.permute_rows(p["pc0_transformed"],
+                                                p["pc0_order"])
         for tag in ("pc0", "pc1"):
             p[f"{tag}_ids"] = p[f"{tag}_sorted"]
             p[f"{tag}_unsort"] = p.pop(f"{tag}_iperm")
             del p[f"{tag}_order"]
         if "dufo_label1" in batch:
-            cp = chamfer_cell_prep(
+            cp = ops.chamfer_cell_prep(
                 batch["pc1"][i], batch["pc1_mask"][i],
                 batch["pc1_mask"][i] & (batch["dufo_label1"][i] > 0))
             for k in CHAMFER_CELL_KEYS:
                 p[k] = cp[k[len("pc1_cell_"):]]
-        per.append(p)
+        return p
+
+    b = batch["pc0"].shape[0]
+    if num_workers > 1 and b > 1:
+        per = list(native.shared_pool(num_workers).map(one, range(b)))
+    else:
+        per = [one(i) for i in range(b)]
 
     for k in HOST_PREP_KEYS + ("pc0_unsort", "pc1_unsort") + CHAMFER_CELL_KEYS:
         if k in per[0]:
@@ -236,3 +253,18 @@ def host_prep_from_batch(batch) -> "dict | None":
     if "pc0_ids" not in batch:
         return None
     return {k: batch[k] for k in HOST_PREP_KEYS if k in batch}
+
+
+# the numpy versions, the plain versions of the C++ host ops
+_NUMPY = SimpleNamespace(se3_transform=se3_transform, pillar_prep=pillar_prep,
+                         sorted_record=sorted_record,
+                         chamfer_cell_prep=chamfer_cell_prep,
+                         permute_rows=permute_rows)
+
+
+def _ops(backend: str):
+    if backend == "native":
+        return native
+    if backend == "numpy":
+        return _NUMPY
+    raise ValueError(f"unknown host-prep backend {backend!r} (native | numpy)")

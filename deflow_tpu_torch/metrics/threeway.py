@@ -68,6 +68,15 @@ class ThreewayEPE:
         pose_flow: np.ndarray,       # [N, 3] rigid ego flow
         mask: Optional[np.ndarray] = None,  # [N] evaluation mask
     ) -> None:
+        self.add(self.frame_stats(pred_flow, gt_flow, classes, pose_flow, mask))
+
+    @staticmethod
+    def frame_stats(pred_flow, gt_flow, classes, pose_flow,
+                    mask: Optional[np.ndarray] = None) -> Dict[str, tuple]:
+        """One frame's contribution, as ``add`` takes it: the BD count and,
+        per scored bucket with points, (points, mean EPE, AccS, AccR,
+        angle).  A pure function: frames may be computed apart (in worker
+        processes) and added in order."""
         if mask is None:
             mask = np.ones(len(pred_flow), bool)
         mask = mask.astype(bool)
@@ -83,7 +92,7 @@ class ThreewayEPE:
         }
         # background-dynamic: excluded from the scored buckets; counted so
         # the exclusion is visible in the table
-        self.point_counts["BD"] += int((~foreground & dynamic).sum())
+        out = {"BD": int((~foreground & dynamic).sum())}
         epe = np.linalg.norm(pred - gt, axis=-1)
         gt_norm = np.linalg.norm(gt, axis=-1)
         acc_s = _accuracy(epe, gt_norm, 0.05)
@@ -92,14 +101,21 @@ class ThreewayEPE:
 
         for name, sel in buckets.items():
             n = int(sel.sum())
-            if n == 0:
-                continue
-            self.frames[name] += 1
-            self.point_counts[name] += n
-            self.sums[name]["EPE"] += float(epe[sel].mean())
-            self.sums[name]["AccS"] += float(acc_s[sel].mean())
-            self.sums[name]["AccR"] += float(acc_r[sel].mean())
-            self.sums[name]["Angle"] += float(angle[sel].mean())
+            if n:
+                out[name] = (n, float(epe[sel].mean()), float(acc_s[sel].mean()),
+                             float(acc_r[sel].mean()), float(angle[sel].mean()))
+        return out
+
+    def add(self, stats: Dict[str, tuple]) -> None:
+        """Accumulate one frame's ``frame_stats``."""
+        self.point_counts["BD"] += stats["BD"]
+        for name in BUCKETS:
+            if name in stats:
+                n, *means = stats[name]
+                self.frames[name] += 1
+                self.point_counts[name] += n
+                for stat, v in zip(_STATS, means):
+                    self.sums[name][stat] += v
 
     def compute(self) -> Dict[str, float]:
         out: Dict[str, float] = {}

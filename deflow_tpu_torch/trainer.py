@@ -4,9 +4,10 @@ Counterpart of ``deflow_tpu/trainer.py``: ``make_optimizer``,
 ``init_train_state`` (here a :class:`TrainState` holding the model with its
 parameters and BN running statistics, the optimizer with its state, and the
 step counter), ``make_train_step`` (the supervised step, or the SeFlow
-self-supervised one for ``seflowLoss``), ``make_eval_step`` and
-``device_batch``.  In eval, the final predicted flow is the rigid ego
-flow everywhere plus the network flow at voxel-valid points.
+self-supervised one for ``seflowLoss``), ``make_eval_step``,
+``device_batch`` and ``device_prefetch``.  In eval, the final predicted
+flow is the rigid ego flow everywhere plus the network flow at voxel-valid
+points.
 
 Optimizer semantics follow optax: Adam (b1 0.9, b2 0.999, eps 1e-8), AdamW
 with optax's default weight decay 1e-4, SGD with momentum 0.9; a global-norm
@@ -18,11 +19,12 @@ gradient.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Iterable, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterable, Iterator, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from deflow_tpu_torch.data.h5dataset import background
 from deflow_tpu_torch.data.host_prep import (CHAMFER_CELL_KEYS, HOST_PREP_KEYS,
                                              host_prep_from_batch)
 from deflow_tpu_torch.device import resolve_device
@@ -49,6 +51,44 @@ def device_batch(batch: Dict, device=None,
                 v = torch.from_numpy(np.ascontiguousarray(v))
             out[k] = v.to(dev)
     return out
+
+
+def device_prefetch(loader: Iterable[Dict], device=None,
+                    depth: int = 2) -> Iterator[Tuple[Dict, Dict[str, torch.Tensor]]]:
+    """Iterate ``(host_batch, device_batch)`` with the host-to-device copy
+    running up to ``depth`` batches ahead, in a background thread.
+
+    On the card (unless ``device="cpu"``) the thread pins each batch's
+    arrays and copies them with ``non_blocking=True`` on a side stream,
+    then records an event; the consumer's stream waits on that event, and
+    each tensor is marked as used by it (``record_stream``) before it is
+    handed out.  On the CPU the batch is moved without a stream.  An error
+    of the loader reaches the consumer; an abandoned iteration stops the
+    thread at its next put."""
+    dev = resolve_device(device)
+
+    def moved():
+        if dev.type == "cpu":
+            for hb in loader:
+                yield hb, device_batch(hb, dev), None
+            return
+        torch.cuda.set_device(dev)
+        side = torch.cuda.Stream(dev)
+        with torch.cuda.stream(side):
+            for hb in loader:
+                db = {k: torch.from_numpy(np.ascontiguousarray(hb[k])).pin_memory()
+                      .to(dev, non_blocking=True) for k in MODEL_KEYS if k in hb}
+                ready = torch.cuda.Event()
+                ready.record(side)
+                yield hb, db, ready
+
+    for hb, db, ready in background(moved(), depth):
+        if ready is not None:
+            stream = torch.cuda.current_stream(dev)
+            stream.wait_event(ready)
+            for t in db.values():
+                t.record_stream(stream)
+        yield hb, db
 
 
 def make_eval_step(model: torch.nn.Module, device=None) -> Callable:

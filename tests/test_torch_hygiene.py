@@ -2,12 +2,16 @@
 
 - no module of ``deflow_tpu_torch`` nor ``chip_smoke.py`` imports JAX, flax,
   optax or the JAX package;
+- ``h5py``, ``pyarrow`` and ``yaml`` (absent on the card's machine) are
+  imported only inside functions, so every module imports without them;
 - without a visible card, the entry points raise unless asked for the CPU;
 - CPU tensors take the plain versions without building any kernel; tensors
   on any other non-CUDA device are refused, not computed.
 """
 
 import ast
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -38,6 +42,52 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert not bad, bad
 
 
+OPTIONAL = ("h5py", "pyarrow", "yaml")
+
+
+def _module_level_imports(tree):
+    """Imports that run when the module is imported: outside any function."""
+    todo = list(tree.body)
+    while todo:
+        node = todo.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+            continue
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        todo.extend(ast.iter_child_nodes(node))
+
+
+def test_optional_modules_are_imported_inside_functions():
+    bad = [(p.relative_to(ROOT).as_posix(), m) for p in _port_files()
+           for m in _module_level_imports(ast.parse(p.read_text()))
+           if m.split(".")[0] in OPTIONAL]
+    assert not bad, bad
+    # the scan sees what it must reject
+    assert list(_module_level_imports(ast.parse(
+        "try:\n    import yaml\nexcept ImportError:\n    pass\n"
+        "def f():\n    import h5py\n"))) == ["yaml"]
+
+
+def test_port_imports_without_optional_modules():
+    """Every module of the port imports where h5py, pyarrow and yaml are
+    absent, as on the card's machine."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        f"for name in {OPTIONAL!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import deflow_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, 'deflow_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "print(len(names))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) > 25
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -65,6 +115,19 @@ def test_entry_points_raise_without_a_card(no_cuda):
     make_eval_step(model, device="cpu")
     make_train_step(model, "deflowLoss", device="cpu")
     init_train_state(model, {"lr": 2e-4}, device="cpu")
+
+
+def test_eval_entry_raises_without_a_card(no_cuda, tmp_path):
+    from deflow_tpu_torch.config import compose
+    from deflow_tpu_torch.entry import evaluate, save
+    from deflow_tpu_torch.trainer import device_prefetch
+
+    cfg = compose("config", [f"dataset_path={tmp_path}"])    # no split there
+    for main in (evaluate.main, save.main):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        next(device_prefetch([{"pc0": torch.zeros(1, 4, 3).numpy()}]))
 
 
 def _wrapper_calls(device):

@@ -3,8 +3,9 @@
 Same random weights and BN statistics, same host batch (B=2, N=512, 32x32
 grid, num_iters 4).  ``pred_flow`` is held to 2e-4 abs, the bound
 ``tests/test_parity.py`` holds the torch twin to; the validity masks must be
-identical.  The port's ``run_validation`` must give the same 3-way table as
-the JAX package's ``ThreewayEPE`` on the same outputs.
+identical.  The port's ``run_validation`` (its form over prepped batches)
+must give the same 3-way and bucketed tables as the JAX package's
+``ThreewayEPE`` and ``BucketedEPE`` on the same outputs.
 """
 
 import numpy as np
@@ -13,6 +14,7 @@ import torch
 import jax.numpy as jnp
 
 from deflow_tpu import trainer as T
+from deflow_tpu.metrics import BucketedEPE as JaxBucketedEPE
 from deflow_tpu.metrics import ThreewayEPE as JaxThreewayEPE
 from deflow_tpu_torch.entry.evaluate import run_validation
 from deflow_tpu_torch.metrics import ThreewayEPE
@@ -40,13 +42,14 @@ def test_eval_step_matches_jax():
         assert err < 2e-4, f"{k}: max |Δ| = {err}"
 
     three = ThreewayEPE()
-    metrics = run_validation(step, [tb], three)
-    ref = JaxThreewayEPE()
+    metrics = run_validation(step, [tb], three=three)
+    ref, ref_bucketed = JaxThreewayEPE(), JaxBucketedEPE()
     pred, pose_flow = got["pred_flow"].numpy(), got["pose_flow"].numpy()
     for b in range(2):
-        ref.update(pred[b], tb["flow"][b], tb["flow_category_indices"][b],
-                   pose_flow[b], tb["pc0_mask"][b] & tb["flow_is_valid"][b])
-    want_metrics = ref.compute()
+        for acc in (ref, ref_bucketed):
+            acc.update(pred[b], tb["flow"][b], tb["flow_category_indices"][b],
+                       pose_flow[b], tb["pc0_mask"][b] & tb["flow_is_valid"][b])
+    want_metrics = dict(ref.compute(), **ref_bucketed.compute())
     assert metrics.keys() == want_metrics.keys()
     np.testing.assert_allclose([metrics[k] for k in sorted(metrics)],
                                [want_metrics[k] for k in sorted(metrics)],

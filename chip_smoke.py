@@ -58,6 +58,23 @@ Phases (any failure exits non-zero):
    profiled step; then 3 steps at 2 x 16,384 (the brute branch under the
    same rule): 4 brute searches and no sweep per step, and one profiled
    step;
+5b. the train entry: ``entry.train.fit`` (the config's defaults: remat,
+   bf16, Adam lr 2e-4, the leaderboard DeFlow) over in-memory splits of
+   2 x 98,304 samples: (a) deflowLoss, 2 epochs of 8 steps, each validated
+   on 2 batches of 4 and checkpointed (epoch_N.ckpt, best.ckpt); (b) two
+   runs resumed from (a)'s epoch_0.ckpt for epoch 1, (a) against the
+   first within 4x the two resumed runs' difference (the card's backward
+   is not deterministic); (c) seflowLoss, 1 epoch of 6 steps (the grid
+   branch).  Launches per step
+   (remat: every forward kernel twice, 5 scatters, 4 gathers, 2 GRU
+   forwards, 1 backward, 12 fused-block forwards, 6 backwards; SeFlow adds
+   2 sweeps and 1 lane segment-sum) and per eval batch (2 / 1 / 1); finite
+   metrics; the steady period between steps beside phase 5's and 6's
+   device medians, the logged frames/s, the host prep; a checkpoint's
+   round trip bit for bit with its save and load ms; one step with remat
+   against two without (the same loss, gradients within 4x the plain
+   steps' difference, BN statistics moved once) and the peak memory of
+   each, also at the config's batch_size 16 (2B = 32, the plain U-Net);
 7. reference checks in f32 on small inputs, the card against the CPU
    (plain PyTorch versions): the eval output, and one train step's loss,
    gradient norm, per-parameter gradients and updated parameters, for
@@ -1037,13 +1054,16 @@ def run_main_path(model, batches):
     return metrics, (three, bucketed), device_ms, launches
 
 
-def entry_dataset() -> list:
-    """An in-memory val split: ENTRY_BATCHES x B samples shaped like
-    ``HDF5Dataset.__getitem__``'s (labels, an eval mask of |x|, |y| < 35 m)."""
+def entry_dataset(seeds=None, b: int = B, dufo: bool = False) -> list:
+    """An in-memory split: ``b`` samples for each of ``seeds`` (the eval
+    entry's ENTRY_BATCHES by default) shaped like
+    ``HDF5Dataset.__getitem__``'s (labels, an eval mask of |x|, |y| < 35 m;
+    DUFO labels with ``dufo``)."""
     samples = []
-    for k in range(ENTRY_BATCHES):
-        hb = make_batch(500 + k)
-        for i in range(B):
+    seeds = range(500, 500 + ENTRY_BATCHES) if seeds is None else seeds
+    for k in seeds:
+        hb = make_batch(k, b=b, dufo=dufo)
+        for i in range(b):
             s = {key: v[i] for key, v in hb.items()}
             s["eval_mask"] = s["pc0_mask"] & (np.abs(s["pc0"][:, :2]) < 35).all(1)
             s.update(scene_id=f"scene_{k:03d}", timestamp=str(1_000_000_000 + i),
@@ -1205,6 +1225,386 @@ def run_train_path(model, batches, loss_name="deflowLoss", label="train"):
         raise SystemExit(f"{label} step gave non-finite values {bad}")
     profile_step(lambda: train_step(state, device_batches[0]), launches)
     return auxes, device_ms, launches
+
+
+# phase 5b: the train entry.  Steps an epoch at TRAIN_B, epochs, val
+# batches of B, SeFlow steps, and the config's batch_size (probed for memory)
+ENTRY_TRAIN_STEPS, ENTRY_EPOCHS, ENTRY_VAL_BATCHES, ENTRY_SSL_STEPS = 8, 2, 2, 6
+CONFIG_BATCH = 16
+# launches a train step with remat (the forward kernels twice) and an eval
+# batch
+REMAT_PER_STEP = {"segment_sum": 5, "sorted_gather": 4, "fused_gru": 2,
+                  "fused_gru_bwd": 1, "cbg_fwd": 12, "cbg_bwd": 6,
+                  "segment_sum_lanes": 0, "cell_sweep": 0, "chamfer_brute": 0}
+PER_VAL_BATCH = {"segment_sum": 2, "sorted_gather": 1, "fused_gru": 1}
+# the card's backward is not deterministic (the bilinear upsample's
+# backward adds with atomics), so two runs of the same step or epoch differ
+# in the last bits, which Adam carries on.  The resumed run and the remat
+# step are held to SPREAD times that run-to-run difference, measured in the
+# same call: a resume that lost the optimizer state or replayed an epoch,
+# or a recompute that saw other values, differs by 30x and more
+SPREAD = 4
+REMAT_STATS_SHARE = 0.05
+
+def entry_cfg(out: str, **kw):
+    """The port's default config (the leaderboard DeFlow, bf16, remat) at
+    this script's sizes, writing under ``out``; wandb off (``traced_fit``
+    reads the logged records from the logger)."""
+    from deflow_tpu_torch.config import compose
+
+    over = {"batch_size": TRAIN_B, "epochs": ENTRY_EPOCHS, "lr": LR, "seed": 0,
+            "num_workers": HOST_WORKERS, "max_points": N, "log_every": 4,
+            "voxel_size": VOXEL, "point_cloud_range": RANGE,
+            "model.target.grid_feature_size": LEADERBOARD["grid_feature_size"],
+            "output_dir": out, "wandb_mode": "disabled"}
+    over.update(kw)
+    return compose("config", [f"{k}={v}".replace(" ", "") for k, v in over.items()])
+
+
+def _delta(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def traced_fit(cfg, train, val, label: str, per_step: dict) -> tuple:
+    """``entry.train.fit`` with the launches of each step and each
+    validation sweep, and the host prep of each batch, recorded (the
+    entry's ``make_train_step``, ``run_validation``, ``_sorted_prep`` and
+    ``MetricLogger.log`` wrapped); every count set to 0 just before and read
+    just after.  Exits unless every step launched ``per_step`` and every
+    sweep ENTRY_VAL_BATCHES x PER_VAL_BATCH.  Returns the fit's result
+    (with the logged records as ``logged``, the host time of each step
+    call as ``step_starts`` and each step's device ms, CUDA events around
+    the step call, as ``device_ms``), the launches and the host prep ms of
+    each batch."""
+    import torch
+
+    from deflow_tpu_torch.entry import train as TE
+
+    steps, sweeps, prep_ms, logged = [], [], [], []
+    orig = (TE.make_train_step, TE.run_validation, TE._sorted_prep, TE.MetricLogger)
+
+    class Logger(orig[3]):
+        def log(self, metrics, step=None):
+            logged.append(dict(metrics))
+            super().log(metrics, step)
+
+    events, starts = [], []
+
+    def make_train_step(*a, **k):
+        step = orig[0](*a, **k)
+
+        def counted(*sa):
+            starts.append(time.perf_counter())
+            before = read_launches()
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = step(*sa)
+            ev[1].record()
+            events.append(ev)
+            steps.append(_delta(before, read_launches()))
+            return out
+        return counted
+
+    def run_validation(*a, **k):
+        before = read_launches()
+        out = orig[1](*a, **k)
+        sweeps.append(_delta(before, read_launches()))
+        return out
+
+    def sorted_prep(c):
+        prep = orig[2](c)
+
+        def timed(batch):
+            t0 = time.perf_counter()
+            out = prep(batch)
+            prep_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return timed
+
+    TE.make_train_step, TE.run_validation, TE._sorted_prep, TE.MetricLogger = (
+        make_train_step, run_validation, sorted_prep, Logger)
+    try:
+        reset_launches()
+        res = TE.fit(cfg, train, val, val_batch_size=B)
+        launches = read_launches()
+    finally:
+        TE.make_train_step, TE.run_validation, TE._sorted_prep, TE.MetricLogger = orig
+    torch.cuda.synchronize()
+    res.logged = logged
+    res.device_ms = [a.elapsed_time(b) for a, b in events]
+    res.step_starts = starts
+    want_step = {k: per_step.get(k, 0) for k in launches}
+    want_val = {k: PER_VAL_BATCH.get(k, 0) * ENTRY_VAL_BATCHES for k in launches}
+    bad = [d for d in steps if d != want_step] + [d for d in sweeps if d != want_val]
+    print(f"{label}: {len(steps)} steps, {len(sweeps)} validation sweeps; launches "
+          f"{launches}; per step {want_step if steps else None}, per eval batch "
+          f"{PER_VAL_BATCH if sweeps else None}")
+    total = {k: want_step[k] * len(steps) + want_val[k] * len(sweeps) for k in launches}
+    if bad or launches != total:
+        raise SystemExit(f"{label} launched {bad[:2] or launches}, want {want_step} a "
+                         f"step and {want_val} a sweep")
+    return res, launches, prep_ms
+
+
+def entry_numbers(label: str, res, prep_ms: list, device_median_ms: float,
+                  steps_per_epoch: int) -> None:
+    """The steady period between step calls (median of the gaps within an
+    epoch, the first gap of the run left out), the entry steps' device ms,
+    the logged frames/s, the host prep of the run's batches and the stage
+    timer, beside the device step median of the same path without remat
+    (phase 5 or 6)."""
+    t = np.asarray(res.step_starts)
+    gaps = [t[i + 1] - t[i] for i in range(1, len(t) - 1)
+            if (i + 1) % steps_per_epoch]
+    period = float(np.median(gaps)) * 1e3
+    fps = [r["train/frames_per_sec"] for r in res.logged if "train/frames_per_sec" in r]
+    stages = {k: (len(c.samples), c.mean * 1e3) for k, c in res.timer.children.items()}
+    dev = float(np.median(res.device_ms[1:]))
+    print(f"{label}: steady period {period:.1f} ms a step = {TRAIN_B / period * 1e3:.2f} "
+          f"pairs/s; the entry's steps (remat) {dev:.3f} ms of device time (median, CUDA "
+          f"events around each step call), against a device step median without remat of "
+          f"{device_median_ms:.3f} ms ({TRAIN_B / device_median_ms * 1e3:.2f} pairs/s); "
+          "logged train/frames_per_sec "
+          + ", ".join(f"{f:.2f}" for f in fps)
+          + f"; host prep (C++, pool of {HOST_WORKERS}) median "
+          f"{float(np.median(prep_ms)):.1f} ms a batch (max {max(prep_ms):.1f}); stages "
+          + ", ".join(f"{k} n={n} mean {ms:.1f} ms" for k, (n, ms) in stages.items()))
+
+
+def _state_tensors(state) -> dict:
+    """Every tensor of a train state: the model's state dict and the
+    optimizer's per-parameter state, on the host."""
+    out = {f"model.{k}": v.detach().cpu() for k, v in state.model.state_dict().items()}
+    for i, st in state.optimizer.state_dict()["state"].items():
+        for k, v in st.items():
+            out[f"optimizer.{i}.{k}"] = v.detach().cpu()
+    return out
+
+
+def hold_round_trip(res, tmp: str) -> dict:
+    """Save the run's final state, load it into a state built from another
+    seed: every tensor (parameters, BN buffers, Adam moments and step) and
+    the step bit for bit.  Returns the save and load ms."""
+    import torch
+
+    from deflow_tpu_torch.models import build_model
+    from deflow_tpu_torch.trainer import init_train_state, load_checkpoint, save_checkpoint
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = save_checkpoint(tmp, res.state, 7, name="round_trip")
+    save_ms = (time.perf_counter() - t0) * 1e3
+    fresh = init_train_state(build_model(LEADERBOARD, precision="bf16", seed=123),
+                             {"lr": LR, "optimizer": "adam"})
+    t0 = time.perf_counter()
+    fresh, nxt = load_checkpoint(path, fresh)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    want, got = _state_tensors(res.state), _state_tensors(fresh)
+    bad = sorted(set(want) ^ set(got)) + [
+        k for k in set(want) & set(got)
+        if not (want[k].dtype == got[k].dtype and torch.equal(want[k], got[k]))]
+    size = os.path.getsize(path) / 2 ** 20
+    print(f"checkpoint round trip: {len(want)} tensors ({size:.1f} MiB), "
+          f"{'all bit-identical' if not bad else f'DIFFER: {bad[:5]}'}; step "
+          f"{fresh.step} (want {res.state.step}), next epoch {nxt}; save "
+          f"{save_ms:.1f} ms, load {load_ms:.1f} ms")
+    if bad or fresh.step != res.state.step or nxt != 8:
+        raise SystemExit("the checkpoint does not round-trip")
+    return {"save_ms": save_ms, "load_ms": load_ms, "mib": size}
+
+
+def _differences(a, b) -> dict:
+    """Two train states: the last losses' difference and the largest
+    difference of every floating tensor (parameters, BN buffers, Adam
+    moments and steps), each over that tensor's largest magnitude, with the
+    zero-gradient conv biases and their moments (rounding noise that the
+    train-mode BN cancels) apart."""
+    names = [k for k, _ in a.state.model.named_parameters()]
+    ta, tb = _state_tensors(a.state), _state_tensors(b.state)
+    worst = {"loss": abs(a.last_aux["loss"] - b.last_aux["loss"]),
+             "tensors": (0.0, ""), "zero_grad_biases": (0.0, "")}
+    for k, x in ta.items():
+        if not x.is_floating_point():
+            continue
+        name = names[int(k.split(".")[1])] if k.startswith("optimizer.") else k[6:]
+        d = ((x - tb[k]).abs().max() / x.abs().max().clamp(min=1e-30)).item()
+        part = "zero_grad_biases" if _zero_grad_bias(name) else "tensors"
+        worst[part] = max(worst[part], (d, k))
+    return worst
+
+
+def hold_resume(full, resumed, again) -> None:
+    """The run resumed from epoch_0.ckpt against the uninterrupted one after
+    epoch 1, beside a second resumed run against the first (the card's
+    spread): the last loss, and every floating tensor's largest difference
+    over its largest magnitude, each within SPREAD times the spread (plus
+    1e-7 of the loss); the step equal.  The zero-gradient biases are
+    printed, not held."""
+    d, floor = _differences(full, resumed), _differences(resumed, again)
+    ok = (d["loss"] <= SPREAD * floor["loss"] + 1e-7 * abs(full.last_aux["loss"])
+          and d["tensors"][0] <= SPREAD * floor["tensors"][0]
+          and full.state.step == resumed.state.step == again.state.step)
+    print(f"resume: last loss {resumed.last_aux['loss']:.7f} against "
+          f"{full.last_aux['loss']:.7f} uninterrupted (difference {d['loss']:.3e}; two "
+          f"resumed runs {floor['loss']:.3e}); largest tensor difference over its largest "
+          f"magnitude {d['tensors'][0]:.3e} in {d['tensors'][1]} (two resumed runs "
+          f"{floor['tensors'][0]:.3e} in {floor['tensors'][1]}; tol {SPREAD}x that); "
+          f"zero-gradient biases {d['zero_grad_biases'][0]:.3e} ({floor['zero_grad_biases'][0]:.3e}); "
+          f"step {resumed.state.step} against {full.state.step}: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the resumed run does not agree with the uninterrupted one")
+
+
+def step_peak(batch, remat: bool, seed: int = 11):
+    """One train step of a fresh model (seed ``seed``) on ``batch``: the
+    state after it, the aux, each parameter's gradient, the BN buffers
+    before, and the peak memory above what was allocated before the step
+    (GiB); (None, ..., 'does not fit') when the card runs out of memory."""
+    import torch
+
+    from deflow_tpu_torch.models import build_model
+    from deflow_tpu_torch.trainer import TRAIN_KEYS, device_batch, init_train_state, make_train_step
+
+    model = build_model(LEADERBOARD, precision="bf16", seed=seed)
+    state = init_train_state(model, {"lr": LR, "optimizer": "adam"})
+    before = {k: v.clone() for k, v in model.state_dict().items() if "running" in k}
+    db = device_batch(batch, keys=TRAIN_KEYS)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        state, aux = make_train_step(model, "deflowLoss", remat=remat)(state, db)
+        torch.cuda.synchronize()
+    except torch.cuda.OutOfMemoryError:
+        return None, None, None, before, "does not fit"
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    grads = {k: p.grad.detach().float().clone() for k, p in model.named_parameters()}
+    return state, {k: float(v) for k, v in aux.items()}, grads, before, peak
+
+
+def _grad_spread(a: dict, b: dict) -> tuple:
+    """The largest difference of two steps' gradients over each parameter's
+    largest gradient element (a zero-gradient conv bias: over its weight's),
+    and its parameter."""
+    return max(((g - b[k]).abs().max().item() / max(
+        a[k[:-4] + "weight" if _zero_grad_bias(k) else k].abs().max().item(), 1e-30), k)
+        for k, g in a.items())
+
+
+def hold_remat(batch) -> dict:
+    """Two bf16 steps without remat and one with, from the same state (seed
+    11) and batch: the same loss (the forward kernels are deterministic);
+    the remat step's gradients within SPREAD times the two plain steps'
+    difference (``_grad_spread``), since the recompute feeds the backward
+    the same forward values; every BN running statistic moved once: its
+    difference from the plain step's value at most REMAT_STATS_SHARE of the
+    plain step's move (a second momentum update would move it again by
+    (1 − m) of that).  Returns the peak memory of each step (GiB above the
+    state)."""
+    plain, plain2 = step_peak(batch, remat=False), step_peak(batch, remat=False)
+    remat = step_peak(batch, remat=True)
+    grad, floor = _grad_spread(plain[2], remat[2]), _grad_spread(plain[2], plain2[2])
+    sp, sr = plain[0].model.state_dict(), remat[0].model.state_dict()
+    share = max(((sr[k] - sp[k]).abs().max() / (sp[k] - v).abs().max().clamp(min=1e-30)).item()
+                for k, v in plain[3].items())
+    moved = min((sp[k] - v).abs().max().item() for k, v in plain[3].items())
+    ok = (remat[1]["loss"] == plain[1]["loss"] and grad[0] <= SPREAD * floor[0]
+          and share <= REMAT_STATS_SHARE and moved > 0)
+    print(f"remat against plain (one step, bf16, {TRAIN_B} x {N}): loss {remat[1]['loss']!r} "
+          f"against {plain[1]['loss']!r}; largest gradient difference over the "
+          f"parameter's largest {grad[0]:.3e} in {grad[1]} (two plain steps "
+          f"{floor[0]:.3e} in {floor[1]}; tol {SPREAD}x that); BN running statistics: "
+          f"largest difference {share:.3e} of the plain step's move (tol "
+          f"{REMAT_STATS_SHARE:g}; every statistic moved, the least by {moved:.3e}); peak "
+          f"memory of the step {remat[4]:.2f} GiB with remat, {plain[4]:.2f} GiB without: "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the remat step disagrees with the plain step")
+    return {"remat_gib": remat[4], "plain_gib": plain[4]}
+
+
+def probe_config_batch() -> dict:
+    """The peak memory of one step at the config's batch_size on one card
+    (2B = 32: the plain cuDNN U-Net, no fused chains), with remat and
+    without; 'does not fit' where the card runs out."""
+    import torch
+
+    from deflow_tpu_torch.data.host_prep import attach_host_prep
+
+    batch = attach_host_prep(make_batch(600, b=CONFIG_BATCH), VOXEL, RANGE,
+                             num_workers=HOST_WORKERS)
+    out = {}
+    for remat in (True, False):
+        r = step_peak(batch, remat)
+        out["remat_gib" if remat else "plain_gib"] = r[4]
+        del r
+        torch.cuda.empty_cache()
+    show = lambda v: v if isinstance(v, str) else f"{v:.2f} GiB"
+    print(f"batch_size {CONFIG_BATCH} on one card ({CONFIG_BATCH} x {N}, 2B = "
+          f"{2 * CONFIG_BATCH}: the plain U-Net): peak memory of one step "
+          f"{show(out['remat_gib'])} with remat, {show(out['plain_gib'])} without")
+    return out
+
+
+def run_train_entry(device_ms: dict, train_batch) -> dict:
+    """Phase 5b: the train entry (``entry.train.fit``) over in-memory
+    splits at TRAIN_B x N, the config's defaults (remat, bf16, Adam, the
+    leaderboard DeFlow) but for the sizes: (a) deflowLoss, ENTRY_EPOCHS
+    epochs of ENTRY_TRAIN_STEPS steps, each validated on ENTRY_VAL_BATCHES
+    batches of B and checkpointed; (b1), (b2) resumed from (a)'s
+    epoch_0.ckpt for its last epoch; (c) seflowLoss, one epoch of ENTRY_SSL_STEPS steps (the
+    grid branch).  Launches per step and per eval batch, finite metrics,
+    the resumed run against (a), the checkpoint round trip, remat against
+    plain, the peak memory at TRAIN_B and at the config's batch_size.
+    Returns the launches of (a) and (c)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        train = entry_dataset(range(700, 700 + ENTRY_TRAIN_STEPS), TRAIN_B)
+        val = entry_dataset(range(800, 800 + ENTRY_VAL_BATCHES), B)
+        full, launches, prep_ms = traced_fit(entry_cfg(os.path.join(tmp, "a")), train, val,
+                                             "train entry (a)", REMAT_PER_STEP)
+        ckpts = sorted(os.listdir(os.path.join(full.run_dir, "checkpoints")))
+        print(f"train entry (a): checkpoints {ckpts}; val EPE_3way_mean "
+              f"{full.metrics['EPE_3way_mean']:.6f}, Static_EPE_mean "
+              f"{full.metrics['Static_EPE_mean']:.6f}, Dynamic_NormEPE_mean "
+              f"{full.metrics['Dynamic_NormEPE_mean']:.6f}")
+        if ckpts != ["best.ckpt", "epoch_0.ckpt", "epoch_1.ckpt"] or not all(
+                np.isfinite(full.metrics[k]) for k in
+                ("EPE_3way_mean", "Static_EPE_mean", "Dynamic_NormEPE_mean")):
+            raise SystemExit("the train entry wrote other checkpoints or non-finite metrics")
+        entry_numbers("train entry (a)", full, prep_ms, device_ms["train"],
+                      ENTRY_TRAIN_STEPS)
+        resumed = [traced_fit(entry_cfg(os.path.join(tmp, f"b{i}"), resume=os.path.join(
+            full.run_dir, "checkpoints", "epoch_0.ckpt")), train, val,
+            f"train entry (b{i}), resumed", REMAT_PER_STEP)[0] for i in (1, 2)]
+        hold_resume(full, *resumed)
+        ckpt = hold_round_trip(full, tmp)
+        ckpt["fit_ckpt_ms"] = [s * 1e3 for s in full.timer.child("ckpt").samples]
+        print("train entry (a): checkpoint stage ms (best, epoch) "
+              + ", ".join(f"{ms:.1f}" for ms in ckpt["fit_ckpt_ms"]))
+        del resumed
+        ssl_train = entry_dataset(range(900, 900 + ENTRY_SSL_STEPS), TRAIN_B, dufo=True)
+        ssl, ssl_launches, ssl_prep = traced_fit(
+            entry_cfg(os.path.join(tmp, "c"), loss_fn="seflowLoss", epochs=1),
+            ssl_train, None, "train entry (c), seflowLoss",
+            {**REMAT_PER_STEP, "cell_sweep": 2, "segment_sum_lanes": 1})
+        if not np.isfinite(ssl.last_aux["loss"]):
+            raise SystemExit("the SeFlow train entry gave a non-finite loss")
+        entry_numbers("train entry (c), seflowLoss", ssl, ssl_prep, device_ms["ssl"],
+                      ENTRY_SSL_STEPS)
+        del full, ssl
+        torch.cuda.empty_cache()
+        mem = {"at_train_b": hold_remat(train_batch), "at_config_batch": probe_config_batch()}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"launches": launches, "ssl_launches": ssl_launches, "checkpoint": ckpt,
+            "memory": mem}
 
 
 def _category(name: str) -> str:
@@ -1485,7 +1885,10 @@ def main() -> int:
         print(f"{label} step device ms: " + ", ".join(f"{t:.3f}" for t in step_ms)
               + f"; steady median {med:.3f} ms = {TRAIN_B / med * 1e3:.2f} pairs/s; "
               f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        runs[label] = (launches, len(bts))
+        runs[label] = (launches, len(bts), med)
+
+    entry = run_train_entry({"train": runs["train"][2], "ssl": runs["ssl"][2]},
+                            train_batches[0])
 
     ref_err = reference_check(seed=7)
     print(f"reference check (f32, 64x64 grid, card vs CPU): max |d pred_flow| "
@@ -1535,6 +1938,9 @@ def main() -> int:
              "launches_per_ssl_brute_step": per("ssl 2 x 16,384", name),
              **({"eval_launches": eval_launches[name],
                  "entry_launches": entry_launches[name]} if eval_launches[name] else {}),
+             "train_entry_launches": entry["ssl_launches" if name in (
+                 "segment_sum_lanes", "cell_sweep") else "launches"][name],
+             "ssl_train_entry_launches": entry["ssl_launches"][name],
              **kernels[name]}
             for name, (src, rep) in sources.items()]
     print(json.dumps({"kernels": rows}))

@@ -1,0 +1,273 @@
+"""The train entry point (counterpart of ``deflow_tpu/entry/train.py``).
+
+    python -m deflow_tpu_torch.entry.train [device=cpu] key=value ...
+
+(the reference's CLI contract, README.md:66-74: ``model=deflow lr=2e-4
+epochs=15 batch_size=16 loss_fn=deflowLoss`` plus nested and list
+overrides).  Runs on the card unless ``device=cpu`` is given in the config
+or the call; without a card it raises.
+
+The path: ``HDF5Dataset`` → ``DataLoader`` (shuffled from ``seed`` +
+epoch; the C++ host prep as ``post_collate``, in the loader's prefetch
+thread) → ``trainer.device_prefetch`` of the train keys → the supervised or
+SeFlow step (``remat`` recomputes the forward in the backward) → the JSONL
+or wandb log every ``log_every`` steps; after each epoch the validation
+sweep (``run_validation``, every ``eval_every`` epochs), the best
+checkpoint on ``model.val_monitor`` and ``epoch_<N>.ckpt`` (every
+``ckpt_every`` epochs) under ``<output_dir>/wandb/<model>-<slurm_id>/
+checkpoints``.  ``resume=<.ckpt>`` continues with the epoch after the
+file's, with that epoch's shuffle; ``checkpoint=<.ckpt|.pth|.pt>`` starts
+from its weights.  ``profile=k`` traces steps 2 … 2+k with torch.profiler
+into ``<run_dir>/profile``.
+
+``main`` composes the config and opens the ``.h5`` splits; :func:`fit`
+does the rest on any datasets shaped like ``HDF5Dataset`` (lists of sample
+dicts, where ``h5py`` is absent).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+import warnings
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from deflow_tpu_torch.config import Config, from_cli
+from deflow_tpu_torch.data.h5dataset import DataLoader, HDF5Dataset
+from deflow_tpu_torch.device import resolve_device
+from deflow_tpu_torch.entry.evaluate import _sorted_prep, run_validation
+from deflow_tpu_torch.losses import SSL_LOSS_REGISTRY
+from deflow_tpu_torch.models import build_model
+from deflow_tpu_torch.trainer import (SSL_TRAIN_KEYS, TRAIN_KEYS, BestCheckpointKeeper,
+                                      TrainState, device_prefetch, init_train_state,
+                                      load_checkpoint, load_weights, make_eval_step,
+                                      make_train_step, save_checkpoint)
+from deflow_tpu_torch.utils.logger import MetricLogger
+from deflow_tpu_torch.utils.timer import StageTimer
+
+
+def _dyn_cap_for(dyn_cap: Optional[int], n: int) -> int:
+    """The compacted f-term budget of ``n`` rows (``deflow_tpu/ops/
+    chamfer.py:655`` ``_dyn_cap_for``): no compaction (``n``) by default."""
+    return n if dyn_cap is None else min(dyn_cap, n)
+
+
+class DynCapMonitor:
+    """Host-side check of every SSL batch against an explicit compacted
+    f-term budget (``dyn_cap``): points beyond it would lose their
+    dynamic-chamfer gradient, so a denser DUFO labeling than expected warns,
+    once for each new running maximum.  With no budget (the default) the
+    cap is N and the monitor never warns.
+
+    The JAX package also reads the budget from ``DEFLOW_SSL_DYNCAP``.  The
+    port's ``seflow_loss`` never compacts (``NNSpec.dyn_cap`` is not
+    ported), so that override raises here instead of warning about a budget
+    that does not exist."""
+
+    def __init__(self, dyn_cap: Optional[int] = None):
+        env_cap = os.environ.get("DEFLOW_SSL_DYNCAP")
+        if dyn_cap is None and env_cap is not None and int(env_cap):
+            raise NotImplementedError(
+                f"DEFLOW_SSL_DYNCAP={env_cap}: the port's seflow_loss does not "
+                "compact the dynamic terms (NNSpec.dyn_cap is not ported); unset it")
+        self.dyn_cap = dyn_cap
+        self._warned_max = 0
+        self.seen_max = 0
+
+    def check(self, host_batch: dict) -> None:
+        for side in ("0", "1"):
+            dufo = host_batch.get(f"dufo_label{side}")
+            mask = host_batch.get(f"pc{side}_mask")
+            if dufo is None or mask is None:
+                continue
+            counts = np.sum(np.asarray(mask) & (np.asarray(dufo) > 0), axis=-1)
+            cap = _dyn_cap_for(self.dyn_cap, int(np.asarray(mask).shape[-1]))
+            m = int(counts.max())
+            self.seen_max = max(self.seen_max, m)
+            if m > cap and m > self._warned_max:
+                self._warned_max = m
+                warnings.warn(
+                    f"dufo_label{side}: up to {m} dynamic points per sample exceed "
+                    f"the SSL dyn_cap budget ({cap}); the extra points lose their "
+                    "dynamic-chamfer gradient (forward loss unaffected). Raise the "
+                    "budget or re-check the DUFO label density.")
+
+
+def check_supported(cfg) -> None:
+    """Raise for what the port does not run, instead of doing something
+    else: frame history, more than one device, the dyn_cap override."""
+    if int(cfg.get("num_frames", 2)) != 2:
+        raise NotImplementedError("the port runs frame pairs only (num_frames=2)")
+    if int(cfg.get("num_devices", -1)) > 1:
+        raise NotImplementedError(
+            "the port trains on one device (num_devices <= 1); data parallelism "
+            "is not ported")
+    DynCapMonitor()
+
+
+@dataclass
+class FitResult:
+    """What :func:`fit` ran to: the last validation metrics (empty without
+    a validation split), the final state, the last step's aux (floats), the
+    run directory and the stage timer."""
+
+    metrics: Dict[str, float]
+    state: TrainState
+    last_aux: Dict[str, float]
+    run_dir: str
+    timer: StageTimer
+
+
+def fit(cfg, train_ds, val_ds=None, device=None,
+        val_batch_size: Optional[int] = None) -> FitResult:
+    """Train ``cfg``'s model on ``train_ds`` (``HDF5Dataset`` or a list of
+    its items) on ``device`` (``cfg["device"]`` when None; the card unless
+    ``"cpu"``), validating on ``val_ds`` in batches of ``val_batch_size``
+    (default ``batch_size``)."""
+    dev = resolve_device(device if device is not None else cfg.get("device"))
+    check_supported(cfg)
+    loss_name = str(cfg["loss_fn"])
+    is_ssl = loss_name in SSL_LOSS_REGISTRY
+    batch_size = int(cfg["batch_size"])
+    train_loader = DataLoader(train_ds, batch_size, shuffle=True, seed=int(cfg["seed"]),
+                              post_collate=_sorted_prep(cfg),
+                              num_workers=int(cfg.get("num_workers", 0)))
+
+    model = build_model(cfg["model"], precision=str(cfg.get("precision", "bf16")),
+                        device=dev, seed=int(cfg["seed"]))
+    state = init_train_state(model, cfg, dev)
+    start_epoch = 0
+    if cfg.get("resume"):
+        state, start_epoch = load_checkpoint(str(cfg["resume"]), state)
+        print(f"resumed from {cfg['resume']}: epoch {start_epoch} is next")
+    elif cfg.get("checkpoint"):
+        state = load_weights(str(cfg["checkpoint"]), state)
+        print(f"initialized weights from {cfg['checkpoint']}")
+
+    cfg_dict = cfg.to_dict() if isinstance(cfg, Config) else dict(cfg)
+    logger = MetricLogger(
+        project=str(cfg.get("wandb_project", "deflow-tpu")),
+        run_name=f"{cfg['model']['name']}-{cfg['slurm_id']}",
+        mode=str(cfg.get("wandb_mode", "offline")),
+        entity=str(cfg.get("wandb_entity", "") or ""),
+        output_dir=str(cfg["output_dir"]), config=cfg_dict)
+    profile_steps = int(cfg.get("profile", 0) or 0)
+    # a sync at every stage stop serialises the host with the card: only
+    # when profiling
+    timer = StageTimer("Total", sync_fn=(torch.cuda.synchronize
+                                         if profile_steps and dev.type == "cuda" else None))
+    train_step = make_train_step(model, loss_name, dev, remat=bool(cfg.get("remat", False)))
+    eval_step = make_eval_step(model, dev)
+    val_cfg = Config(cfg_dict)
+    val_cfg["batch_size"] = int(val_batch_size or batch_size)
+    monitor = str(cfg["model"].get("val_monitor", "") or "")
+    best_keeper = (BestCheckpointKeeper(logger.ckpt_dir, monitor,
+                                        mode=str(cfg.get("val_monitor_mode", "min")))
+                   if monitor and val_ds is not None else None)
+
+    dyn_cap_monitor = DynCapMonitor()
+    log_every = int(cfg.get("log_every", 10))
+    keys = SSL_TRAIN_KEYS if is_ssl else TRAIN_KEYS
+    final_metrics: Dict[str, float] = {}
+    prof = None
+    frames_seen = global_it = 0
+    aux = None
+    t_train0 = time.perf_counter()
+    for epoch in range(start_epoch, int(cfg["epochs"])):
+        # the shuffle of epoch `epoch`, in a resumed run too
+        train_loader.epoch = epoch
+        for i, (host_batch, batch) in enumerate(device_prefetch(train_loader, dev,
+                                                                keys=keys)):
+            if profile_steps and global_it == 2:        # past the warm-up steps
+                prof = _start_profile(dev)
+            if prof is not None and global_it == 2 + profile_steps:
+                _stop_profile(prof, logger.run_dir)
+                prof = None
+            global_it += 1
+            if is_ssl:
+                dyn_cap_monitor.check(host_batch)
+            with timer.stage("step"):
+                state, aux = train_step(state, batch)
+            frames_seen += len(host_batch["scene_id"])
+            if i % log_every == 0:
+                vals = {k: float(v) for k, v in aux.items()}
+                logger.log({
+                    "train/loss": vals["loss"], "train/epe": vals["epe"],
+                    "train/grad_norm": vals["grad_norm"],
+                    "train/frames_per_sec": frames_seen / (time.perf_counter() - t_train0),
+                    "epoch": epoch,
+                }, step=state.step)
+                print(f"epoch {epoch} it {i} loss {vals['loss']:.4f} "
+                      f"epe {vals['epe']:.4f}", flush=True)
+
+        if val_ds is not None and (epoch + 1) % int(cfg.get("eval_every", 1)) == 0:
+            with timer.stage("val"):
+                metrics = run_validation(eval_step, val_ds, val_cfg, dev)
+            logger.log({f"val/{k}": v for k, v in metrics.items()}, step=state.step)
+            final_metrics = metrics
+            print(f"epoch {epoch} val EPE_3way_mean "
+                  f"{metrics.get('EPE_3way_mean', float('nan')):.4f}", flush=True)
+            if best_keeper is not None:
+                with timer.stage("ckpt"):
+                    path = best_keeper.update(metrics, state, epoch)
+                if path:
+                    logger.log({f"best/{best_keeper.key}": best_keeper.best},
+                               step=state.step)
+                    print(f"new best {monitor}={best_keeper.best:.4f}: {path}", flush=True)
+
+        if (epoch + 1) % int(cfg.get("ckpt_every", 1)) == 0:
+            with timer.stage("ckpt"):
+                path = save_checkpoint(logger.ckpt_dir, state, epoch)
+            print(f"saved checkpoint: {path}", flush=True)
+
+    if prof is not None:
+        _stop_profile(prof, logger.run_dir)
+    print(timer.report())
+    logger.finish()
+    return FitResult(final_metrics, state,
+                     {} if aux is None else {k: float(v) for k, v in aux.items()},
+                     logger.run_dir, timer)
+
+
+def _start_profile(dev: torch.device):
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, run_dir: str) -> None:
+    prof.stop()
+    out = os.path.join(run_dir, "profile")
+    os.makedirs(out, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out, "trace.json"))
+    print(f"profile trace written to {out}")
+
+
+def main(cfg: Optional[Config] = None, device=None) -> Dict[str, float]:
+    """Train from the composed config; returns the last validation
+    metrics."""
+    if cfg is None:
+        cfg = from_cli(config_name="config")
+    dev = resolve_device(device if device is not None else cfg.get("device"))
+    check_supported(cfg)
+    kw = dict(max_points=int(cfg["max_points"]), remove_ground=bool(cfg["remove_ground"]))
+    train_ds = HDF5Dataset(str(cfg["train_data"]), limit=int(cfg.get("overfit", 0)), **kw)
+    val_dir = str(cfg["val_data"])
+    val_ds = HDF5Dataset(val_dir, **kw) if os.path.isdir(val_dir) else None
+    try:
+        return fit(cfg, train_ds, val_ds, dev).metrics
+    finally:
+        train_ds.close()
+        if val_ds is not None:
+            val_ds.close()
+
+
+if __name__ == "__main__":
+    main()

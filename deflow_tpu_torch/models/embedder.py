@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from deflow_tpu_torch.models.running_stats import update_running_
 from deflow_tpu_torch.ops.voxel import TRASH_PAD, VoxelConfig, segment_sum_batched
 
 
@@ -39,8 +40,8 @@ def masked_batch_norm(x: torch.Tensor, mask: torch.Tensor,
         var = (diff * diff).sum(dims) / n
         with torch.no_grad():
             unbiased = var * n / (n - 1.0).clamp(min=1.0)
-            bn.running_mean.mul_(1 - bn.momentum).add_(bn.momentum * mean)
-            bn.running_var.mul_(1 - bn.momentum).add_(bn.momentum * unbiased)
+        update_running_(bn.running_mean, mean, bn.momentum)
+        update_running_(bn.running_var, unbiased, bn.momentum)
     else:
         mean, var = bn.running_mean, bn.running_var
     return (xf - mean) * torch.rsqrt(var + bn.eps) * bn.weight + bn.bias

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from deflow_tpu_torch.models.running_stats import update_running_
 from deflow_tpu_torch.ops.cbg import cbg_chain, use_fused_cbg
 
 
@@ -45,10 +46,8 @@ class ConvWithNorms(nn.Module):
 
     def update_stats(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         """flax BatchNorm's running update (momentum 0.9, biased var)."""
-        bn = self.batchnorm
-        with torch.no_grad():
-            bn.running_mean.mul_(0.9).add_(0.1 * mean)
-            bn.running_var.mul_(0.9).add_(0.1 * var)
+        update_running_(self.batchnorm.running_mean, mean, 0.1)
+        update_running_(self.batchnorm.running_var, var, 0.1)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         y = _conv(self.conv, x, dtype).float()

@@ -4,10 +4,12 @@ Counterpart of ``deflow_tpu/trainer.py``: ``make_optimizer``,
 ``init_train_state`` (here a :class:`TrainState` holding the model with its
 parameters and BN running statistics, the optimizer with its state, and the
 step counter), ``make_train_step`` (the supervised step, or the SeFlow
-self-supervised one for ``seflowLoss``), ``make_eval_step``,
-``device_batch`` and ``device_prefetch``.  In eval, the final predicted
-flow is the rigid ego flow everywhere plus the network flow at voxel-valid
-points.
+self-supervised one for ``seflowLoss``; optionally with the forward
+recomputed in the backward), ``make_eval_step``, ``device_batch``,
+``device_prefetch``, and the checkpoints (``save_checkpoint``,
+``load_checkpoint``, ``BestCheckpointKeeper``, ``load_weights``).  In eval,
+the final predicted flow is the rigid ego flow everywhere plus the network
+flow at voxel-valid points.
 
 Optimizer semantics follow optax: Adam (b1 0.9, b2 0.999, eps 1e-8), AdamW
 with optax's default weight decay 1e-4, SGD with momentum 0.9; a global-norm
@@ -18,17 +20,22 @@ gradient.
 
 from __future__ import annotations
 
+import contextlib
+import os
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Iterable, Iterator, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from deflow_tpu_torch import convert
 from deflow_tpu_torch.data.h5dataset import background
 from deflow_tpu_torch.data.host_prep import (CHAMFER_CELL_KEYS, HOST_PREP_KEYS,
                                              host_prep_from_batch)
 from deflow_tpu_torch.device import resolve_device
 from deflow_tpu_torch.losses import SSL_LOSS_REGISTRY, get_loss
+from deflow_tpu_torch.models.running_stats import frozen_running_stats
 
 # the host-batch keys the model reads, and those the supervised and the SSL
 # losses add
@@ -53,10 +60,12 @@ def device_batch(batch: Dict, device=None,
     return out
 
 
-def device_prefetch(loader: Iterable[Dict], device=None,
-                    depth: int = 2) -> Iterator[Tuple[Dict, Dict[str, torch.Tensor]]]:
+def device_prefetch(loader: Iterable[Dict], device=None, depth: int = 2,
+                    keys: Sequence[str] = MODEL_KEYS
+                    ) -> Iterator[Tuple[Dict, Dict[str, torch.Tensor]]]:
     """Iterate ``(host_batch, device_batch)`` with the host-to-device copy
-    running up to ``depth`` batches ahead, in a background thread.
+    of ``keys`` (those the batch has) running up to ``depth`` batches ahead,
+    in a background thread.
 
     On the card (unless ``device="cpu"``) the thread pins each batch's
     arrays and copies them with ``non_blocking=True`` on a side stream,
@@ -70,14 +79,14 @@ def device_prefetch(loader: Iterable[Dict], device=None,
     def moved():
         if dev.type == "cpu":
             for hb in loader:
-                yield hb, device_batch(hb, dev), None
+                yield hb, device_batch(hb, dev, keys), None
             return
         torch.cuda.set_device(dev)
         side = torch.cuda.Stream(dev)
         with torch.cuda.stream(side):
             for hb in loader:
                 db = {k: torch.from_numpy(np.ascontiguousarray(hb[k])).pin_memory()
-                      .to(dev, non_blocking=True) for k in MODEL_KEYS if k in hb}
+                      .to(dev, non_blocking=True) for k in keys if k in hb}
                 ready = torch.cuda.Event()
                 ready.record(side)
                 yield hb, db, ready
@@ -187,8 +196,15 @@ def init_train_state(model: torch.nn.Module, cfg, device=None) -> TrainState:
     return TrainState(model, opt.build(model.parameters()), opt.clip)
 
 
+def _remat_contexts():
+    """``context_fn`` of the remat checkpoint: the forward as it is, the
+    recompute with the BN running statistics held still (they moved once,
+    in the forward)."""
+    return contextlib.nullcontext(), frozen_running_stats()
+
+
 def make_train_step(model: torch.nn.Module, loss_name: str,
-                    device=None) -> Callable:
+                    device=None, remat: bool = False) -> Callable:
     """``train_step(state, host_or_device_batch) -> (state, aux)`` on
     ``device`` (the card unless ``"cpu"``): the supervised step on target =
     flow − pose_flow over mask = pc0_valid & flow_is_valid, or for an SSL
@@ -197,12 +213,24 @@ def make_train_step(model: torch.nn.Module, loss_name: str,
     ``aux`` holds device scalars ``loss``, ``epe`` (masked mean L2 of flow −
     target; 0 for SSL), ``valid_points`` (SSL: pc0_valid & pc0_mask) and
     ``grad_norm`` (before clipping).  Each step runs the model in train mode
-    and each eval step in eval mode, so the two may alternate."""
+    and each eval step in eval mode, so the two may alternate.
+
+    ``remat``: the model's forward (not the loss) runs under
+    ``torch.utils.checkpoint`` (non-reentrant), as the JAX package wraps its
+    ``model.apply`` in ``jax.checkpoint``: the backward recomputes it instead
+    of keeping its saved tensors, so every forward kernel launches twice a
+    step.  The recompute leaves the BN running statistics alone, and on the
+    CPU the step is the plain step bit for bit."""
     dev = resolve_device(device)
     model.to(dev)
     is_ssl = loss_name in SSL_LOSS_REGISTRY
     loss_fn = SSL_LOSS_REGISTRY[loss_name] if is_ssl else get_loss(loss_name)
     keys = SSL_TRAIN_KEYS if is_ssl else TRAIN_KEYS
+
+    def forward(b):
+        return model(b["pc0"], b["pc1"], b["pose0"], b["pose1"],
+                     b["pc0_mask"], b["pc1_mask"], ego_motion=b.get("ego_motion"),
+                     host_prep=host_prep_from_batch(b))
 
     def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
         if state.model is not model:
@@ -210,9 +238,9 @@ def make_train_step(model: torch.nn.Module, loss_name: str,
         model.train()
         b = device_batch(batch, dev, keys)
         state.optimizer.zero_grad(set_to_none=True)
-        out = model(b["pc0"], b["pc1"], b["pose0"], b["pose1"],
-                    b["pc0_mask"], b["pc1_mask"], ego_motion=b.get("ego_motion"),
-                    host_prep=host_prep_from_batch(b))
+        out = (checkpoint(forward, b, use_reentrant=False,
+                          context_fn=_remat_contexts)
+               if remat else forward(b))
         if is_ssl:
             mask = out["pc0_valid"] & b["pc0_mask"]
             loss = loss_fn(out, b)
@@ -234,3 +262,87 @@ def make_train_step(model: torch.nn.Module, loss_name: str,
                        "grad_norm": grad_norm}
 
     return train_step
+
+
+# ---------------------------------------------------------------- checkpoints
+def save_checkpoint(ckpt_dir: str, state: TrainState, epoch: int,
+                    name: Optional[str] = None) -> str:
+    """Write ``<ckpt_dir>/epoch_<epoch>.ckpt`` (or ``<name>.ckpt``) after
+    epoch ``epoch`` has run, in the Lightning layout the reference writes
+    (README.md:76-77): ``state_dict`` (the model's parameters and BN
+    buffers, keys prefixed ``model.``), ``optimizer_states`` (a list of the
+    torch optimizer's ``state_dict``), ``global_step`` and ``epoch``.  So
+    ``convert.load_weights`` and the eval entry read it as they read a
+    reference checkpoint.  Written to a temporary name, then renamed: a
+    reader never sees half a file."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.abspath(os.path.join(ckpt_dir, f"{name or f'epoch_{epoch}'}.ckpt"))
+    payload = {
+        "state_dict": {f"model.{k}": v.detach()
+                       for k, v in state.model.state_dict().items()},
+        "optimizer_states": [state.optimizer.state_dict()],
+        "global_step": int(state.step),
+        "epoch": int(epoch),
+    }
+    tmp = f"{path}.tmp{os.getpid()}"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def load_checkpoint(path: str, state: TrainState) -> Tuple[TrainState, int]:
+    """Restore a :func:`save_checkpoint` file into ``state``: the parameters
+    and BN buffers (``num_batches_tracked`` too), copied into the model's
+    tensors on its device; the optimizer state, whose moments the optimizer
+    moves onto its parameters' device (the file is read with
+    ``map_location="cpu"``, so Adam's ``step`` stays on the CPU, where torch
+    keeps it); and the step.  Returns the state and the NEXT epoch to run:
+    the file was written after its epoch had run (the JAX package's
+    ``load_checkpoint`` returns the saved epoch, and its ``main`` runs that
+    epoch again)."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    convert.load_reference_state_dict(state.model, ckpt["state_dict"])
+    state.optimizer.load_state_dict(ckpt["optimizer_states"][0])
+    state.step = int(ckpt["global_step"])
+    return state, int(ckpt["epoch"]) + 1
+
+
+class BestCheckpointKeeper:
+    """Keep the best checkpoint by a monitored validation metric, as the
+    reference's Lightning ``ModelCheckpoint(monitor=...)`` does
+    (``conf/model/*.yaml`` ``val_monitor``).
+
+    ``monitor`` is the logged name (``val/EPE_3way_mean``); the metric dict
+    is keyed without the ``val/`` prefix.  ``mode`` is ``"min"`` or
+    ``"max"``."""
+
+    def __init__(self, ckpt_dir: str, monitor: str, mode: str = "min"):
+        if mode not in ("min", "max"):
+            raise ValueError(f"val_monitor mode must be min|max, got {mode!r}")
+        self.ckpt_dir = ckpt_dir
+        self.key = monitor.split("/")[-1]
+        self.mode = mode
+        self.best: Optional[float] = None
+
+    def update(self, metrics: Dict[str, Any], state: TrainState,
+               epoch: int) -> Optional[str]:
+        """Write ``<ckpt_dir>/best.ckpt`` if the monitored metric improved
+        (the first value always does); returns its path then, else None.  A
+        metric dict without the key is ignored."""
+        if self.key not in metrics:
+            return None
+        v = float(metrics[self.key])
+        improved = self.best is None or (
+            v < self.best if self.mode == "min" else v > self.best)
+        if not improved:
+            return None
+        self.best = v
+        return save_checkpoint(self.ckpt_dir, state, epoch, name="best")
+
+
+def load_weights(path: str, state: TrainState) -> TrainState:
+    """The weights of a ``.ckpt``/``.pth``/``.pt`` file in the reference
+    layout (a training checkpoint of :func:`save_checkpoint` too) into
+    ``state``'s model; the optimizer state and the step stay as they are."""
+    convert.load_weights(state.model, path)
+    return state

@@ -2,8 +2,9 @@
 
 - no module of ``deflow_tpu_torch`` nor ``chip_smoke.py`` imports JAX, flax,
   optax or the JAX package;
-- ``h5py``, ``pyarrow`` and ``yaml`` (absent on the card's machine) are
-  imported only inside functions, so every module imports without them;
+- ``h5py``, ``pyarrow``, ``yaml`` and ``wandb`` (absent on the card's
+  machine) are imported only inside functions, so every module imports
+  without them;
 - without a visible card, the entry points raise unless asked for the CPU;
 - CPU tensors take the plain versions without building any kernel; tensors
   on any other non-CUDA device are refused, not computed.
@@ -42,7 +43,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert not bad, bad
 
 
-OPTIONAL = ("h5py", "pyarrow", "yaml")
+OPTIONAL = ("h5py", "pyarrow", "yaml", "wandb")
 
 
 def _module_level_imports(tree):
@@ -71,8 +72,8 @@ def test_optional_modules_are_imported_inside_functions():
 
 
 def test_port_imports_without_optional_modules():
-    """Every module of the port imports where h5py, pyarrow and yaml are
-    absent, as on the card's machine."""
+    """Every module of the port imports where h5py, pyarrow, yaml and wandb
+    are absent, as on the card's machine."""
     code = (
         "import importlib, pkgutil, sys\n"
         f"for name in {OPTIONAL!r}:\n"

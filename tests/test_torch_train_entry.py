@@ -1,0 +1,546 @@
+"""The port's train entry (``deflow_tpu_torch/entry/train.py``), remat,
+checkpoints and their helpers against the JAX package's, on the CPU in f32.
+
+Shapes are those of ``tests/test_torch_train_step.py`` (B = 2, N = 512,
+32² grid, 4 GRU iterations) and ``tests/test_train_e2e.py`` (synthetic
+splits of 900-point frames, max_points 1,024, 64² grid, 2 GRU iterations).
+
+Tolerances, each with its reason:
+- the remat step against ``deflow_tpu.trainer.make_train_step(...,
+  remat=True)``: the f32 tolerances of ``test_torch_train_step.py``
+  (loss and aux 1e-5 relative; gradients 1e-4 of each parameter's largest
+  element; parameters after one Adam step 1e-6 + lr·1e-2, the zero-gradient
+  conv biases before a train-mode BN 2·lr; BN statistics 1e-5);
+- the remat step against the plain step, the resumed run against the
+  uninterrupted one, a checkpoint's round trip and ``device_prefetch``:
+  bit for bit (the same operations in the same order on the CPU);
+- ``StageTimer`` and ``MetricLogger`` against the JAX classes: the same
+  text and records (under one fake clock; apart from ``_ts``);
+- the port's ``main`` against JAX's ``main`` after one epoch from the same
+  weights: every validation metric within 1e-4 relative (EPEs and angles;
+  the accuracies, shares of points under a threshold, within 1e-4
+  absolute).  The two steps agree to the train step's f32 tolerances, but
+  Adam maps the rounding noise of the conv biases in front of a
+  train-mode BN (zero gradient in exact arithmetic) to steps of up to lr
+  on each side, and in eval those biases move the flow.  The two sides
+  measured 1.1e-5 at most (lr = 1e-3, one step of batch 8), the
+  accuracies equal.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import warnings
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from deflow_tpu_torch import trainer as TT
+from deflow_tpu_torch.config import compose
+from deflow_tpu_torch.convert import load_weights as load_weights_file
+from deflow_tpu_torch.data.host_prep import attach_host_prep
+from deflow_tpu_torch.data.synthetic import make_split
+from deflow_tpu_torch.entry import evaluate
+from deflow_tpu_torch.entry import train as TE
+from deflow_tpu_torch.models import build_model
+from deflow_tpu_torch.utils.logger import MetricLogger
+from deflow_tpu_torch.utils.timer import StageTimer
+
+from test_torch_host_prep import RANGE, make_host_batch
+from test_torch_modules import VOXEL
+from test_torch_ssl_kernels import interpret_pallas  # noqa: F401 (a fixture)
+from test_torch_ssl_step import ssl_batch
+from test_torch_train_step import LR, assert_step_matches_jax, run_steps
+
+ROOT = Path(__file__).resolve().parents[1]
+SMALL_MODEL = {"voxel_size": list(VOXEL), "point_cloud_range": RANGE, "num_iters": 4}
+MAIN_TOL = 1e-4
+
+
+def _overrides(root, out, **kw):
+    over = {"dataset_path": root, "batch_size": 2, "lr": 1e-3, "epochs": 1,
+            "num_workers": 0, "max_points": 1024, "voxel_size": "[1.6, 1.6, 6]",
+            "model.target.grid_feature_size": "[64, 64]",
+            "model.target.num_iters": 2, "precision": "fp32", "output_dir": out}
+    over.update(kw)
+    return [f"{k}={v}" for k, v in over.items()]
+
+
+@pytest.fixture(scope="module")
+def data_root(tmp_path_factory):
+    """``test_train_e2e.py``'s splits: 9 train pairs, 2 val pairs."""
+    root = str(tmp_path_factory.mktemp("av2train"))
+    make_split(root, "train", num_scenes=3, num_frames=4, points_per_frame=900,
+               labeled=True)
+    make_split(root, "val", num_scenes=1, num_frames=3, points_per_frame=900,
+               labeled=True, seed=7)
+    return root
+
+
+def _small_state(seed):
+    model = build_model(SMALL_MODEL, precision="fp32", device="cpu", seed=seed)
+    return TT.init_train_state(model, {"lr": LR}, device="cpu")
+
+
+def _prepped(seed, b=2, n=512):
+    return attach_host_prep(make_host_batch(seed, b, n, VOXEL), list(VOXEL), RANGE)
+
+
+def _same_state(a, b):
+    """Every tensor of two models' state dicts and optimizer states, and
+    the step, identical bit for bit."""
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    assert sa.keys() == sb.keys()
+    for k in sa:
+        assert sa[k].dtype == sb[k].dtype and torch.equal(sa[k], sb[k]), k
+    _same_tree(a.optimizer.state_dict(), b.optimizer.state_dict())
+    assert a.step == b.step
+
+
+def _same_tree(x, y, path="") -> None:
+    if isinstance(x, torch.Tensor):
+        assert isinstance(y, torch.Tensor) and x.dtype == y.dtype, path
+        assert x.device == y.device and torch.equal(x, y), path
+    elif isinstance(x, dict):
+        assert x.keys() == y.keys(), path
+        for k in x:
+            _same_tree(x[k], y[k], f"{path}/{k}")
+    elif isinstance(x, (list, tuple)):
+        assert len(x) == len(y), path
+        for i, (u, v) in enumerate(zip(x, y)):
+            _same_tree(u, v, f"{path}/{i}")
+    else:
+        assert x == y, path
+
+
+# ------------------------------------------------------------------ remat
+@pytest.mark.parametrize("loss_name", ["deflowLoss", "seflowLoss"])
+def test_remat_step_matches_jax(request, loss_name):
+    hb = make_host_batch(21, 2, 512, VOXEL)
+    if loss_name == "seflowLoss":
+        request.getfixturevalue("interpret_pallas")
+        hb = ssl_batch(31)
+    assert_step_matches_jax(*run_steps(hb, loss_name, remat=True))
+
+
+def _count_wrappers(monkeypatch):
+    """Count the calls of every kernel wrapper (on the CPU each takes its
+    plain version, and the launch counters stay 0)."""
+    from deflow_tpu_torch.ops import cbg, gather, gru, nn, scatter, sweep
+
+    calls = {}
+    for mod, name in ((scatter, "sorted_segment_sum"), (gather, "sorted_rows_gather"),
+                      (gru, "fused_gru"), (gru, "fused_gru_bwd"),
+                      (cbg, "cbg_block_fwd"), (cbg, "cbg_block_bwd"),
+                      (scatter, "segment_sum_lanes"), (sweep, "cell_sweep"),
+                      (nn, "chamfer_min")):
+        fn = getattr(mod, name)
+
+        def counted(*a, _fn=fn, _name=name, **k):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*a, **k)
+
+        monkeypatch.setattr(mod, name, counted)
+    return calls
+
+
+# wrapper calls per step, plain and remat.  Forward: two segment-sums (the
+# embedder, pc0 and pc1), one gather, one GRU, and at 2B <= 4 two chains of
+# three fused blocks.  Backward: each segment-sum's is a gather, the
+# gather's a segment-sum; the GRU backward, three fused-block backwards a
+# chain.  Remat runs every forward call a second time in the backward.
+PER_STEP = {"sorted_segment_sum": (3, 5), "sorted_rows_gather": (3, 4),
+            "fused_gru": (1, 2), "fused_gru_bwd": (1, 1),
+            "cbg_block_fwd": (6, 12), "cbg_block_bwd": (6, 6)}
+
+
+@pytest.mark.parametrize("loss_name,b", [("deflowLoss", 2), ("deflowLoss", 3),
+                                         ("seflowLoss", 2)],
+                         ids=["chains", "plain_unet", "seflow"])
+def test_remat_step_equals_plain_bit_for_bit(monkeypatch, loss_name, b):
+    """Two steps from the same state with and without remat: the loss, aux,
+    every gradient, every parameter after Adam, the Adam state, every BN
+    running statistic and ``num_batches_tracked`` are identical (a second
+    momentum update in the recompute would move the statistics)."""
+    calls = _count_wrappers(monkeypatch)
+    batches = [(ssl_batch(40 + s, b=b) if loss_name == "seflowLoss"
+                else make_host_batch(40 + s, b, 512, VOXEL)) for s in range(2)]
+    batches = [attach_host_prep(hb, list(VOXEL), RANGE) for hb in batches]
+    runs = []
+    for remat in (False, True):
+        state = _small_state(5)
+        step = TT.make_train_step(state.model, loss_name, device="cpu", remat=remat)
+        trace = []
+        for hb in batches:
+            calls.clear()
+            state, aux = step(state, hb)
+            trace.append((dict(aux), {k: p.grad.clone() for k, p in
+                                      state.model.named_parameters()}, dict(calls)))
+        runs.append((state, trace))
+    (plain, t_plain), (remat, t_remat) = runs
+    _same_state(plain, remat)
+    chains = 2 * b <= 4
+    for (aux_p, g_p, c_p), (aux_r, g_r, c_r) in zip(t_plain, t_remat):
+        for k in aux_p:
+            assert torch.equal(aux_p[k], aux_r[k]), k
+        for k in g_p:
+            assert torch.equal(g_p[k], g_r[k]), k
+        for name, (n_plain, n_remat) in PER_STEP.items():
+            if name.startswith("cbg") and not chains:
+                n_plain = n_remat = 0
+            assert c_p.get(name, 0) == n_plain, (name, c_p)
+            assert c_r.get(name, 0) == n_remat, (name, c_r)
+        ssl = {k: v for k, v in c_p.items() if k not in PER_STEP}
+        assert ssl == {k: v for k, v in c_r.items() if k not in PER_STEP}
+        assert bool(ssl) == (loss_name == "seflowLoss")
+
+
+# --------------------------------------------------------------- prefetch
+@pytest.mark.parametrize("keys", ["TRAIN_KEYS", "SSL_TRAIN_KEYS"])
+def test_device_prefetch_delivers_the_train_keys(keys):
+    keys = getattr(TT, keys)
+    batches = []
+    for s in range(3):
+        hb = ssl_batch(50 + s)
+        hb["ego_motion"] = np.linalg.inv(hb["pose1"]) @ hb["pose0"]
+        batches.append(attach_host_prep(hb, list(VOXEL), RANGE))
+    assert set(keys) <= set(batches[0])
+    got = list(TT.device_prefetch(batches, "cpu", keys=keys))
+    assert len(got) == 3
+    for hb, (host, dev) in zip(batches, got):
+        assert host is hb and set(dev) == set(keys)
+        for k in keys:
+            assert torch.equal(dev[k], torch.from_numpy(np.ascontiguousarray(hb[k]))), k
+    # the eval entry's calls keep the model keys
+    _, dev = next(iter(TT.device_prefetch(batches[:1], "cpu")))
+    assert set(dev) == set(TT.MODEL_KEYS)
+
+
+# ------------------------------------------------------- timer and logger
+def _fake_clock(monkeypatch):
+    """``time.perf_counter`` steps by 0.125 s more at each call (exact in
+    binary), from 0 at the first call."""
+    import time
+
+    ticks = iter(np.cumsum(np.arange(200) * 0.125).tolist())
+    monkeypatch.setattr(time, "perf_counter", lambda: next(ticks))
+
+
+def test_stage_timer_matches_jax(monkeypatch):
+    from deflow_tpu.utils.timer import StageTimer as JaxStageTimer
+
+    out = []
+    for cls in (StageTimer, JaxStageTimer):
+        _fake_clock(monkeypatch)
+        syncs = []
+        timer = cls("Total", sync_fn=lambda: syncs.append(1))
+        timer.start()
+        for _ in range(3):
+            with timer.stage("step"):
+                pass
+        with timer.stage("data", "decode"):
+            pass
+        with timer.stage("data"):
+            pass
+        timer.stop()
+        timer.stop()                 # not started: no sample
+        out.append((timer.report(), timer.as_dict(), len(syncs),
+                    timer.child("step").mean))
+    assert out[0] == out[1]
+    assert out[0][0].splitlines()[1].strip().startswith("step")
+
+
+def _jsonl(path):
+    with open(path) as f:
+        return [{k: v for k, v in json.loads(line).items() if k != "_ts"} for line in f]
+
+
+def test_metric_logger_matches_jax(tmp_path, monkeypatch):
+    from deflow_tpu.utils.logger import MetricLogger as JaxMetricLogger
+
+    monkeypatch.setitem(sys.modules, "wandb", None)      # the JSONL fallback
+    cfg = {"lr": 2e-4, "model": {"name": "deflow", "voxel": [0.2, 0.2, 6.0]},
+           "resume": None}
+    records = []
+    for cls, out in ((MetricLogger, tmp_path / "port"), (JaxMetricLogger, tmp_path / "jax")):
+        log = cls(project="p", run_name="deflow-7", mode="offline",
+                  output_dir=str(out), config=cfg)
+        assert Path(log.run_dir) == out / "wandb" / "deflow-7"
+        assert Path(log.ckpt_dir) == out / "wandb" / "deflow-7" / "checkpoints"
+        assert os.path.isdir(log.ckpt_dir)
+        log.log({"train/loss": 0.5, "epoch": 0}, step=1)
+        log.log({"val/EPE": np.float32(0.25), "val/n": np.int64(3)}, step=2)
+        log.log({"x": 1.0})
+        log.finish()
+        records.append(_jsonl(os.path.join(log.run_dir, "metrics.jsonl")))
+        off = cls(project="p", run_name="off", mode="disabled", output_dir=str(out))
+        off.log({"x": 1.0}, step=0)
+        off.finish()
+        assert not os.path.exists(os.path.join(off.run_dir, "metrics.jsonl"))
+    assert records[0] == records[1]
+    assert records[0][0] == {"_config": cfg} and len(records[0]) == 4
+
+
+# ------------------------------------------------------------- checkpoints
+@pytest.mark.parametrize("mode", ["min", "max"])
+def test_best_checkpoint_keeper(tmp_path, mode):
+    """``test_train_e2e.py``'s replay of the JAX keeper: no save on a worse
+    value, an overwrite on a better one, a missing key ignored."""
+    sign = 1.0 if mode == "min" else -1.0
+    state = _small_state(0)
+    keeper = TT.BestCheckpointKeeper(str(tmp_path), "val/EPE_3way_mean", mode=mode)
+    assert keeper.key == "EPE_3way_mean"
+    p1 = keeper.update({"EPE_3way_mean": 0.5 * sign}, state, epoch=0)
+    assert p1 == str(tmp_path / "best.ckpt") and os.path.isfile(p1)
+    state2 = TT.TrainState(state.model, state.optimizer, state.clip, state.step + 1)
+    assert keeper.update({"EPE_3way_mean": 0.7 * sign}, state2, epoch=1) is None
+    restored, nxt = TT.load_checkpoint(p1, _small_state(1))
+    assert restored.step == state.step and nxt == 1
+    p2 = keeper.update({"EPE_3way_mean": 0.3 * sign}, state2, epoch=2)
+    assert p2 == p1
+    restored, nxt = TT.load_checkpoint(p1, _small_state(1))
+    assert restored.step == state2.step and nxt == 3
+    assert keeper.update({"other": 1.0}, state, epoch=3) is None
+    assert keeper.best == 0.3 * sign
+    assert sorted(os.listdir(tmp_path)) == ["best.ckpt"]
+    with pytest.raises(ValueError, match="min|max"):
+        TT.BestCheckpointKeeper(str(tmp_path), "val/x", mode="mean")
+
+
+def test_checkpoint_round_trip(tmp_path):
+    """Save after a step, load into a state from another seed: identical,
+    and one more step from each identical; the file is a reference-layout
+    checkpoint that ``convert.load_weights`` and the eval entry read."""
+    state = _small_state(1)
+    step = TT.make_train_step(state.model, "deflowLoss", device="cpu")
+    state, _ = step(state, _prepped(60))
+    path = TT.save_checkpoint(str(tmp_path / "ckpt"), state, epoch=4)
+    assert path == str(tmp_path / "ckpt" / "epoch_4.ckpt")
+    assert sorted(os.listdir(tmp_path / "ckpt")) == ["epoch_4.ckpt"]
+    raw = torch.load(path, map_location="cpu", weights_only=True)
+    assert set(raw) == {"state_dict", "optimizer_states", "global_step", "epoch"}
+    assert raw["global_step"] == 1 and raw["epoch"] == 4
+    assert set(raw["state_dict"]) == {f"model.{k}" for k in state.model.state_dict()}
+
+    other = _small_state(2)
+    assert not torch.equal(other.model.head.gru.convz.weight,
+                           state.model.head.gru.convz.weight)
+    other, nxt = TT.load_checkpoint(path, other)
+    assert nxt == 5
+    _same_state(state, other)
+    hb = _prepped(61)
+    state, aux = step(state, hb)
+    other, aux_o = TT.make_train_step(other.model, "deflowLoss", device="cpu")(other, hb)
+    assert torch.equal(aux["loss"], aux_o["loss"])
+    _same_state(state, other)
+
+    # the weights alone, by convert.load_weights, trainer.load_weights and
+    # the eval entry
+    for load in (lambda m: load_weights_file(m, path),
+                 lambda m: TT.load_weights(path, TT.init_train_state(
+                     m, {"lr": LR}, device="cpu")).model):
+        fresh = build_model(SMALL_MODEL, precision="fp32", device="cpu", seed=3)
+        want = torch.load(path, map_location="cpu", weights_only=True)["state_dict"]
+        got = load(fresh).state_dict()
+        assert all(torch.equal(got[k], want[f"model.{k}"]) for k in got)
+    eval_cfg = {"model": {"target": SMALL_MODEL}, "precision": "fp32",
+                "checkpoint": path}
+    out = evaluate.load_eval_step(eval_cfg, "cpu")(_prepped(62))
+    assert torch.isfinite(out["pred_flow"]).all()
+
+
+# ---------------------------------------------------------- entry: resume
+def _epoch_ckpt(out, epoch):
+    return os.path.join(out, "wandb", "deflow-local", "checkpoints", f"epoch_{epoch}.ckpt")
+
+
+def test_resume_equals_uninterrupted_run(data_root, tmp_path):
+    """``main`` for 2 epochs against ``main`` for 1 epoch and a resume for
+    the second: the same final checkpoint bit for bit (parameters, BN
+    buffers, Adam state, step) and the same metrics.  A resume that ran the
+    saved epoch again, or shuffled its epoch as epoch 0, would differ."""
+    runs = {}
+    for name, extra in (("full", {"epochs": 2}), ("first", {"epochs": 1})):
+        out = str(tmp_path / name)
+        runs[name] = (out, TE.main(compose("config", _overrides(data_root, out, **extra)),
+                                   device="cpu"))
+    out = str(tmp_path / "resumed")
+    metrics = TE.main(compose("config", _overrides(
+        data_root, out, epochs=2, resume=_epoch_ckpt(runs["first"][0], 0))), device="cpu")
+    full_out, full_metrics = runs["full"]
+    assert sorted(os.listdir(os.path.dirname(_epoch_ckpt(full_out, 0)))) == [
+        "best.ckpt", "epoch_0.ckpt", "epoch_1.ckpt"]
+    assert not os.path.exists(_epoch_ckpt(out, 0))     # epoch 0 did not run again
+    want = torch.load(_epoch_ckpt(full_out, 1), weights_only=True)
+    got = torch.load(_epoch_ckpt(out, 1), weights_only=True)
+    assert want["global_step"] == 8 and want["epoch"] == 1
+    _same_tree(got, want)
+    _same_tree(torch.load(_epoch_ckpt(runs["first"][0], 0), weights_only=True),
+               torch.load(_epoch_ckpt(full_out, 0), weights_only=True))
+    assert metrics.keys() == full_metrics.keys()
+    for k in metrics:
+        assert metrics[k] == full_metrics[k] or (np.isnan(metrics[k])
+                                                 and np.isnan(full_metrics[k])), k
+
+
+def test_train_cli_writes_checkpoints_and_needs_a_card(data_root, tmp_path):
+    out = str(tmp_path / "cli")
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "CUDA_VISIBLE_DEVICES": ""}
+    args = [sys.executable, "-m", "deflow_tpu_torch.entry.train"] + _overrides(
+        data_root, out, epochs=2, batch_size=4)
+    proc = subprocess.run(args + ["device=cpu"], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    run_dir = os.path.join(out, "wandb", "deflow-local")
+    assert sorted(os.listdir(os.path.join(run_dir, "checkpoints"))) == [
+        "best.ckpt", "epoch_0.ckpt", "epoch_1.ckpt"]
+    recs = _jsonl(os.path.join(run_dir, "metrics.jsonl"))
+    assert recs[0]["_config"]["device"] == "cpu"
+    train = [r for r in recs if "train/loss" in r]
+    assert [r["epoch"] for r in train] == [0, 1]
+    assert {"train/loss", "train/epe", "train/grad_norm", "train/frames_per_sec",
+            "epoch", "_step"} == set(train[0])
+    assert sum("val/EPE_3way_mean" in r for r in recs) == 2
+    assert "step" in proc.stdout and "saved checkpoint" in proc.stdout
+    proc = subprocess.run(args, cwd=tmp_path, env=env, capture_output=True, text=True,
+                          timeout=600)
+    assert proc.returncode != 0 and "no CUDA device" in proc.stderr
+
+
+# ------------------------------------------------------- entry: vs JAX main
+def test_main_matches_jax_main(data_root, tmp_path):
+    """Both ``main``s, one epoch (one step of batch 8 on JAX's 8-device CPU
+    mesh) from one ``.ckpt`` written from the JAX init, then validation."""
+    import jax
+
+    from deflow_tpu import trainer as JT
+    from deflow_tpu.config import compose as jax_compose
+    from deflow_tpu.convert import save_torch_checkpoint
+    from deflow_tpu.data import DataLoader as JaxDataLoader
+    from deflow_tpu.data import HDF5Dataset as JaxHDF5Dataset
+    from deflow_tpu.entry.train import main as jax_main
+    from deflow_tpu.models import build_model as jax_build_model
+
+    over = _overrides(data_root, str(tmp_path / "port"), batch_size=8)
+    jcfg = jax_compose("config", [o.replace(str(tmp_path / "port"), str(tmp_path / "jax"))
+                                  for o in over])
+    ds = JaxHDF5Dataset(str(jcfg.train_data), max_points=1024)
+    jstate = JT.init_state(jax_build_model(jcfg.model, precision="fp32"), jcfg,
+                           next(iter(JaxDataLoader(ds, 8))), seed=0)
+    ds.close()
+    ckpt = save_torch_checkpoint({"params": jax.device_get(jstate.params),
+                                  "batch_stats": jax.device_get(jstate.batch_stats)},
+                                 str(tmp_path / "init.ckpt"))
+    jcfg.checkpoint = ckpt
+    want = jax_main(jcfg)
+    got = TE.main(compose("config", over + [f"checkpoint={ckpt}"]), device="cpu")
+    assert got.keys() == want.keys() and "EPE_3way_mean" in got
+    for k, w in want.items():
+        g = got[k]
+        if np.isnan(w):
+            assert np.isnan(g), k
+        elif "Acc" in k:
+            assert abs(g - w) <= MAIN_TOL, (k, g, w)
+        else:
+            assert abs(g - w) <= MAIN_TOL * abs(w), (k, g, w)
+
+
+# -------------------------------------------------------- entry: SSL, fit
+def _memory_split(n_samples, b_seed=70):
+    """Samples shaped like ``HDF5Dataset`` items, with DUFO labels."""
+    hb = ssl_batch(b_seed, b=n_samples)
+    samples = []
+    for i in range(n_samples):
+        s = {k: v[i] for k, v in hb.items()}
+        s.update(scene_id=f"s{i}", timestamp=str(i), num_points0=np.int32(s["pc0_mask"].sum()))
+        samples.append(s)
+    return samples
+
+
+def test_fit_seflow_over_in_memory_samples(tmp_path, monkeypatch):
+    """``fit`` of ``seflowLoss`` (remat, the config's default) over a list
+    of samples: the DUFO labels reach the loss through ``device_prefetch``,
+    the monitor sees every batch, and the run writes its checkpoint."""
+    cfg = compose("config", [
+        "loss_fn=seflowLoss", "batch_size=2", "epochs=1", "num_workers=0",
+        "max_points=512", "voxel_size=[3.2, 3.2, 6]", "model.target.num_iters=2",
+        "model.target.grid_feature_size=[32, 32]", "precision=fp32", "log_every=1",
+        f"output_dir={tmp_path}", "device=cpu"])
+    assert cfg["remat"] is True
+    checked = []
+    orig = TE.DynCapMonitor.check
+    monkeypatch.setattr(TE.DynCapMonitor, "check",
+                        lambda self, hb: (checked.append(hb["scene_id"]), orig(self, hb)))
+    res = TE.fit(cfg, _memory_split(6))
+    assert res.state.step == 3 and len(checked) == 3
+    assert sorted(sum(checked, [])) == [f"s{i}" for i in range(6)]
+    assert np.isfinite(res.last_aux["loss"]) and res.last_aux["loss"] > 0
+    assert res.metrics == {}
+    assert os.listdir(os.path.join(res.run_dir, "checkpoints")) == ["epoch_0.ckpt"]
+    assert res.timer.child("step").samples and len(res.timer.child("step").samples) == 3
+
+
+# ------------------------------------------------------------ refusals
+def _small_samples(n, seed=80):
+    hb = make_host_batch(seed, n, 512, VOXEL)
+    return [dict({k: v[i] for k, v in hb.items()}, scene_id=f"s{i}", timestamp="0")
+            for i in range(n)]
+
+
+@pytest.mark.parametrize("dyn_cap", [None, 150, 100, 0])
+def test_dyn_cap_monitor_matches_jax(monkeypatch, dyn_cap):
+    from deflow_tpu.entry.train import DynCapMonitor as JaxDynCapMonitor
+
+    monkeypatch.delenv("DEFLOW_SSL_DYNCAP", raising=False)
+    rng = np.random.default_rng(3)
+    batches = []
+    for dens in (0.1, 0.3, 0.25, 0.45, 0.2, 0.5):
+        hb = {"pc0_mask": rng.random((2, 400)) < 0.9, "pc1_mask": rng.random((2, 400)) < 0.9,
+              "dufo_label0": (rng.random((2, 400)) < dens).astype(np.int32),
+              "dufo_label1": (rng.random((2, 400)) < dens * 0.8).astype(np.int32)}
+        batches.append(hb)
+    batches.append({"pc0_mask": batches[0]["pc0_mask"]})       # no labels: skipped
+    seen = []
+    for cls in (TE.DynCapMonitor, JaxDynCapMonitor):
+        mon = cls(dyn_cap)
+        warned = []
+        for hb in batches:
+            with warnings.catch_warnings(record=True) as rec:
+                warnings.simplefilter("always")
+                mon.check(hb)
+            warned.append(len(rec))
+        seen.append((warned, mon.seen_max))
+    assert seen[0] == seen[1]
+    assert sum(seen[0][0]) == {None: 0, 150: 2, 100: 3, 0: 4}[dyn_cap]
+
+
+def test_dyncap_env_override_raises(data_root, tmp_path, monkeypatch):
+    monkeypatch.setenv("DEFLOW_SSL_DYNCAP", "0")       # 0: no override
+    TE.DynCapMonitor()
+    monkeypatch.setenv("DEFLOW_SSL_DYNCAP", "64")
+    with pytest.raises(NotImplementedError, match="DEFLOW_SSL_DYNCAP"):
+        TE.main(compose("config", _overrides(data_root, str(tmp_path))), device="cpu")
+    assert TE.DynCapMonitor(dyn_cap=64).dyn_cap == 64   # explicit: no raise
+
+
+@pytest.mark.parametrize("override", ["num_frames=3", "num_devices=2"])
+def test_main_refuses_what_is_not_ported(data_root, tmp_path, override):
+    cfg = compose("config", _overrides(data_root, str(tmp_path)) + [override])
+    with pytest.raises(NotImplementedError):
+        TE.main(cfg, device="cpu")
+    with pytest.raises(NotImplementedError):
+        TE.fit(cfg, _small_samples(2), device="cpu")
+    assert not os.path.exists(tmp_path / "wandb")
+
+
+def test_main_raises_without_a_card(data_root, tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = compose("config", _overrides(data_root, str(tmp_path)))
+    assert cfg.get("device") is None
+    for call in (lambda: TE.main(cfg), lambda: TE.fit(cfg, _small_samples(2))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not os.path.exists(tmp_path / "wandb")

@@ -58,9 +58,10 @@ def _pair(hb, precision, seed=21):
     return jm, variables, port, jb, tb
 
 
-def run_steps(hb, loss_name="deflowLoss", precision="fp32"):
-    """One step on each side from the host batch ``hb``.  Returns the JAX
-    state, aux and gradients (read by a pass-through transform chained
+def run_steps(hb, loss_name="deflowLoss", precision="fp32", remat=False):
+    """One step on each side from the host batch ``hb`` (with ``remat``,
+    each side's step recomputes its forward in the backward).  Returns the
+    JAX state, aux and gradients (read by a pass-through transform chained
     before the optimizer) and the port's state and aux; the port's
     gradients stay in each parameter's ``.grad``."""
     jm, variables, port, jb, tb = _pair(hb, precision)
@@ -76,9 +77,10 @@ def run_steps(hb, loss_name="deflowLoss", precision="fp32"):
     jstate = JT.TrainState(step=jnp.zeros((), jnp.int32), params=variables["params"],
                            batch_stats=variables["batch_stats"],
                            opt_state=tx.init(variables["params"]), tx=tx)
-    jstate, jaux = JT.make_train_step(jm, loss_name)(jstate, JT.device_batch(jb, None))
+    jstate, jaux = JT.make_train_step(jm, loss_name, remat=remat)(
+        jstate, JT.device_batch(jb, None))
     state = TT.init_train_state(port, cfg, device="cpu")
-    state, aux = TT.make_train_step(port, loss_name, device="cpu")(state, tb)
+    state, aux = TT.make_train_step(port, loss_name, device="cpu", remat=remat)(state, tb)
     return jstate, jaux, seen["grads"], state, aux
 
 

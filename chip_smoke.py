@@ -30,6 +30,11 @@ Phases (any failure exits non-zero):
    captured in one CUDA graph (no host launch overhead); then the
    full-width sweep against the brute search (truncated distances, both
    directions, all and dynamic candidates);
+3b. the kernels on the device binning path's call patterns at 4 x 98,304
+   (the points in their own order): the segment-sum on a device sort's
+   ids, 4 bf16 lanes (the centroids) and 33 (the features), after the
+   plan's order check; the row gather at unsorted flat ids (the
+   centroids' gather back, the planned scatter's backward, the decoder);
 4. the eval path: leaderboard DeFlow (512x512 grid, ConvGRU, 4 iterations,
    bf16 compute, random weights from a seed) evaluates 5 synthetic batches
    of 4 x 98,304 point slots (86,016 valid) through ``run_validation``
@@ -61,10 +66,10 @@ Phases (any failure exits non-zero):
 5b. the train entry: ``entry.train.fit`` (the config's defaults: remat,
    bf16, Adam lr 2e-4, the leaderboard DeFlow) over in-memory splits of
    2 x 98,304 samples: (a) deflowLoss, 2 epochs of 8 steps, each validated
-   on 2 batches of 4 and checkpointed (epoch_N.ckpt, best.ckpt); (b) two
+   on 2 batches of 4 and checkpointed (epoch_N.ckpt, best.ckpt); (b) three
    runs resumed from (a)'s epoch_0.ckpt for epoch 1, (a) against the
-   first within 4x the two resumed runs' difference (the card's backward
-   is not deterministic); (c) seflowLoss, 1 epoch of 6 steps (the grid
+   first within 4x the largest difference between two resumed runs (the
+   card's backward is not deterministic); (c) seflowLoss, 1 epoch of 6 steps (the grid
    branch).  Launches per step
    (remat: every forward kernel twice, 5 scatters, 4 gathers, 2 GRU
    forwards, 1 backward, 12 fused-block forwards, 6 backwards; SeFlow adds
@@ -75,11 +80,23 @@ Phases (any failure exits non-zero):
    against two without (the same loss, gradients within 4x the plain
    steps' difference, BN statistics moved once) and the peak memory of
    each, also at the config's batch_size 16 (2B = 32, the plain U-Net);
+8. the rest of the model, each path at full width with its launch counts
+   held: (a) the MMHead decoder's eval of 3 host-sorted batches of 4 x
+   98,304 (device ms, peak memory, a profiled batch; its attention against
+   ``scaled_dot_product_attention``), (b) 3 MMHead deflowLoss steps at 2 x
+   98,304 with dropout (finite loss and gradients), (c) 3 num_frames=3
+   deflowLoss steps (ConvGRU head, one history frame binned on the card),
+   (d) the eval of 3 raw batches without host prep, held against the
+   host-prep eval of the same batch (f32 within 2e-4; bf16 printed);
 7. reference checks in f32 on small inputs, the card against the CPU
    (plain PyTorch versions): the eval output, and one train step's loss,
    gradient norm, per-parameter gradients and updated parameters, for
-   deflowLoss and for seflowLoss on its grid and its brute branch;
-8. one JSON line of kernels, the card line, and the result line.
+   deflowLoss and for seflowLoss on its grid and its brute branch; then
+   phase 8's paths: the MMHead eval and the eval without host prep, the
+   MMHead step (dropout 0 on both sides; its parameters not held, as
+   seflowLoss's) and the num_frames=3 step;
+9. a JSON line of phase 8's numbers, one JSON line of kernels, the card
+   line, and the result line.
 Step times are medians of the steady steps (all but the first, which warms
 cuDNN up); the eval phase also prints their mean.
 Needs one CUDA card; exits non-zero without one.
@@ -421,10 +438,10 @@ def hold_segment_sum(what: str, feats32, ids, s: int, samples: int = 1) -> dict:
     }
 
 
-def hold_gather(what: str, table32, ids, rows: int) -> dict:
-    """The row gather of ``table32 [rows, c]`` at the ascending flat ``ids``
-    (ids >= rows read zeros), in f32 and bf16, bit-exact against its plain
-    version; returns the bf16 measurements."""
+def hold_gather(what: str, table32, ids, rows: int, timed=None) -> dict:
+    """The row gather of ``table32 [rows, c]`` at the flat ``ids`` (ids >=
+    rows read zeros), in f32 and bf16, bit-exact against its plain
+    version; returns the measurements in ``timed`` (default bf16)."""
     import torch
 
     from deflow_tpu_torch.ops import gather
@@ -440,6 +457,7 @@ def hold_gather(what: str, table32, ids, rows: int) -> dict:
               f"{'ok' if exact else 'FAIL'}")
         if not exact:
             raise SystemExit(f"sorted_gather ({what}) is not bit-exact")
+    t = table32.to(timed or torch.bfloat16)
     c = t.shape[1]
     t_lib = torch.cat([t, t.new_zeros(1, c)])
     idx_lib = torch.where(ids < rows, ids, rows).long()
@@ -1434,21 +1452,30 @@ def _differences(a, b) -> dict:
     return worst
 
 
-def hold_resume(full, resumed, again) -> None:
+def hold_resume(full, resumed, *others) -> None:
     """The run resumed from epoch_0.ckpt against the uninterrupted one after
-    epoch 1, beside a second resumed run against the first (the card's
-    spread): the last loss, and every floating tensor's largest difference
-    over its largest magnitude, each within SPREAD times the spread (plus
-    1e-7 of the loss); the step equal.  The zero-gradient biases are
-    printed, not held."""
-    d, floor = _differences(full, resumed), _differences(resumed, again)
+    epoch 1, beside the card's spread: the largest difference between any
+    two of the resumed runs (``resumed`` and ``others``, all from the same
+    checkpoint).  The last loss, and every floating tensor's largest
+    difference over its largest magnitude, each within SPREAD times the
+    spread (plus 1e-7 of the loss); the steps equal.  The zero-gradient
+    biases are printed, not held.  A single pair of runs estimates the
+    spread of one scalar, the loss, poorly (two runs may agree to 1e-6 by
+    chance where the uninterrupted one differs by 4e-5 in the same call),
+    so every pair of three runs counts."""
+    runs = (resumed,) + others
+    pairs = [_differences(a, b) for i, a in enumerate(runs) for b in runs[i + 1:]]
+    d = _differences(full, resumed)
+    floor = {k: max(p[k] for p in pairs) for k in d}
     ok = (d["loss"] <= SPREAD * floor["loss"] + 1e-7 * abs(full.last_aux["loss"])
           and d["tensors"][0] <= SPREAD * floor["tensors"][0]
-          and full.state.step == resumed.state.step == again.state.step)
+          and all(r.state.step == full.state.step for r in runs))
     print(f"resume: last loss {resumed.last_aux['loss']:.7f} against "
-          f"{full.last_aux['loss']:.7f} uninterrupted (difference {d['loss']:.3e}; two "
-          f"resumed runs {floor['loss']:.3e}); largest tensor difference over its largest "
-          f"magnitude {d['tensors'][0]:.3e} in {d['tensors'][1]} (two resumed runs "
+          f"{full.last_aux['loss']:.7f} uninterrupted (difference {d['loss']:.3e}; "
+          f"{len(runs)} resumed runs, pairwise: "
+          + ", ".join(f"{p['loss']:.3e}" for p in pairs)
+          + f"); largest tensor difference over its largest "
+          f"magnitude {d['tensors'][0]:.3e} in {d['tensors'][1]} (resumed runs "
           f"{floor['tensors'][0]:.3e} in {floor['tensors'][1]}; tol {SPREAD}x that); "
           f"zero-gradient biases {d['zero_grad_biases'][0]:.3e} ({floor['zero_grad_biases'][0]:.3e}); "
           f"step {resumed.state.step} against {full.state.step}: {'ok' if ok else 'FAIL'}")
@@ -1552,7 +1579,7 @@ def run_train_entry(device_ms: dict, train_batch) -> dict:
     splits at TRAIN_B x N, the config's defaults (remat, bf16, Adam, the
     leaderboard DeFlow) but for the sizes: (a) deflowLoss, ENTRY_EPOCHS
     epochs of ENTRY_TRAIN_STEPS steps, each validated on ENTRY_VAL_BATCHES
-    batches of B and checkpointed; (b1), (b2) resumed from (a)'s
+    batches of B and checkpointed; (b1), (b2), (b3) resumed from (a)'s
     epoch_0.ckpt for its last epoch; (c) seflowLoss, one epoch of ENTRY_SSL_STEPS steps (the
     grid branch).  Launches per step and per eval batch, finite metrics,
     the resumed run against (a), the checkpoint round trip, remat against
@@ -1582,7 +1609,7 @@ def run_train_entry(device_ms: dict, train_batch) -> dict:
                       ENTRY_TRAIN_STEPS)
         resumed = [traced_fit(entry_cfg(os.path.join(tmp, f"b{i}"), resume=os.path.join(
             full.run_dir, "checkpoints", "epoch_0.ckpt")), train, val,
-            f"train entry (b{i}), resumed", REMAT_PER_STEP)[0] for i in (1, 2)]
+            f"train entry (b{i}), resumed", REMAT_PER_STEP)[0] for i in (1, 2, 3)]
         hold_resume(full, *resumed)
         ckpt = hold_round_trip(full, tmp)
         ckpt["fit_ckpt_ms"] = [s * 1e3 for s in full.timer.child("ckpt").samples]
@@ -1605,6 +1632,300 @@ def run_train_entry(device_ms: dict, train_batch) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     return {"launches": launches, "ssl_launches": ssl_launches, "checkpoint": ckpt,
             "memory": mem}
+
+
+
+# phase 8: the rest of the model.  Batches (eval) or steps (train) of each
+# of its four paths, at full width
+REST_STEPS = 3
+MMHEAD = dict(LEADERBOARD, decoder_option="mmhead")
+MMHEAD_CHUNK = 512
+# launches a train step of the MMHead model (the train path's, without the
+# GRU) and of the num_frames=3 model (the history frame's device path:
+# centroid segment-sum + gather back, feature segment-sum, and the latter's
+# backward gather), and an eval batch without host prep (per cloud the
+# centroid segment-sum, its gather back and the feature segment-sum)
+MMHEAD_PER_STEP = {"segment_sum": 3, "sorted_gather": 3, "fused_gru": 0,
+                   "fused_gru_bwd": 0, "cbg_fwd": 6, "cbg_bwd": 6}
+HISTORY_PER_STEP = {"segment_sum": 5, "sorted_gather": 5, "fused_gru": 1,
+                    "fused_gru_bwd": 1, "cbg_fwd": 6, "cbg_bwd": 6}
+DEVICE_EVAL_PER_BATCH = {"segment_sum": 4, "sorted_gather": 3, "fused_gru": 1}
+MMHEAD_EVAL_PER_BATCH = {"segment_sum": 2, "sorted_gather": 1}
+
+
+def with_history(hb: dict, seed: int) -> dict:
+    """``hb`` plus one history frame as the loader emits it for
+    num_frames=3 (``pch1``: pc0 one sweep earlier, the ego 1.3 m back)."""
+    rng = np.random.default_rng(seed)
+    pose = hb["pose0"].copy()
+    pose[:, 0, 3] -= 1.3
+    pch = hb["pc0"] - hb["flow"] + rng.normal(0, 0.02, hb["pc0"].shape)
+    hb.update(pch1=np.where(hb["pc0_mask"][..., None], pch, 0).astype(np.float32),
+              pch1_mask=hb["pc0_mask"].copy(), pose_pch1=pose)
+    return hb
+
+
+def device_plan(db, cfg):
+    """pc0's device binning and sort, as the embedder's device path makes
+    them (the points in the batch's own order)."""
+    from deflow_tpu_torch.ops import voxel
+    from deflow_tpu_torch.ops.pose import cal_pose0to1, transform_points
+
+    tpc0 = transform_points(db["pc0"].float(), cal_pose0to1(db["pose0"].float(),
+                                                            db["pose1"].float()))
+    info = voxel.compute_pillar_info(tpc0, db["pc0_mask"], cfg)
+    return info, voxel.make_batched_scatter_plan(info.pillar_id,
+                                                 cfg.num_pillars + voxel.TRASH_PAD)
+
+
+def check_new_patterns(model, raw_batch) -> dict:
+    """Phase 3b: the kernels on the call patterns of the device binning
+    path, at the eval path's shapes (4 x 98,304, the points in their own
+    order): the segment-sum on a device sort's ids, 4 bf16 lanes (the
+    centroids) and 33 (the features), after a check that the plan ascends
+    within each sample, sentinels last; the row gather at unsorted flat ids
+    (the centroids' gather back, the planned scatter's backward, the
+    decoder's gather).  Returns the measurements by kernel."""
+    import torch
+
+    from deflow_tpu_torch.ops import voxel
+    from deflow_tpu_torch.trainer import device_batch
+
+    dev = torch.device("cuda")
+    cfg = model.voxel_cfg
+    p = cfg.num_pillars
+    db = device_batch(raw_batch, dev)
+    info, plan = device_plan(db, cfg)
+    check_plan("(device sort)", plan.sorted_ids, plan.num_rows, B)
+    g = torch.Generator(device=dev).manual_seed(1)
+    data4 = torch.cat([info.offsets, info.valid.float()[..., None]], dim=-1)
+    data4 = data4.reshape(-1, 4).index_select(0, plan.order)
+    seg = {"device_sorted_4_lanes": hold_segment_sum(
+               "(device sort, 4 lanes: the centroids)", data4, plan.sorted_ids,
+               plan.num_rows, B),
+           "device_sorted_33_lanes": hold_segment_sum(
+               "(device sort, 33 lanes: the features)",
+               pillar_feats(plan.sorted_ids, plan.num_rows, g), plan.sorted_ids,
+               plan.num_rows, B)}
+    boff = (torch.arange(B, dtype=torch.int32, device=dev) * p)[:, None]
+    dec_ids = torch.where(info.valid, info.pillar_id + boff, voxel.GATHER_SENTINEL)
+    gat = {"unsorted_4_lanes": hold_gather(     # an f32 table, as the model's
+               "(unsorted ids: the centroids' gather back)",
+               torch.randn(plan.num_rows, 4, generator=g, device=dev), plan.flat_ids,
+               plan.num_rows, timed=torch.float32),
+           "unsorted_33_lanes": hold_gather(
+               "(unsorted ids: the planned scatter's backward)",
+               torch.randn(plan.num_rows, 33, generator=g, device=dev), plan.flat_ids,
+               plan.num_rows),
+           "unsorted_128_lanes": hold_gather(
+               "(unsorted ids: the decoder)",
+               torch.randn(B * p, 128, generator=g, device=dev),
+               dec_ids.reshape(-1).to(torch.int32), B * p)}
+    for what, r in list(seg.items()) + list(gat.items()):
+        print(f"{what} {r['shape']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_by']}, plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']:.4f} ms)")
+    return {"segment_sum": seg, "sorted_gather": gat}
+
+
+def _timed_steps(run, items, check):
+    """``run(item)`` for each item under CUDA events; ``check(out)`` on
+    each output.  Returns the outputs' checks and the device ms."""
+    import torch
+
+    ms, res = [], []
+    for it in items:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = run(it)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        res.append(check(out))
+    return res, ms
+
+
+def _want(per: dict, n: int) -> dict:
+    return {k: per.get(k, 0) * n for k in read_launches()}
+
+
+def attention_library(out_valid) -> dict:
+    """The MMHead's attention at the eval path's shapes (4 x 98,304 points:
+    768 chunks of 512, 4 heads of 32, bf16, the keys masked as the batch's
+    valid counts mask them): the port's (``models.decoder.masked_attention``,
+    plain PyTorch ops, the counterpart of the JAX package's XLA attention)
+    against ``F.scaled_dot_product_attention`` with the boolean key mask, on
+    the chunks with a valid key (SDPA's all-masked rows are NaN)."""
+    import torch
+    import torch.nn.functional as F
+
+    from deflow_tpu_torch.models.decoder import masked_attention
+
+    dev = torch.device("cuda")
+    counts = out_valid.sum(dim=1, keepdim=True)
+    key_mask = (torch.arange(N, device=dev)[None, :] < counts).reshape(-1, MMHEAD_CHUNK)
+    g = torch.Generator(device=dev).manual_seed(2)
+    q, k, v = (torch.randn(key_mask.shape[0], 4, MMHEAD_CHUNK, 32, generator=g,
+                           device=dev).to(torch.bfloat16) for _ in range(3))
+    ours = lambda: masked_attention(q, k, v, key_mask)
+    lib = lambda: F.scaled_dot_product_attention(q, k, v,
+                                                 attn_mask=key_mask[:, None, None, :])
+    live = key_mask.any(dim=1)
+    a, b = ours(), lib()
+    torch.cuda.synchronize()
+    err = (a[live].float() - b[live].float()).abs().max().item()
+    dead_finite = bool(torch.isfinite(a[~live]).all())
+    gch, heads, l, d = q.shape
+    b_ms, b_by = bound(4 * gch * heads * l * d * 2 + key_mask.numel(),
+                       4.0 * gch * heads * l * l * d, BF16_FLOP_PER_S)
+    r = {"shape": f"{gch}x{heads}x{l}x{d}", "chunks_all_masked": int((~live).sum()),
+         "max_abs_err_vs_sdpa": err, "all_masked_rows_finite": dead_finite,
+         "ms": cuda_ms(ours, 10), "library_ms": cuda_ms(lib, 10),
+         "bound_ms": b_ms, "bound_by": b_by}
+    print(f"mmhead attention {r['shape']} bf16 ({r['chunks_all_masked']} chunks all "
+          f"masked, finite there: {dead_finite}): port {r['ms']:.4f} ms, "
+          f"scaled_dot_product_attention {r['library_ms']:.4f} ms, bound "
+          f"{b_ms:.4f} ms by {b_by}; max |d| on the chunks with a valid key {err:.3e}")
+    if not dead_finite:
+        raise SystemExit("the MMHead attention is not finite on all-masked chunks")
+    return r
+
+
+def hold_device_path(raw_batch, prepped_batch, bf16_model, bf16_out) -> dict:
+    """Path (d) against the host-prep eval of the same batch: in f32 the
+    device path on the host's compensated points (so both bin the same
+    points) within 2e-4 of the host-prep eval, the validity masks equal;
+    in bf16 the device path's eval of the raw batch against the host-prep
+    eval, unsorted to the batch's order (the difference printed: the two
+    paths compute the centroid differently, and the device path
+    compensates pc0 in f32 on the card, the host in f64)."""
+    import torch
+
+    from deflow_tpu_torch.models import build_model
+    from deflow_tpu_torch.trainer import device_batch, make_eval_step
+
+    m32 = build_model(LEADERBOARD, precision="fp32", seed=0)
+    m32.load_state_dict(bf16_model.state_dict())
+    db = device_batch(prepped_batch)
+    hosted = make_eval_step(m32)(db)
+    with torch.inference_mode():
+        dev_out = m32(db["pc0"], db["pc1"], db["pose0"], db["pose1"], db["pc0_mask"],
+                      db["pc1_mask"], host_prep={"pc0_transformed": db["pc0_transformed"]})
+    same_valid = torch.equal(dev_out["pc0_valid"], hosted["pc0_valid"])
+    err32 = (dev_out["flow"] - hosted["net_flow"]).abs().max().item()
+    print(f"device path vs host prep (f32, 4 x {N:,}): validity "
+          f"{'equal' if same_valid else 'DIFFERS'}, max |d flow| {err32:.3e} (tol 2e-4)")
+    if not (same_valid and err32 < 2e-4):
+        raise SystemExit("the device path disagrees with the host-prep eval in f32")
+    del m32
+    hb16 = make_eval_step(bf16_model)(db)
+    unsort = torch.from_numpy(prepped_batch["pc0_unsort"]).long().cuda()
+    back = torch.gather(hb16["pred_flow"], 1, unsort[..., None].expand(-1, -1, 3))
+    valid_back = torch.gather(hb16["pc0_valid"], 1, unsort)
+    both = valid_back & bf16_out["pc0_valid"]
+    d16 = (back - bf16_out["pred_flow"]).norm(dim=-1)[both]
+    flips = int((valid_back != bf16_out["pc0_valid"]).sum())
+    r = {"f32_max_abs_err": err32, "bf16_max_abs_diff": d16.max().item(),
+         "bf16_mean_abs_diff": d16.mean().item(), "bf16_validity_flips": flips}
+    print(f"device path vs host prep (bf16, the raw batch): |d pred_flow| max "
+          f"{r['bf16_max_abs_diff']:.3e} m, mean {r['bf16_mean_abs_diff']:.3e} m over "
+          f"{int(both.sum())} points; points valid on one path only: {flips}")
+    return r
+
+
+def run_rest_of_model(model, eval_batches, train_batches) -> dict:
+    """Phase 8: (a) the MMHead eval, (b) the MMHead deflowLoss step with
+    dropout, (c) the num_frames=3 deflowLoss step (ConvGRU head, one history
+    frame on the device path) and (d) the eval without host prep, each at
+    full width with its launch counts held; peak memory of (a) and (b)
+    above what was allocated before; the MMHead attention against
+    scaled_dot_product_attention; (d) held against the host-prep eval."""
+    import torch
+
+    from deflow_tpu_torch.models import build_model
+    from deflow_tpu_torch.trainer import (TRAIN_KEYS, device_batch, init_train_state,
+                                          make_eval_step, make_train_step)
+
+    out = {}
+
+    def finite_eval(o):
+        for k, v in o.items():
+            if v.shape[:2] != (B, N) or (v.is_floating_point()
+                                         and not torch.isfinite(v).all()):
+                raise SystemExit(f"eval output {k} not finite / wrong shape")
+        return o["pc0_valid"]
+
+    def finite_step(res):
+        aux = {k: float(v) for k, v in res[1].items()}
+        if not all(np.isfinite(v) for v in aux.values()):
+            raise SystemExit(f"a train step gave non-finite values {aux}")
+        return aux
+
+    def path(label, per, n, run, items, check):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_launches()
+        res, ms = _timed_steps(run, items, check)
+        launches = read_launches()
+        want = _want(per, n)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        med = float(np.median(ms[1:]))
+        print(f"{label}: device ms " + ", ".join(f"{t:.3f}" for t in ms)
+              + f"; steady median {med:.3f} ms; peak memory {peak:.2f} GiB above "
+              f"the {base / 2 ** 30:.2f} GiB before; launches {launches} (want {want})")
+        if launches != want:
+            raise SystemExit(f"{label} did not launch every kernel as expected")
+        out[label] = {"device_ms": ms, "median_ms": med, "peak_gib": peak,
+                      "launches": launches}
+        return res
+
+    # (a) the MMHead eval, host-sorted batches
+    mm = build_model(MMHEAD, precision="bf16", seed=0)
+    step = make_eval_step(mm)
+    dbs = [device_batch(hb) for hb in eval_batches[:REST_STEPS]]
+    valid = path("(a) mmhead eval", MMHEAD_EVAL_PER_BATCH, REST_STEPS, step, dbs,
+                 finite_eval)
+    profile_step(lambda: step(dbs[0]), out["(a) mmhead eval"]["launches"])
+    out["attention"] = attention_library(valid[0])
+    del dbs
+
+    # (b) the MMHead deflowLoss step, dropout on
+    state = init_train_state(mm, {"lr": LR, "optimizer": "adam"})
+    tstep = make_train_step(mm, "deflowLoss")
+    tdbs = [device_batch(hb, keys=TRAIN_KEYS) for hb in train_batches[:REST_STEPS]]
+    auxes = path("(b) mmhead train", MMHEAD_PER_STEP, REST_STEPS,
+                 lambda db: tstep(state, db), tdbs, finite_step)
+    if not all(torch.isfinite(p.grad).all() for p in mm.parameters() if p.grad is not None):
+        raise SystemExit("the MMHead train step gave non-finite gradients")
+    print("(b) mmhead train: " + "; ".join(
+        f"loss {a['loss']:.6f} grad_norm {a['grad_norm']:.6f}" for a in auxes))
+    profile_step(lambda: tstep(state, tdbs[0]), out["(b) mmhead train"]["launches"])
+    del state, tstep, mm
+    torch.cuda.empty_cache()
+
+    # (c) the num_frames=3 deflowLoss step, the ConvGRU head
+    hm = build_model(LEADERBOARD, precision="bf16", seed=0, num_frames=3)
+    state = init_train_state(hm, {"lr": LR, "optimizer": "adam"})
+    tstep = make_train_step(hm, "deflowLoss")
+    hdbs = [device_batch(with_history(dict(hb), 600 + i), keys=TRAIN_KEYS)
+            for i, hb in enumerate(train_batches[:REST_STEPS])]
+    auxes = path("(c) num_frames=3 train", HISTORY_PER_STEP, REST_STEPS,
+                 lambda db: tstep(state, db), hdbs, finite_step)
+    print("(c) num_frames=3 train: " + "; ".join(
+        f"loss {a['loss']:.6f} grad_norm {a['grad_norm']:.6f}" for a in auxes))
+    del state, tstep, hm, tdbs, hdbs
+    torch.cuda.empty_cache()
+
+    # (d) the eval without host prep: raw batches, the points in their order
+    step = make_eval_step(model)
+    raws = [make_batch(100 + i) for i in range(REST_STEPS)]
+    rdbs = [device_batch(hb) for hb in raws]
+    outs = path("(d) eval without host prep", DEVICE_EVAL_PER_BATCH, REST_STEPS,
+                lambda db: step(db), rdbs, lambda o: (finite_eval(o), o)[1])
+    out["device_vs_host"] = hold_device_path(raws[0], eval_batches[0], model, outs[0])
+    return out
 
 
 def _category(name: str) -> str:
@@ -1680,14 +2001,18 @@ def profile_step(step, launched: dict) -> None:
                              "shows no device time")
 
 
-def reference_check(seed: int) -> float:
-    """Phase 7a: f32 model on a small input, card vs CPU; max |Δ pred_flow|."""
+def reference_check(seed: int, model_cfg=None, hosted: bool = True) -> float:
+    """Phase 7a: f32 model on a small input, card vs CPU; max |Δ pred_flow|.
+    ``model_cfg`` overrides the leaderboard model's keys (the MMHead);
+    ``hosted=False`` evaluates the raw batch (the device binning path)."""
     from deflow_tpu_torch.models import build_model
     from deflow_tpu_torch.trainer import make_eval_step
 
     small = dict(LEADERBOARD, voxel_size=[1.6, 1.6, 6.0],
-                 grid_feature_size=[64, 64])
-    hb, _ = held_prep(make_batch(seed, b=2, n=4096, valid=3500), small["voxel_size"])
+                 grid_feature_size=[64, 64], **(model_cfg or {}))
+    hb = make_batch(seed, b=2, n=4096, valid=3500)
+    if hosted:
+        hb, _ = held_prep(hb, small["voxel_size"])
     outs = []
     for dev in ("cuda", "cpu"):
         model = build_model(small, precision="fp32", device=dev, seed=seed)
@@ -1702,7 +2027,8 @@ def _zero_grad_bias(key: str) -> bool:
 
 
 def train_reference_check(seed: int, loss_name: str = "deflowLoss",
-                          grid: bool = False) -> dict:
+                          grid: bool = False, model_cfg=None,
+                          num_frames: int = 2) -> dict:
     """Phase 7b: one f32 train step of ``loss_name`` on a small input (64^2
     grid, 2 x 4,096 slots), card vs CPU; for seflowLoss with ``grid`` the
     chamfer's pair threshold is lowered so that the small clouds take the
@@ -1718,21 +2044,30 @@ def train_reference_check(seed: int, loss_name: str = "deflowLoss",
     maps a gradient element near its eps (1e-8) to anywhere in [-lr, lr],
     so a gradient difference far inside the gradient tolerance moves such
     an element's step past 1e-6 + lr*1e-2; the gradient of the element
-    farthest off is printed beside it."""
+    farthest off is printed beside it.  ``model_cfg`` overrides the
+    model's keys (the MMHead, whose dropout is set to 0 on both sides: the
+    card's and the CPU's generators draw other masks); ``num_frames=3``
+    adds a history frame."""
     from deflow_tpu_torch.models import build_model
     from deflow_tpu_torch.ops import chamfer
     from deflow_tpu_torch.trainer import init_train_state, make_train_step
 
     small = dict(LEADERBOARD, voxel_size=[1.6, 1.6, 6.0],
-                 grid_feature_size=[64, 64])
+                 grid_feature_size=[64, 64], **(model_cfg or {}))
     hb, _ = held_prep(make_batch(seed, b=2, n=4096, valid=3500,
                                  dufo=loss_name != "deflowLoss"), small["voxel_size"])
+    if num_frames == 3:
+        hb = with_history(hb, seed)
     auxes, grads, states = [], [], []
     threshold = chamfer._AUTO_GRID_PAIRS
     chamfer._AUTO_GRID_PAIRS = 0 if grid else threshold
     try:
         for dev in ("cuda", "cpu"):
-            model = build_model(small, precision="fp32", device=dev, seed=seed)
+            model = build_model(small, precision="fp32", device=dev, seed=seed,
+                                num_frames=num_frames)
+            if hasattr(model.head, "pts_off_transformer"):
+                for layer in model.head.pts_off_transformer.layers:
+                    layer.dropout = 0.0
             state = init_train_state(model, {"lr": LR}, device=dev)
             state, aux = make_train_step(model, loss_name, device=dev)(state, hb)
             auxes.append({k: float(v) for k, v in aux.items()})
@@ -1842,6 +2177,8 @@ def main() -> int:
         print(f"{name} {r['shape']} split by kernel: " + ", ".join(
             f"{k} {v:.4f} ms" for k, v in sorted(r["split_ms"].items())))
     del splits, fn          # the kernels' inputs: not held through the step phases
+    for name, r in check_new_patterns(model, make_batch(100)).items():
+        kernels[name].update(r)
     worst = sweep_vs_brute(ssl_batches[1])
     print(f"sweep vs brute (full width): largest difference over its tolerance "
           f"{worst:.3f}")
@@ -1889,6 +2226,7 @@ def main() -> int:
 
     entry = run_train_entry({"train": runs["train"][2], "ssl": runs["ssl"][2]},
                             train_batches[0])
+    rest = run_rest_of_model(model, batches, train_batches)
 
     ref_err = reference_check(seed=7)
     print(f"reference check (f32, 64x64 grid, card vs CPU): max |d pred_flow| "
@@ -1906,6 +2244,29 @@ def main() -> int:
                           for k, v in ratio.items()))
         if not all(ratio[k] <= 1.0 for k in held):
             raise SystemExit(f"card and CPU disagree on the small f32 {what} step")
+    for what, kw in (("(a) the MMHead eval", {"model_cfg": {"decoder_option": "mmhead"}}),
+                     ("(d) the eval without host prep", {"hosted": False})):
+        err = reference_check(seed=7, **kw)
+        print(f"reference check {what} (f32, 64x64 grid, card vs CPU): max |d "
+              f"pred_flow| {err:.3e} (tol 2e-4)")
+        if not err < 2e-4:
+            raise SystemExit(f"card and CPU disagree on {what}")
+    # the MMHead's parameters after Adam's first step are not held, as
+    # seflowLoss's are not: its f32 gradients are poorly conditioned (ReLU
+    # inputs near 0 through four post-norm layers), and Adam maps a
+    # gradient element near its eps anywhere in [-lr, lr]
+    for what, kw, held in (("(b) the MMHead deflowLoss step, dropout 0",
+                            {"model_cfg": {"decoder_option": "mmhead"}},
+                            ("loss", "grad_norm", "grad")),
+                           ("(c) the num_frames=3 deflowLoss step", {"num_frames": 3},
+                            ("loss", "grad_norm", "grad", "param"))):
+        ratio = train_reference_check(7, **kw)
+        print(f"train reference check {what} (f32, 64x64 grid, 2 x 4,096 slots, one "
+              "Adam step, card vs CPU): largest difference over its tolerance: "
+              + ", ".join(f"{k} {v:.3f}" + ("" if k in held else " (not held)")
+                          for k, v in ratio.items()))
+        if not all(ratio[k] <= 1.0 for k in held):
+            raise SystemExit(f"card and CPU disagree on {what}")
 
     sources = {"segment_sum": ("deflow_tpu_torch/csrc/segment_sum.cu",
                                "deflow_tpu/ops/pallas_scatter.py:211"),
@@ -1941,8 +2302,15 @@ def main() -> int:
              "train_entry_launches": entry["ssl_launches" if name in (
                  "segment_sum_lanes", "cell_sweep") else "launches"][name],
              "ssl_train_entry_launches": entry["ssl_launches"][name],
+             "mmhead_eval_launches": rest["(a) mmhead eval"]["launches"][name],
+             "mmhead_train_launches": rest["(b) mmhead train"]["launches"][name],
+             "history_train_launches": rest["(c) num_frames=3 train"]["launches"][name],
+             "device_eval_launches": rest["(d) eval without host prep"]["launches"][name],
              **kernels[name]}
             for name, (src, rep) in sources.items()]
+    print(json.dumps({"rest_of_model": {
+        k: ({kk: vv for kk, vv in v.items() if kk != "launches"} if isinstance(v, dict)
+            else v) for k, v in rest.items()}}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,11 @@
 The port's parameter names are the reference torch layout (the layout of
 ``deflow_tpu/convert.py`` ``export_state_dict`` without its ``model.``
 prefix): Conv HWIO → OIHW, Dense → Linear ``[O, I]``, GRU gates as Conv1d
-``[O, I, 1]``, BatchNorm scale/bias → weight/bias and batch_stats →
-running_mean/running_var, and the module renames below.  So one loader takes
+``[O, I, 1]``, BatchNorm and LayerNorm scale/bias → weight/bias and
+batch_stats → running_mean/running_var, the MMHead's attention leaves
+(flax ``query/key/value/out``) packed into ``nn.MultiheadAttention``'s
+``in_proj_weight [3d, d]``, ``in_proj_bias`` and ``out_proj``, and the
+module renames below (``layers_N`` → ``pts_off_transformer.layers.N``).  So one loader takes
 both the JAX package's variables (via :func:`state_dict_from_flax`) and a
 reference Lightning ``state_dict``; :func:`load_weights` reads a checkpoint
 file into a model.
@@ -34,12 +37,31 @@ _REVERSE_MAP = {
 _REVERSE_RE = re.compile(
     r"(?<!\w)(" + "|".join(re.escape(k) for k in sorted(
         _REVERSE_MAP, key=len, reverse=True)) + r")(?!\w)")
+_LAYERS_RE = re.compile(r"(?<!\w)layers_(\d+)")
 _GRU_GATES = ("convz", "convr", "convq")
+_ATTENTION = ("self_attn", "multihead_attn")
 
 
 def _torch_key(flax_path) -> str:
-    return _REVERSE_RE.sub(lambda m: _REVERSE_MAP[m.group(1)],
-                           ".".join(flax_path))
+    key = _REVERSE_RE.sub(lambda m: _REVERSE_MAP[m.group(1)], ".".join(flax_path))
+    return _LAYERS_RE.sub(r"pts_off_transformer.layers.\1", key)
+
+
+def _pack_attention(leaves: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """flax ``MultiHeadDotProductAttention`` leaves (``query.kernel [d, h,
+    d/h]``, ``query.bias [h, d/h]`` … ``out.kernel [h, d/h, d]``) →
+    ``nn.MultiheadAttention``'s (rows of ``in_proj_weight`` = q, k, v
+    outputs, head-major)."""
+    d = leaves["query.kernel"].shape[0]
+    out = {"in_proj_weight": np.concatenate(
+        [leaves[f"{n}.kernel"].reshape(d, d).T for n in ("query", "key", "value")]),
+           "out_proj.weight": leaves["out.kernel"].reshape(d, d).T}
+    if "query.bias" in leaves:
+        out["in_proj_bias"] = np.concatenate(
+            [leaves[f"{n}.bias"].reshape(d) for n in ("query", "key", "value")])
+    if "out.bias" in leaves:
+        out["out_proj.bias"] = leaves["out.bias"]
+    return out
 
 
 def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
@@ -50,6 +72,7 @@ def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
     gradient tree (``{"params": grads}``) or the state after a JAX train
     step onto the port's parameter names."""
     out: Dict[str, torch.Tensor] = {}
+    attention: Dict[tuple, Dict[str, np.ndarray]] = {}
 
     def walk(tree, path, collection):
         for k, v in tree.items():
@@ -58,6 +81,11 @@ def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
                 walk(v, p, collection)
                 continue
             arr = np.array(v, np.float32)
+            at = [i for i, seg in enumerate(p) if seg in _ATTENTION]
+            if at:                      # packed after the walk
+                attention.setdefault(tuple(p[:at[0] + 1]), {})[
+                    ".".join(p[at[0] + 1:])] = arr
+                continue
             leaf = p[-1]
             if collection == "batch_stats":
                 leaf = {"mean": "running_mean", "var": "running_var"}[leaf]
@@ -74,6 +102,10 @@ def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
 
     walk(variables.get("params", {}), [], "params")
     walk(variables.get("batch_stats", {}), [], "batch_stats")
+    for module, leaves in attention.items():
+        for leaf, arr in _pack_attention(leaves).items():
+            out[_torch_key(list(module)) + "." + leaf] = torch.from_numpy(
+                np.ascontiguousarray(arr))
     for key in [k for k in out if k.endswith("running_mean")]:
         out[key.replace("running_mean", "num_batches_tracked")] = torch.zeros(
             (), dtype=torch.int64)

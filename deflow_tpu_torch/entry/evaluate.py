@@ -246,12 +246,11 @@ def write_submission(eval_step: Callable, test_ds, cfg, out_dir: str,
 
 
 def load_eval_step(cfg, device) -> Callable:
-    """The eval step of ``cfg``'s model on ``device``: weights from
-    ``cfg["checkpoint"]`` when given, else random from seed 0."""
-    if int(cfg.get("num_frames", 2)) != 2:
-        raise NotImplementedError("the port runs frame pairs only (num_frames=2)")
+    """The eval step of ``cfg``'s model (``cfg["num_frames"]`` frames) on
+    ``device``: weights from ``cfg["checkpoint"]`` when given, else random
+    from seed 0."""
     model = build_model(cfg["model"], precision=str(cfg.get("precision", "fp32")),
-                        device=device, seed=0)
+                        device=device, seed=0, num_frames=int(cfg.get("num_frames", 2)))
     if cfg.get("checkpoint"):
         load_weights(model, str(cfg["checkpoint"]))
         print(f"loaded checkpoint: {cfg['checkpoint']}")
@@ -269,7 +268,8 @@ def main(cfg: Optional[Config] = None, device=None) -> Dict[str, float]:
     ds = HDF5Dataset(split_dir, max_points=int(cfg["max_points"]),
                      remove_ground=bool(cfg["remove_ground"]),
                      with_labels=(mode == "val"),
-                     submission_meta=(mode == "test"))
+                     submission_meta=(mode == "test"),
+                     num_frames=int(cfg.get("num_frames", 2)))
     try:
         if mode == "val":
             three, bucketed = ThreewayEPE(), BucketedEPE()

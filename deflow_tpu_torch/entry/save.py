@@ -36,7 +36,8 @@ def main(cfg: Optional[Config] = None, device=None) -> str:
     data_dir = str(cfg["dataset_path"])
     eval_step = load_eval_step(cfg, dev)
     ds = HDF5Dataset(data_dir, max_points=int(cfg["max_points"]),
-                     remove_ground=bool(cfg["remove_ground"]), with_labels=False)
+                     remove_ground=bool(cfg["remove_ground"]), with_labels=False,
+                     num_frames=int(cfg.get("num_frames", 2)))
     # predictions per (scene, timestamp), then one write per scene file
     results = {}
     try:

@@ -99,9 +99,7 @@ class DynCapMonitor:
 
 def check_supported(cfg) -> None:
     """Raise for what the port does not run, instead of doing something
-    else: frame history, more than one device, the dyn_cap override."""
-    if int(cfg.get("num_frames", 2)) != 2:
-        raise NotImplementedError("the port runs frame pairs only (num_frames=2)")
+    else: more than one device, the dyn_cap override."""
     if int(cfg.get("num_devices", -1)) > 1:
         raise NotImplementedError(
             "the port trains on one device (num_devices <= 1); data parallelism "
@@ -138,15 +136,9 @@ def fit(cfg, train_ds, val_ds=None, device=None,
                               num_workers=int(cfg.get("num_workers", 0)))
 
     model = build_model(cfg["model"], precision=str(cfg.get("precision", "bf16")),
-                        device=dev, seed=int(cfg["seed"]))
+                        device=dev, seed=int(cfg["seed"]),
+                        num_frames=int(cfg.get("num_frames", 2)))
     state = init_train_state(model, cfg, dev)
-    start_epoch = 0
-    if cfg.get("resume"):
-        state, start_epoch = load_checkpoint(str(cfg["resume"]), state)
-        print(f"resumed from {cfg['resume']}: epoch {start_epoch} is next")
-    elif cfg.get("checkpoint"):
-        state = load_weights(str(cfg["checkpoint"]), state)
-        print(f"initialized weights from {cfg['checkpoint']}")
 
     cfg_dict = cfg.to_dict() if isinstance(cfg, Config) else dict(cfg)
     logger = MetricLogger(
@@ -168,6 +160,14 @@ def fit(cfg, train_ds, val_ds=None, device=None,
     best_keeper = (BestCheckpointKeeper(logger.ckpt_dir, monitor,
                                         mode=str(cfg.get("val_monitor_mode", "min")))
                    if monitor and val_ds is not None else None)
+    start_epoch = 0
+    if cfg.get("resume"):
+        # the keeper's best comes back too, as Lightning's best_model_score
+        state, start_epoch = load_checkpoint(str(cfg["resume"]), state, best_keeper)
+        print(f"resumed from {cfg['resume']}: epoch {start_epoch} is next")
+    elif cfg.get("checkpoint"):
+        state = load_weights(str(cfg["checkpoint"]), state)
+        print(f"initialized weights from {cfg['checkpoint']}")
 
     dyn_cap_monitor = DynCapMonitor()
     log_every = int(cfg.get("log_every", 10))
@@ -221,7 +221,7 @@ def fit(cfg, train_ds, val_ds=None, device=None,
 
         if (epoch + 1) % int(cfg.get("ckpt_every", 1)) == 0:
             with timer.stage("ckpt"):
-                path = save_checkpoint(logger.ckpt_dir, state, epoch)
+                path = save_checkpoint(logger.ckpt_dir, state, epoch, keeper=best_keeper)
             print(f"saved checkpoint: {path}", flush=True)
 
     if prof is not None:
@@ -257,7 +257,8 @@ def main(cfg: Optional[Config] = None, device=None) -> Dict[str, float]:
         cfg = from_cli(config_name="config")
     dev = resolve_device(device if device is not None else cfg.get("device"))
     check_supported(cfg)
-    kw = dict(max_points=int(cfg["max_points"]), remove_ground=bool(cfg["remove_ground"]))
+    kw = dict(max_points=int(cfg["max_points"]), remove_ground=bool(cfg["remove_ground"]),
+              num_frames=int(cfg.get("num_frames", 2)))
     train_ds = HDF5Dataset(str(cfg["train_data"]), limit=int(cfg.get("overfit", 0)), **kw)
     val_dir = str(cfg["val_data"])
     val_ds = HDF5Dataset(val_dir, **kw) if os.path.isdir(val_dir) else None

@@ -1,13 +1,25 @@
-"""DynamicEmbedder on the host sorted-record path.
+"""DynamicEmbedder: points → per-point PFN features → pillar means.
 
-Counterpart of ``deflow_tpu/models/embedder.py``: the host ships the 9-lane
-PFN input ``[xyz | p−centroid | p−center]`` in ascending pillar-id order, a
-bias-free Linear(9→C) + BatchNorm (eps 1e-3) + ReLU makes the per-point
-features, and ONE sorted segment-sum over the C feature lanes plus a count
-lane (C + 1 = 33 lanes) gives the pillar means, ``sum / max(count, 1)``.
+Counterpart of ``deflow_tpu/models/embedder.py``, by two routes.
+
+- The host sorted-record path (``forward``): the host ships the 9-lane PFN
+  input ``[xyz | p−centroid | p−center]`` in ascending pillar-id order, a
+  bias-free Linear(9→C) + BatchNorm (eps 1e-3) + ReLU makes the per-point
+  features, and ONE sorted segment-sum over the C feature lanes plus a
+  count lane (C + 1 = 33 lanes) gives the pillar means, ``sum / max(count,
+  1)``.
+- The device path (``embed_points``), for clouds without a host prep (a
+  batch in its own point order, and the history frames): the points are
+  binned on the device (``compute_pillar_info``), sorted once
+  (``make_batched_scatter_plan``), the centroids come from a 4-lane
+  segment-sum in the compute dtype and a gather back to the points, then
+  the same feature net and mean scatter, both through the plan.
+
 Empty pillars are exact zeros.  The count lane carries no gradient (the
 JAX package's ``stop_gradient``); the feature lanes' gradient flows back
-through the scatter's backward (a sorted gather) into ``feature_net``.
+through the scatter's backward (a gather) into ``feature_net``.  In train
+mode the BN running statistics move once per call, in the model's call
+order (pc0, pc1, then each history frame), as flax's sequential updates do.
 
 The parameter names follow the reference layout
 (``feature_net.pfn_layers.0.{0,1}``).
@@ -19,7 +31,10 @@ import torch
 from torch import nn
 
 from deflow_tpu_torch.models.running_stats import update_running_
-from deflow_tpu_torch.ops.voxel import TRASH_PAD, VoxelConfig, segment_sum_batched
+from deflow_tpu_torch.ops.voxel import (
+    TRASH_PAD, PillarInfo, ScatterPlan, VoxelConfig, compute_pillar_info,
+    make_batched_scatter_plan, pillar_centroids_batched, pillar_mean_scatter_batched,
+    segment_sum_batched)
 
 
 def masked_batch_norm(x: torch.Tensor, mask: torch.Tensor,
@@ -67,8 +82,9 @@ class PillarFeatureNet(nn.Module):
 
 
 class DynamicEmbedder(nn.Module):
-    """Host sorted record [B, N, 9] + sorted ids [B, N] → pillar table
-    [B, P, C] (id order) in the compute dtype."""
+    """Host sorted record [B, N, 9] + sorted ids [B, N] (``forward``), or
+    points [B, N, 3] + mask (``embed_points``) → pillar table [B, P, C]
+    (id order) in the compute dtype."""
 
     def __init__(self, voxel_cfg: VoxelConfig, feat_channels: int = 32):
         super().__init__()
@@ -84,3 +100,17 @@ class DynamicEmbedder(nn.Module):
         data = torch.cat([feats, valid.to(dtype)[..., None]], dim=-1)
         sums = segment_sum_batched(data, sorted_id, p + TRASH_PAD)
         return sums[:, :p, :c] / sums[:, :p, c:].detach().clamp(min=1.0)
+
+    def embed_points(self, points: torch.Tensor, mask: torch.Tensor,
+                     dtype: torch.dtype):
+        """The device path: points [B, N, 3] f32 in any order + mask →
+        (pillar table [B, P, C], PillarInfo, ScatterPlan); the plan routes
+        the decoder gather's backward too."""
+        cfg = self.voxel_cfg
+        info: PillarInfo = compute_pillar_info(points, mask, cfg)
+        plan: ScatterPlan = make_batched_scatter_plan(
+            info.pillar_id, cfg.num_pillars + TRASH_PAD)
+        cluster = pillar_centroids_batched(info, plan, dtype)
+        feats9 = torch.cat([info.points, cluster, info.offsets], dim=-1)
+        feats = self.feature_net(feats9, info.valid, dtype)
+        return pillar_mean_scatter_batched(feats, info, cfg, plan), info, plan

@@ -1,10 +1,18 @@
-"""Dynamic pillar voxelization on static-shaped, host-sorted batches.
+"""Dynamic pillar voxelization on static-shaped batches.
 
 Counterpart of ``deflow_tpu/ops/voxel.py``.  Every point keeps its slot in a
 fixed ``[B, N]`` buffer with a validity mask; invalid points carry the trash
 id ``num_pillars``.  The per-sample pillar tables are ``num_pillars +
 TRASH_PAD`` rows long for the scatter (flattened over the batch with a
 per-sample offset) and ``num_pillars`` rows long for the gather.
+
+Two routes reach the kernels.  A host-sorted batch (``attach_host_prep``)
+arrives in ascending pillar-id order and runs no sort and no permute
+(``segment_sum_batched``, ``pseudoimage_gather_batched`` without a plan).
+A batch in its own point order is binned on the device
+(``compute_pillar_info``) and sorted once (``make_batched_scatter_plan``);
+every scatter over it, and the gather's backward, permutes its rows by the
+plan's order and runs the same kernels on the ascending ids.
 
 Layout: a pillar table ``[B, P, C]`` is in pillar-id order; on even grids the
 ids are s2d-ordered, ``((y>>1)·W/2 + (x>>1))·4 + (y&1)·2 + (x&1)``, so the
@@ -14,7 +22,7 @@ table unfolds to the NCHW image through ``[B, H/2, W/2, 2, 2, C]``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -218,6 +226,112 @@ def image_to_table(image: torch.Tensor, cfg: VoxelConfig) -> torch.Tensor:
     return t.reshape(b, h * w, c)
 
 
+class ScatterPlan(NamedTuple):
+    """One stable device sort of a batch's flat pillar ids, shared by every
+    scatter over them (``pallas_scatter.ScatterPlan``)."""
+
+    order: torch.Tensor       # [B·N] int64: the points in ascending flat-id order
+    sorted_ids: torch.Tensor  # [B·N] int32: the segment-sum's ids in that order
+    flat_ids: torch.Tensor    # [B·N] int32: the same ids in the points' own order
+    num_rows: int             # B·num_segments
+    samples: int              # B
+
+
+def make_batched_scatter_plan(pillar_id: torch.Tensor,
+                              num_segments: int) -> ScatterPlan:
+    """The plan of ``pillar_id [B, N]`` (trash id ``num_segments −
+    TRASH_PAD``) over B·num_segments rows: ONE stable sort of the
+    sample-offset ids (``jnp.argsort`` is stable too), so each pillar still
+    sums in point order.  Each sample's points keep their own N positions
+    of the sorted stream, its trash points last; there, and in the
+    original order, the trash takes the beyond-table sentinel, so no row
+    accumulates it and the backward gather reads zeros for it."""
+    b, n = pillar_id.shape
+    trash = num_segments - TRASH_PAD
+    boff = (torch.arange(b, dtype=torch.int32, device=pillar_id.device)
+            * num_segments)[:, None]
+    key = pillar_id.to(torch.int32) + boff
+    sorted_key, order = torch.sort(key.reshape(-1), stable=True)
+    sentinel = _scatter.sentinel_for(b * num_segments)
+    sorted_ids = torch.where(sorted_key.reshape(b, n) - boff < trash,
+                             sorted_key.reshape(b, n), sentinel)
+    flat_ids = torch.where(pillar_id < trash, key, sentinel)
+    return ScatterPlan(order, sorted_ids.reshape(-1).to(torch.int32),
+                       flat_ids.reshape(-1).to(torch.int32), b * num_segments, b)
+
+
+def _planned_sum(rows: torch.Tensor, order: torch.Tensor, sorted_ids: torch.Tensor,
+                 num_rows: int, samples: int) -> torch.Tensor:
+    """[B·N, C] rows in the points' own order, permuted into the plan's
+    order (a plain ``index_select``, as XLA permutes in the JAX package),
+    then summed by the sorted segment-sum on the ascending ids."""
+    return _scatter.sorted_segment_sum(rows.index_select(0, order), sorted_ids,
+                                       num_rows, samples)
+
+
+class _PlannedSegmentSum(torch.autograd.Function):
+    """Segment-sum through a plan (:func:`_planned_sum`).  The backward
+    gathers the cotangent at each point's own flat id, in the points'
+    original order (``pallas_scatter._planned_bwd``); trash and invalid
+    points read zeros."""
+
+    @staticmethod
+    def forward(ctx, data, order, sorted_ids, flat_ids, num_rows, samples):
+        ctx.save_for_backward(flat_ids)
+        ctx.num_rows = num_rows
+        return _planned_sum(data, order, sorted_ids, num_rows, samples)
+
+    @staticmethod
+    def backward(ctx, g):
+        (flat_ids,) = ctx.saved_tensors
+        return (_gather.sorted_rows_gather(g.contiguous(), flat_ids, ctx.num_rows),
+                None, None, None, None, None)
+
+
+def segment_sum_planned(data: torch.Tensor, plan: ScatterPlan) -> torch.Tensor:
+    """[B, N, C] in the points' own order → [B, num_segments, C] through
+    ``plan`` (one permute, one kernel launch)."""
+    b, n, c = data.shape
+    flat = _PlannedSegmentSum.apply(data.reshape(b * n, c), plan.order,
+                                    plan.sorted_ids, plan.flat_ids,
+                                    plan.num_rows, plan.samples)
+    return flat.reshape(b, plan.num_rows // b, c)
+
+
+def pillar_centroids_batched(info: PillarInfo, plan: ScatterPlan,
+                             dtype: torch.dtype) -> torch.Tensor:
+    """``point − centroid of its pillar`` [B, N, 3] f32, zero where invalid
+    (``voxel.pillar_centroids_batched``).
+
+    In pillar-centred coordinates, ``p − centroid = offsets −
+    mean(offsets)`` exactly, and the offsets are bounded by half a voxel,
+    so the sum runs in the compute dtype: one segment-sum of [offsets |
+    1] (4 lanes), then one row gather of [mean offset | count] (f32) back
+    to the points at the plan's flat ids."""
+    off = info.offsets.to(dtype)
+    data = torch.cat([off, info.valid.to(dtype)[..., None]], dim=-1)
+    sums = segment_sum_planned(data, plan).float()
+    mean = sums[..., :3] / sums[..., 3:].clamp(min=1.0)
+    table = torch.cat([mean, sums[..., 3:]], dim=-1).reshape(plan.num_rows, 4)
+    b, n = info.valid.shape
+    per_point = _gather.sorted_rows_gather(table, plan.flat_ids,
+                                           plan.num_rows).reshape(b, n, 4)
+    return torch.where(info.valid[..., None],
+                       info.offsets.float() - per_point[..., :3], 0.0)
+
+
+def pillar_mean_scatter_batched(feats: torch.Tensor, info: PillarInfo,
+                                cfg: VoxelConfig, plan: ScatterPlan) -> torch.Tensor:
+    """Per-point features [B, N, C] → id-ordered pillar table [B, P, C],
+    the mean of each pillar's valid points (``DynamicScatter(avg)``);
+    empty pillars are exact zeros.  The count lane carries no gradient."""
+    p, c = cfg.num_pillars, feats.shape[-1]
+    feats = torch.where(info.valid[..., None], feats, 0)
+    data = torch.cat([feats, info.valid.to(feats.dtype)[..., None]], dim=-1)
+    sums = segment_sum_planned(data, plan)
+    return sums[:, :p, :c] / sums[:, :p, c:].detach().clamp(min=1.0)
+
+
 class _Gather(torch.autograd.Function):
     """Unpillar gather whose backward is a sorted segment-sum of the
     per-point cotangent over the scatter's B·(P + TRASH_PAD) rows, invalid
@@ -242,15 +356,45 @@ class _Gather(torch.autograd.Function):
         return d, None, None, None
 
 
-def pseudoimage_gather_batched(table: torch.Tensor, info: PillarInfo) -> torch.Tensor:
+class _PlannedGather(torch.autograd.Function):
+    """Unpillar gather of points in their own order (the ids do not
+    ascend); its backward is the planned segment-sum of the per-point
+    cotangent, invalid slots adding nothing (``voxel._gather_planned_bwd``
+    with a plan that permutes)."""
+
+    @staticmethod
+    def forward(ctx, table, flat_ids, valid, order, sorted_ids, num_rows, samples):
+        b, p, c = table.shape
+        ctx.save_for_backward(valid, order, sorted_ids)
+        ctx.p, ctx.num_rows, ctx.samples = p, num_rows, samples
+        n = valid.shape[1]
+        return _gather.sorted_rows_gather(table.reshape(b * p, c), flat_ids,
+                                          b * p).reshape(b, n, c)
+
+    @staticmethod
+    def backward(ctx, g):
+        valid, order, sorted_ids = ctx.saved_tensors
+        b, n = valid.shape
+        g = torch.where(valid[..., None], g, 0).reshape(b * n, -1)
+        d = _planned_sum(g, order, sorted_ids, ctx.num_rows, ctx.samples)
+        return (d.reshape(b, ctx.num_rows // b, -1)[:, :ctx.p],
+                None, None, None, None, None, None)
+
+
+def pseudoimage_gather_batched(table: torch.Tensor, info: PillarInfo,
+                               plan: Optional[ScatterPlan] = None) -> torch.Tensor:
     """Unpillar gather from flat pillar tables [B, P, C] → [B, N, C].
 
     Flat ids use the B·P stride (no TRASH_PAD rows); invalid slots take the
-    sentinel and read exact zeros."""
+    sentinel and read exact zeros.  Without ``plan`` the points must be
+    host-sorted (the backward sums by their ascending ids); with the
+    embedder's plan they may come in any order."""
     b, p, _ = table.shape
     boff = (torch.arange(b, dtype=torch.int32, device=table.device) * p)[:, None]
     flat_ids = torch.where(info.valid & (info.pillar_id < p),
                            info.pillar_id + boff, GATHER_SENTINEL)
-    return _Gather.apply(table.contiguous(),
-                         flat_ids.reshape(-1).to(torch.int32),
-                         info.pillar_id, info.valid)
+    flat_ids = flat_ids.reshape(-1).to(torch.int32)
+    if plan is None:
+        return _Gather.apply(table.contiguous(), flat_ids, info.pillar_id, info.valid)
+    return _PlannedGather.apply(table.contiguous(), flat_ids, info.valid, plan.order,
+                                plan.sorted_ids, plan.num_rows, plan.samples)

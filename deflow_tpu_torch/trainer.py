@@ -6,7 +6,8 @@ parameters and BN running statistics, the optimizer with its state, and the
 step counter), ``make_train_step`` (the supervised step, or the SeFlow
 self-supervised one for ``seflowLoss``; optionally with the forward
 recomputed in the backward), ``make_eval_step``, ``device_batch``,
-``device_prefetch``, and the checkpoints (``save_checkpoint``,
+``device_prefetch``, ``history_from_batch`` (a ``num_frames > 2`` model's
+history frames), and the checkpoints (``save_checkpoint``,
 ``load_checkpoint``, ``BestCheckpointKeeper``, ``load_weights``).  In eval,
 the final predicted flow is the rigid ego flow everywhere plus the network
 flow at voxel-valid points.
@@ -35,12 +36,17 @@ from deflow_tpu_torch.data.host_prep import (CHAMFER_CELL_KEYS, HOST_PREP_KEYS,
                                              host_prep_from_batch)
 from deflow_tpu_torch.device import resolve_device
 from deflow_tpu_torch.losses import SSL_LOSS_REGISTRY, get_loss
+from deflow_tpu_torch.models.decoder import dropout_generator
 from deflow_tpu_torch.models.running_stats import frozen_running_stats
 
+# the loader's history frames (num_frames > 2: pch1 is the frame before
+# pc0, ...), for every depth it can emit
+HISTORY_KEYS = tuple(k for h in range(1, 17)
+                     for k in (f"pch{h}", f"pch{h}_mask", f"pose_pch{h}"))
 # the host-batch keys the model reads, and those the supervised and the SSL
 # losses add
 MODEL_KEYS = ("pc0", "pc1", "pose0", "pose1", "pc0_mask", "pc1_mask",
-              "ego_motion") + HOST_PREP_KEYS
+              "ego_motion") + HOST_PREP_KEYS + HISTORY_KEYS
 TRAIN_KEYS = MODEL_KEYS + ("flow", "flow_is_valid", "flow_category_indices")
 SSL_TRAIN_KEYS = MODEL_KEYS + ("dufo_label0", "dufo_label1") + CHAMFER_CELL_KEYS
 
@@ -58,6 +64,26 @@ def device_batch(batch: Dict, device=None,
                 v = torch.from_numpy(np.ascontiguousarray(v))
             out[k] = v.to(dev)
     return out
+
+
+def history_from_batch(batch) -> Optional[list]:
+    """The loader's ``pch{h}`` history frames as the model's ``history``
+    argument (``[{"pc", "mask", "pose"}, ...]``, pch1 first); None for a
+    frame pair."""
+    hist, h = [], 1
+    while f"pch{h}" in batch:
+        hist.append({"pc": batch[f"pch{h}"], "mask": batch[f"pch{h}_mask"],
+                     "pose": batch[f"pose_pch{h}"]})
+        h += 1
+    return hist or None
+
+
+def _model_inputs(model: torch.nn.Module, b: Dict) -> Dict:
+    """The keyword inputs of the model beside the two clouds: the host prep
+    and, for a ``num_frames > 2`` model, the history."""
+    return {"ego_motion": b.get("ego_motion"), "host_prep": host_prep_from_batch(b),
+            "history": (history_from_batch(b)
+                        if getattr(model, "num_frames", 2) > 2 else None)}
 
 
 def device_prefetch(loader: Iterable[Dict], device=None, depth: int = 2,
@@ -111,9 +137,7 @@ def make_eval_step(model: torch.nn.Module, device=None) -> Callable:
         model.eval()
         b = device_batch(batch, dev)
         out = model(b["pc0"], b["pc1"], b["pose0"], b["pose1"],
-                    b["pc0_mask"], b["pc1_mask"],
-                    ego_motion=b.get("ego_motion"),
-                    host_prep=host_prep_from_batch(b))
+                    b["pc0_mask"], b["pc1_mask"], **_model_inputs(model, b))
         total = out["pose_flow"] + torch.where(
             out["pc0_valid"][..., None], out["flow"], 0.0)
         return {"pred_flow": total, "net_flow": out["flow"],
@@ -227,10 +251,12 @@ def make_train_step(model: torch.nn.Module, loss_name: str,
     loss_fn = SSL_LOSS_REGISTRY[loss_name] if is_ssl else get_loss(loss_name)
     keys = SSL_TRAIN_KEYS if is_ssl else TRAIN_KEYS
 
-    def forward(b):
+    def forward(b, step):
+        # a head with dropout draws from the step's stream; made here, so
+        # that remat's recompute draws the same masks
+        gen = dropout_generator(step, dev) if getattr(model.head, "dropout", 0.0) else None
         return model(b["pc0"], b["pc1"], b["pose0"], b["pose1"],
-                     b["pc0_mask"], b["pc1_mask"], ego_motion=b.get("ego_motion"),
-                     host_prep=host_prep_from_batch(b))
+                     b["pc0_mask"], b["pc1_mask"], dropout=gen, **_model_inputs(model, b))
 
     def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
         if state.model is not model:
@@ -238,9 +264,9 @@ def make_train_step(model: torch.nn.Module, loss_name: str,
         model.train()
         b = device_batch(batch, dev, keys)
         state.optimizer.zero_grad(set_to_none=True)
-        out = (checkpoint(forward, b, use_reentrant=False,
+        out = (checkpoint(forward, b, state.step, use_reentrant=False,
                           context_fn=_remat_contexts)
-               if remat else forward(b))
+               if remat else forward(b, state.step))
         if is_ssl:
             mask = out["pc0_valid"] & b["pc0_mask"]
             loss = loss_fn(out, b)
@@ -266,12 +292,15 @@ def make_train_step(model: torch.nn.Module, loss_name: str,
 
 # ---------------------------------------------------------------- checkpoints
 def save_checkpoint(ckpt_dir: str, state: TrainState, epoch: int,
-                    name: Optional[str] = None) -> str:
+                    name: Optional[str] = None,
+                    keeper: Optional["BestCheckpointKeeper"] = None) -> str:
     """Write ``<ckpt_dir>/epoch_<epoch>.ckpt`` (or ``<name>.ckpt``) after
     epoch ``epoch`` has run, in the Lightning layout the reference writes
     (README.md:76-77): ``state_dict`` (the model's parameters and BN
     buffers, keys prefixed ``model.``), ``optimizer_states`` (a list of the
-    torch optimizer's ``state_dict``), ``global_step`` and ``epoch``.  So
+    torch optimizer's ``state_dict``), ``global_step`` and ``epoch``, and
+    with ``keeper`` its state under ``callbacks`` (as Lightning stores its
+    ``ModelCheckpoint``'s ``best_model_score``).  So
     ``convert.load_weights`` and the eval entry read it as they read a
     reference checkpoint.  Written to a temporary name, then renamed: a
     reader never sees half a file."""
@@ -284,19 +313,27 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, epoch: int,
         "global_step": int(state.step),
         "epoch": int(epoch),
     }
+    if keeper is not None:
+        payload["callbacks"] = {"BestCheckpointKeeper": keeper.state_dict()}
     tmp = f"{path}.tmp{os.getpid()}"
     torch.save(payload, tmp)
     os.replace(tmp, path)
     return path
 
 
-def load_checkpoint(path: str, state: TrainState) -> Tuple[TrainState, int]:
+def load_checkpoint(path: str, state: TrainState,
+                    keeper: Optional["BestCheckpointKeeper"] = None
+                    ) -> Tuple[TrainState, int]:
     """Restore a :func:`save_checkpoint` file into ``state``: the parameters
     and BN buffers (``num_batches_tracked`` too), copied into the model's
     tensors on its device; the optimizer state, whose moments the optimizer
     moves onto its parameters' device (the file is read with
     ``map_location="cpu"``, so Adam's ``step`` stays on the CPU, where torch
-    keeps it); and the step.  Returns the state and the NEXT epoch to run:
+    keeps it); the step; and into ``keeper`` the best value the file
+    holds for the keeper's monitor and mode (Lightning restores its
+    ``best_model_score``; the JAX package's keeper starts empty, so a
+    resumed run's first validation overwrote ``best.ckpt`` even when it
+    was worse).  Returns the state and the NEXT epoch to run:
     the file was written after its epoch had run (the JAX package's
     ``load_checkpoint`` returns the saved epoch, and its ``main`` runs that
     epoch again)."""
@@ -304,6 +341,8 @@ def load_checkpoint(path: str, state: TrainState) -> Tuple[TrainState, int]:
     convert.load_reference_state_dict(state.model, ckpt["state_dict"])
     state.optimizer.load_state_dict(ckpt["optimizer_states"][0])
     state.step = int(ckpt["global_step"])
+    if keeper is not None:
+        keeper.load_state_dict(ckpt.get("callbacks", {}).get("BestCheckpointKeeper"))
     return state, int(ckpt["epoch"]) + 1
 
 
@@ -337,7 +376,16 @@ class BestCheckpointKeeper:
         if not improved:
             return None
         self.best = v
-        return save_checkpoint(self.ckpt_dir, state, epoch, name="best")
+        return save_checkpoint(self.ckpt_dir, state, epoch, name="best", keeper=self)
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"monitor": self.key, "mode": self.mode, "best_model_score": self.best}
+
+    def load_state_dict(self, saved: Optional[Dict[str, Any]]) -> None:
+        """The best value of a saved keeper of the same monitor and mode
+        (another keeper's, or none, leaves this one as it is)."""
+        if saved and saved.get("monitor") == self.key and saved.get("mode") == self.mode:
+            self.best = saved.get("best_model_score")
 
 
 def load_weights(path: str, state: TrainState) -> TrainState:

@@ -978,3 +978,109 @@ def test_ssl_chamfer_card_vs_cpu(dev, hosted):
     for k, ref in zip(res[str(dev)][:4], res["cpu"][:4]):
         assert torch.equal(k, ref)
     assert _rel_err(res[str(dev)][4], res["cpu"][4]) <= 1e-6
+
+
+# ------------------------- the device binning path and the MMHead's masking
+def _device_plan(g, b, n, p, dev):
+    """A device plan of pillar ids in the points' own order (20% trash),
+    with a dense pillar of 150 points in the second sample."""
+    from deflow_tpu_torch.ops import voxel
+
+    ids = torch.randint(0, p, (b, n), generator=g)
+    ids[torch.rand(b, n, generator=g) < 0.2] = p
+    ids[1, torch.randperm(n, generator=g)[:150]] = 7
+    ids = ids.to(torch.int32).to(dev)
+    return ids, voxel.make_batched_scatter_plan(ids, p + voxel.TRASH_PAD)
+
+
+@pytest.mark.parametrize("c,dtype", [(4, torch.bfloat16), (4, torch.float32),
+                                     (33, torch.bfloat16), (33, torch.float32)])
+def test_segment_sum_on_device_sorted_ids(dev, c, dtype):
+    """The segment-sum on a device sort's ids (the centroids' 4 lanes, the
+    features' 33): held as every plan is (the plan ascends within each
+    sample, sentinels last; bit for bit against the serial sum)."""
+    g = torch.Generator().manual_seed(c)
+    b, n, p = 3, 1500, 1024
+    _, plan = _device_plan(g, b, n, p, dev)
+    feats = torch.randn(b * n, c, generator=g).to(dev, dtype)
+    _held_segment_sum(feats.index_select(0, plan.order), plan.sorted_ids,
+                      plan.num_rows, plan.samples)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c", [4, 33, 128])
+def test_gather_on_unsorted_ids(dev, dtype, c):
+    """The row gather at a device plan's flat ids in the points' own order
+    (the planned scatter's backward, the centroids' gather back, the
+    unsorted decoder gather): bit-exact, the trash's sentinel reading
+    zeros."""
+    g = torch.Generator().manual_seed(100 + c)
+    b, n, p = 3, 1500, 1024
+    _, plan = _device_plan(g, b, n, p, dev)
+    table = torch.randn(plan.num_rows, c, generator=g).to(dev, dtype)
+    assert not scatter.plan_is_sorted(plan.flat_ids, plan.num_rows, plan.samples)
+    k = gather.sorted_rows_gather(table, plan.flat_ids, plan.num_rows)
+    assert torch.equal(k, gather.gather_plain(table, plan.flat_ids, plan.num_rows))
+    assert (k[plan.flat_ids >= plan.num_rows] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_planned_autograd_vs_cpu(dev, dtype):
+    """The planned scatter and the planned gather, forward and backward,
+    card kernels against the CPU's plain versions; one kernel launch each
+    way."""
+    from deflow_tpu_torch.ops import voxel
+
+    g = torch.Generator().manual_seed(6)
+    b, n, p = 2, 3000, 1024
+    ids, _ = _device_plan(g, b, n, p, "cpu")
+    valid = ids < p
+    data = torch.randn(b, n, 33, generator=g)
+    table = torch.randn(b, p, 128, generator=g)
+    w_seg = torch.randn(b, p + voxel.TRASH_PAD, 33, generator=g)
+    w_out = torch.randn(b, n, 128, generator=g)
+    res = {}
+    for d in (dev, torch.device("cpu")):
+        plan = voxel.make_batched_scatter_plan(ids.to(d), p + voxel.TRASH_PAD)
+        x = data.to(d, dtype).requires_grad_()
+        t = table.to(d, dtype).requires_grad_()
+        before = (scatter.sorted_segment_sum.launches, gather.sorted_rows_gather.launches)
+        seg = voxel.segment_sum_planned(x, plan)
+        info = voxel.PillarInfo(ids.to(d), valid.to(d), None, None, None)
+        out = voxel.pseudoimage_gather_batched(t, info, plan)
+        ((seg.float() * w_seg.to(d)).sum() + (out.float() * w_out.to(d)).sum()).backward()
+        after = (scatter.sorted_segment_sum.launches, gather.sorted_rows_gather.launches)
+        if d.type == "cuda":
+            assert after == (before[0] + 2, before[1] + 2)
+        res[d.type] = [v.detach().cpu() for v in (seg, out, x.grad, t.grad)]
+    rtol, atol = (1e-5, 1e-5) if dtype == torch.float32 else (2 ** -7, 1e-6)
+    for i in (0, 3):          # segment-sums: another order, or one bf16 rounding
+        torch.testing.assert_close(res["cuda"][i].float(), res["cpu"][i].float(),
+                                   rtol=rtol, atol=atol)
+    for i in (1, 2):          # gathers: bit-exact
+        assert torch.equal(res["cuda"][i], res["cpu"][i])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_masked_attention_finfo_min_on_the_card(dev, dtype):
+    """The MMHead's masking on the card: a chunk whose keys are all masked
+    gets uniform weights (the mean of its values), not NaN, and its
+    gradients are finite; the rest against the CPU."""
+    from deflow_tpu_torch.models.decoder import masked_attention
+
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(3, 4, 64, 32, generator=g) for _ in range(3))
+    key_mask = torch.arange(64)[None, :] < torch.tensor([[64], [23], [0]])
+    outs = {}
+    for d in (dev, torch.device("cpu")):
+        ins = [t.to(d, dtype).requires_grad_() for t in (q, k, v)]
+        out = masked_attention(*ins, key_mask.to(d))
+        out.float().square().sum().backward()
+        outs[d.type] = [out.detach().float().cpu()] + [t.grad.float().cpu() for t in ins]
+    for t in outs["cuda"]:
+        assert torch.isfinite(t).all()
+    uniform = v[2].to(dtype).float().mean(dim=1, keepdim=True).expand(4, 64, 32)
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -6
+    torch.testing.assert_close(outs["cuda"][0][2], uniform, rtol=tol, atol=tol)
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        assert _rel_err(got, want) <= (2e-5 if dtype == torch.float32 else 2 ** -6)

@@ -139,9 +139,17 @@ def _wrapper_calls(device):
     from deflow_tpu_torch.ops.scatter import segment_sum_lanes, sorted_segment_sum
     from deflow_tpu_torch.ops.sweep import cell_sweep
 
+    from deflow_tpu_torch.ops import voxel
+
     f = lambda *s: torch.zeros(*s, device=device)
     ids = torch.tensor([0, 1, 1, 2 ** 30], dtype=torch.int32, device=device)
+    pid = torch.tensor([[2, 0, 3, 1]], dtype=torch.int32, device=device)   # 3: trash
+    plan = voxel.make_batched_scatter_plan(pid, 3 + voxel.TRASH_PAD)
+    info = voxel.PillarInfo(pid, pid < 3, None, None, None)
     return {
+        "segment_sum_planned": lambda: voxel.segment_sum_planned(f(1, 4, 33), plan),
+        "gather_planned": lambda: voxel.pseudoimage_gather_batched(f(1, 3, 128), info,
+                                                                   plan),
         "segment_sum": lambda: sorted_segment_sum(f(4, 33), ids, 3),
         "sorted_gather": lambda: sorted_rows_gather(f(3, 128), ids, 3),
         "fused_gru": lambda: fused_gru(f(4, 128), f(4, 64), f(192, 256),

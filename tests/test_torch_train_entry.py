@@ -206,17 +206,22 @@ def test_device_prefetch_delivers_the_train_keys(keys):
     for s in range(3):
         hb = ssl_batch(50 + s)
         hb["ego_motion"] = np.linalg.inv(hb["pose1"]) @ hb["pose0"]
+        # one history frame, as the loader emits it for num_frames=3
+        hb.update(pch1=hb["pc0"] + 0.5, pch1_mask=hb["pc0_mask"].copy(),
+                  pose_pch1=hb["pose0"].copy())
         batches.append(attach_host_prep(hb, list(VOXEL), RANGE))
-    assert set(keys) <= set(batches[0])
+    # every key but the deeper history frames' is in the batch
+    present = [k for k in keys if k in batches[0]]
+    assert set(keys) - set(present) == set(TT.HISTORY_KEYS[3:])
     got = list(TT.device_prefetch(batches, "cpu", keys=keys))
     assert len(got) == 3
     for hb, (host, dev) in zip(batches, got):
-        assert host is hb and set(dev) == set(keys)
-        for k in keys:
+        assert host is hb and set(dev) == set(present)
+        for k in present:
             assert torch.equal(dev[k], torch.from_numpy(np.ascontiguousarray(hb[k]))), k
     # the eval entry's calls keep the model keys
     _, dev = next(iter(TT.device_prefetch(batches[:1], "cpu")))
-    assert set(dev) == set(TT.MODEL_KEYS)
+    assert set(dev) == set(TT.MODEL_KEYS) & set(batches[0])
 
 
 # ------------------------------------------------------- timer and logger
@@ -353,6 +358,35 @@ def test_checkpoint_round_trip(tmp_path):
 
 
 # ---------------------------------------------------------- entry: resume
+def test_resumed_run_keeps_its_best(tmp_path, monkeypatch):
+    """A run resumed from ``epoch_0.ckpt`` knows the best value so far, as
+    Lightning restores ``best_model_score``: a worse validation does not
+    overwrite ``best.ckpt``, a better one does.  (The JAX package's keeper
+    starts empty, so its resumed run wrote the worse epoch as the best.)"""
+    scores = iter([0.5, 0.9, 0.4])
+    monkeypatch.setattr(TE, "run_validation",
+                        lambda *a, **k: {"EPE_3way_mean": next(scores)})
+    out = str(tmp_path / "run")
+    over = ["batch_size=2", "num_workers=0", "max_points=512", "voxel_size=[3.2, 3.2, 6]",
+            "model.target.grid_feature_size=[32, 32]", "model.target.num_iters=1",
+            "precision=fp32", f"output_dir={out}", "device=cpu"]
+    fit = lambda *extra: TE.fit(compose("config", over + list(extra)), _small_samples(2),
+                                _small_samples(2))
+    best = os.path.join(os.path.dirname(_epoch_ckpt(out, 0)), "best.ckpt")
+    fit("epochs=1")
+    first = torch.load(best, weights_only=True)
+    assert first["epoch"] == 0
+    assert first["callbacks"]["BestCheckpointKeeper"]["best_model_score"] == 0.5
+    fit("epochs=2", f"resume={_epoch_ckpt(out, 0)}")
+    _same_tree(torch.load(best, weights_only=True), first)
+    saved = torch.load(_epoch_ckpt(out, 1), weights_only=True)
+    assert saved["callbacks"]["BestCheckpointKeeper"]["best_model_score"] == 0.5
+    fit("epochs=3", f"resume={_epoch_ckpt(out, 1)}")
+    last = torch.load(best, weights_only=True)
+    assert last["epoch"] == 2
+    assert last["callbacks"]["BestCheckpointKeeper"]["best_model_score"] == 0.4
+
+
 def _epoch_ckpt(out, epoch):
     return os.path.join(out, "wandb", "deflow-local", "checkpoints", f"epoch_{epoch}.ckpt")
 
@@ -526,7 +560,7 @@ def test_dyncap_env_override_raises(data_root, tmp_path, monkeypatch):
     assert TE.DynCapMonitor(dyn_cap=64).dyn_cap == 64   # explicit: no raise
 
 
-@pytest.mark.parametrize("override", ["num_frames=3", "num_devices=2"])
+@pytest.mark.parametrize("override", ["num_devices=2"])
 def test_main_refuses_what_is_not_ported(data_root, tmp_path, override):
     cfg = compose("config", _overrides(data_root, str(tmp_path)) + [override])
     with pytest.raises(NotImplementedError):

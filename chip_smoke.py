@@ -95,8 +95,25 @@ Phases (any failure exits non-zero):
    phase 8's paths: the MMHead eval and the eval without host prep, the
    MMHead step (dropout 0 on both sides; its parameters not held, as
    seflowLoss's) and the num_frames=3 step;
-9. a JSON line of phase 8's numbers, one JSON line of kernels, the card
-   line, and the result line.
+9. data parallelism (``deflow_tpu_torch/dist.py``): (a) two ranks sharing
+   the card over gloo (``dist.run_ranks``; nccl refuses two ranks on one
+   card), each taking half of the host's prep threads: 3 f32 deflowLoss
+   steps (64x64 grid, 2 x 4,096 slots a rank, the shards unlike in valid
+   counts and speed buckets), 3 seflowLoss steps on the grid branch and 3
+   on the brute branch, each against one process at the same global batch
+   on the card (loss, grad_norm, first-step gradients, BN running
+   statistics, deflowLoss's parameters after the steps: ratios to their
+   tolerances) with the ranks bit for bit after every step; then 3
+   leaderboard bf16 deflowLoss steps at 2 x 98,304 a rank (the fused
+   chains at the per-card 2B = 4), each rank's launch deltas held to
+   phase 5's per step; (c) the DP eval's pred_flow against one process,
+   f32 (small) and bf16 (4 x 98,304), and ``run_validation`` over the
+   ranks (5 samples in batches of 4) against one process's metrics (1e-3
+   relative); (b) the full-width train step and
+   ``entry.train.fit`` under an nccl group of world size 1 against the
+   same without a group, and the device time of the nccl kernels a step;
+10. a JSON line of phase 8's numbers, one of phase 9's, one JSON line of
+   kernels, the card line, and the result line.
 Step times are medians of the steady steps (all but the first, which warms
 cuDNN up); the eval phase also prints their mean.
 Needs one CUDA card; exits non-zero without one.
@@ -1245,6 +1262,12 @@ def run_train_path(model, batches, loss_name="deflowLoss", label="train"):
     return auxes, device_ms, launches
 
 
+# launches a train step without remat (phases 5 and 9)
+PER_STEP = {"segment_sum": 3, "sorted_gather": 3, "fused_gru": 1, "fused_gru_bwd": 1,
+            "cbg_fwd": 6, "cbg_bwd": 6, "segment_sum_lanes": 0, "cell_sweep": 0,
+            "chamfer_brute": 0}
+
+
 # phase 5b: the train entry.  Steps an epoch at TRAIN_B, epochs, val
 # batches of B, SeFlow steps, and the config's batch_size (probed for memory)
 ENTRY_TRAIN_STEPS, ENTRY_EPOCHS, ENTRY_VAL_BATCHES, ENTRY_SSL_STEPS = 8, 2, 2, 6
@@ -1999,6 +2022,7 @@ def profile_step(step, launched: dict) -> None:
         if launched[name] and not by_cat.get(name):
             raise SystemExit(f"profile: the path launched {name}, but its category "
                              "shows no device time")
+    return {"wall_ms": wall_ms, "busy_ms": busy, "ops": len(spans), "by_name": by_name}
 
 
 def reference_check(seed: int, model_cfg=None, hosted: bool = True) -> float:
@@ -2106,6 +2130,399 @@ def train_reference_check(seed: int, loss_name: str = "deflowLoss",
     return ratio
 
 
+# phase 9: data parallelism.  Steps of each DP run; the small f32 check's
+# model (train_reference_check's: 64^2 grid, 2 x 4,096 slots a rank) and
+# the seeds of its global batches (2 rows a rank)
+DP_STEPS = 3
+DP_SMALL = dict(LEADERBOARD, voxel_size=[1.6, 1.6, 6.0], grid_feature_size=[64, 64])
+DP_N, DP_VALID, DP_VALID_RANK1 = 4096, 3500, 1500
+DP_RUNS = ("deflow", "seflow grid", "seflow brute", "full")
+
+
+def dp_batch(seed: int, dufo: bool = False) -> dict:
+    """A global batch of two ranks' rows (2 each) at DP_N slots whose shards
+    differ: rank 0's rows have DP_VALID valid points and only the ego flow
+    (the deflow loss's slow bucket), rank 1's DP_VALID_RANK1 and moving
+    points (its fast bucket too); with ``dufo``, 15% DUFO-dynamic points on
+    rank 0 and 45% on rank 1."""
+    hb = make_batch(seed, b=4, n=DP_N, valid=DP_VALID, dufo=dufo)
+    ego = np.linalg.inv(hb["pose1"][0].astype(np.float64)) @ hb["pose0"][0]
+    still = hb["pc0"][:2] @ ego[:3, :3].T.astype(np.float32) + ego[:3, 3].astype(np.float32)
+    hb["flow"][:2] = np.where(hb["pc0_mask"][:2, :, None], still - hb["pc0"][:2], 0.0)
+    for k in ("pc0_mask", "pc1_mask", "flow_is_valid"):
+        hb[k][2:, DP_VALID_RANK1:] = False
+    for k in ("pc0", "pc1", "flow"):
+        hb[k][2:, DP_VALID_RANK1:] = 0.0
+    if dufo:
+        rng = np.random.default_rng(seed + 1)
+        for k in ("dufo_label0", "dufo_label1"):
+            hb[k][2:] = (rng.random((2, DP_N)) < 0.45).astype(np.int32)
+    return hb
+
+
+def _own_rows(hb: dict) -> dict:
+    """This rank's rows of a global host batch (all of them without a
+    process group)."""
+    from deflow_tpu_torch import dist
+
+    b = len(hb["pc0"]) // dist.world()
+    return {k: v[dist.rank() * b:(dist.rank() + 1) * b] for k, v in hb.items()}
+
+
+def _digest(model) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in model.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+class CollectiveClock:
+    """Within this context, the host time of every ``all_reduce`` of
+    ``torch.distributed`` after a ``torch.cuda.synchronize()`` (so that a
+    gloo call's wait holds the collective alone, not the compute queued
+    before it; a nccl call's holds its launch), with its bytes."""
+
+    def __enter__(self):
+        import torch
+        import torch.distributed as tdist
+
+        self.calls, self._orig = [], tdist.all_reduce
+
+        def timed(t, *a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self._orig(t, *a, **k)
+            torch.cuda.synchronize()
+            self.calls.append(((time.perf_counter() - t0) * 1e3,
+                               t.numel() * t.element_size()))
+            return out
+
+        tdist.all_reduce = timed
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as tdist
+
+        tdist.all_reduce = self._orig
+
+    def summary(self) -> dict:
+        """Calls, host ms in all, and the largest call's ms and bytes (the
+        gradient buffer)."""
+        ms, nbytes = max(self.calls, key=lambda c: c[1])
+        return {"calls": len(self.calls), "ms": sum(c[0] for c in self.calls),
+                "largest_ms": ms, "largest_bytes": nbytes}
+
+
+def dp_train(model_cfg: dict, precision: str, hbs: list, loss_name: str,
+             grid: bool = False, keep: bool = False, workers: int = HOST_WORKERS,
+             clock: bool = False) -> dict:
+    """Adam steps of ``loss_name`` (lr LR, no remat) on this rank's rows of
+    each global host batch, prepped on this rank (the C++ prep over
+    ``workers`` threads); ``grid`` lowers the SeFlow chamfer's pair
+    threshold so that the small clouds take the grid branch.  Returns each
+    step's aux and device ms (CUDA events around the step call) and a
+    digest of the parameters and buffers after each step; with ``keep`` the
+    first step's gradients and the state after the last, on the host; with
+    ``clock`` the last step's collectives (``CollectiveClock``, left out
+    of the step times)."""
+    import contextlib
+
+    import torch
+
+    from deflow_tpu_torch.data.host_prep import attach_host_prep
+    from deflow_tpu_torch.losses import SSL_LOSS_REGISTRY
+    from deflow_tpu_torch.models import build_model
+    from deflow_tpu_torch.ops import chamfer
+    from deflow_tpu_torch.trainer import (SSL_TRAIN_KEYS, TRAIN_KEYS, device_batch,
+                                          init_train_state, make_train_step)
+
+    model = build_model(model_cfg, precision=precision, seed=7)
+    state = init_train_state(model, {"lr": LR})
+    step = make_train_step(model, loss_name)
+    keys = SSL_TRAIN_KEYS if loss_name in SSL_LOSS_REGISTRY else TRAIN_KEYS
+    out = {"aux": [], "ms": [], "digests": []}
+    threshold = chamfer._AUTO_GRID_PAIRS
+    chamfer._AUTO_GRID_PAIRS = 0 if grid else threshold
+    try:
+        for i, hb in enumerate(hbs):
+            db = device_batch(attach_host_prep(_own_rows(hb), model_cfg["voxel_size"],
+                                               RANGE, num_workers=workers), keys=keys)
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            timed = clock and i == len(hbs) - 1
+            with CollectiveClock() if timed else contextlib.nullcontext() as c:
+                ev[0].record()
+                state, aux = step(state, db)
+                ev[1].record()
+                ev[1].synchronize()
+            if timed:
+                out["collectives"] = c.summary()
+            else:
+                out["ms"].append(ev[0].elapsed_time(ev[1]))
+            out["aux"].append({k: float(v) for k, v in aux.items()})
+            if keep and i == 0:
+                out["grads"] = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+            out["digests"].append(_digest(model))
+    finally:
+        chamfer._AUTO_GRID_PAIRS = threshold
+    if keep:
+        out["state"] = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    return out
+
+
+def dp_eval(model_cfg: dict, precision: str, hb: dict, workers: int = HOST_WORKERS):
+    """The eval step (seeded weights) on this rank's rows of ``hb``; every
+    rank's ``pred_flow`` gathered in rank order, on the host."""
+    from deflow_tpu_torch import dist
+    from deflow_tpu_torch.data.host_prep import attach_host_prep
+    from deflow_tpu_torch.models import build_model
+    from deflow_tpu_torch.trainer import make_eval_step
+
+    model = build_model(model_cfg, precision=precision, seed=7)
+    out = make_eval_step(model)(attach_host_prep(_own_rows(hb), model_cfg["voxel_size"],
+                                                 RANGE, num_workers=workers))
+    return dist.gather_rows(out["pred_flow"].float()).cpu()
+
+
+def dp_rank() -> dict:
+    """Phase 9 on one rank of two sharing the card over gloo: (a) the small
+    f32 runs (deflowLoss; seflowLoss on its grid branch and on its brute
+    branch), each DP_STEPS steps, then the leaderboard bf16 deflowLoss run
+    at full width (TRAIN_B x N a rank), with its launch-counter deltas;
+    (c) the DP eval, f32 on the small model, bf16 on the leaderboard model
+    at B x N, and ``dp_validation``.  The full-width run takes one more step, whose collectives
+    are clocked.  Each rank takes half of the host's prep threads.  TF32 off,
+    as in ``main``: a spawned rank starts with torch's defaults."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    workers = max(1, HOST_WORKERS // 2)
+    res = {}
+    reset_launches()
+    for name, loss_name, grid, dufo, seed in (("deflow", "deflowLoss", False, False, 40),
+                                              ("seflow grid", "seflowLoss", True, True, 50),
+                                              ("seflow brute", "seflowLoss", False, True, 60)):
+        res[name] = dp_train(DP_SMALL, "fp32", [dp_batch(seed + i, dufo)
+                                                for i in range(DP_STEPS)],
+                             loss_name, grid=grid, keep=True, workers=workers)
+        res[name]["launches"] = read_launches()
+        reset_launches()
+    res["full"] = dp_train(LEADERBOARD, "bf16",
+                           [make_batch(70 + i, b=2 * TRAIN_B) for i in range(DP_STEPS + 1)],
+                           "deflowLoss", workers=workers, clock=True)
+    res["full"]["launches"] = read_launches()
+    res["eval f32"] = dp_eval(DP_SMALL, "fp32", dp_batch(80), workers)
+    res["eval bf16"] = dp_eval(LEADERBOARD, "bf16", make_batch(81, b=B), workers)
+    res["validation"] = dp_validation()
+    return res
+
+
+def dp_validation() -> dict:
+    """``run_validation`` (the eval entry's sweep: loader, host prep,
+    prefetch, eval step, metrics) of the leaderboard bf16 model (seeded)
+    over B + 1 in-memory samples in batches of B, the last batch ragged;
+    over ranks, rank 0 computes the metrics of the gathered rows."""
+    from deflow_tpu_torch.entry.evaluate import run_validation
+    from deflow_tpu_torch.models import build_model
+    from deflow_tpu_torch.trainer import make_eval_step
+
+    step = make_eval_step(build_model(LEADERBOARD, precision="bf16", seed=7))
+    val = entry_dataset([82], B) + entry_dataset([83], 1)
+    return run_validation(step, val, {"batch_size": B, "num_workers": 1,
+                                      "voxel_size": VOXEL, "point_cloud_range": RANGE})
+
+
+def _dp_ratios(got: dict, want: dict, hold_params: bool) -> dict:
+    """Largest differences of a DP run from the single-process run over
+    their tolerances (train_reference_check's, the card's own noise, for
+    DP_STEPS steps): loss and grad_norm of every step 1e-4 relative; every
+    parameter's first-step gradient 1e-3 of its largest element (a
+    zero-gradient conv bias: both sides below 1e-3 of the largest gradient
+    of its conv's weight); the BN running statistics after the last step
+    1e-5 of each buffer's largest element (at least 1e-5); with
+    ``hold_params`` the parameters after the last step DP_STEPS x (1e-6 +
+    lr·1e-2), the zero-gradient biases DP_STEPS x 2·lr."""
+    r = {"loss": 0.0, "grad_norm": 0.0, "grad": 0.0, "running": 0.0, "param": 0.0}
+    for a, w in zip(got["aux"], want["aux"]):
+        for k in ("loss", "grad_norm"):
+            r[k] = max(r[k], abs(a[k] - w[k]) / abs(w[k]) / 1e-4)
+    for key, ref in want["grads"].items():
+        if _zero_grad_bias(key):
+            scale = want["grads"][key[:-4] + "weight"].abs().max().item()
+            err = max(got["grads"][key].abs().max().item(), ref.abs().max().item())
+        else:
+            scale, err = ref.abs().max().item(), (got["grads"][key] - ref).abs().max().item()
+        r["grad"] = max(r["grad"], err / (1e-3 * scale))
+    for key, ref in want["state"].items():
+        if "num_batches" in key:
+            continue
+        err = (got["state"][key] - ref).abs().max().item()
+        if "running" in key:
+            r["running"] = max(r["running"], err / (1e-5 * max(1.0, ref.abs().max().item())))
+        elif hold_params:
+            tol = 2 * LR if _zero_grad_bias(key) else 1e-6 + LR * 1e-2
+            r["param"] = max(r["param"], err / (DP_STEPS * tol))
+    if not hold_params:
+        del r["param"]
+    return r
+
+
+def nccl_world1(model, batches, tmp: str) -> dict:
+    """Phase 9b: the full-width train step (phase 5's batches, twice over)
+    without a process group, then under an nccl group of world size 1
+    (every collective runs), then without again; after each run one step
+    profiled (``profile_step``: the device's busy time, and under the group
+    its nccl kernels' device time) and one with its collectives clocked;
+    and ``entry.train.fit`` (one epoch of ENTRY_TRAIN_STEPS steps at
+    TRAIN_B x N, remat) without the group and under it.  Returns the step
+    medians, the profiles' numbers, the collectives and the fits' steady
+    periods."""
+    import torch
+
+    from deflow_tpu_torch import dist
+    from deflow_tpu_torch.trainer import (TRAIN_KEYS, device_batch, init_train_state,
+                                          make_train_step)
+
+    device_batches = [device_batch(hb, keys=TRAIN_KEYS) for hb in batches] * 2
+    train = entry_dataset(range(700, 700 + ENTRY_TRAIN_STEPS), TRAIN_B)
+
+    def medians(label):
+        state = init_train_state(model, {"lr": LR})
+        step = make_train_step(model, "deflowLoss")
+        ms = []
+        for db in device_batches:
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            state, aux = step(state, db)
+            ev[1].record()
+            ev[1].synchronize()
+            ms.append(ev[0].elapsed_time(ev[1]))
+            if not np.isfinite(float(aux["loss"])):
+                raise SystemExit(f"{label}: non-finite loss")
+        print(f"9b {label} step device ms: " + ", ".join(f"{t:.3f}" for t in ms)
+              + f"; steady median {float(np.median(ms[1:])):.3f} ms")
+        prof = profile_step(lambda: step(state, device_batches[0]), PER_STEP)
+        nccl = {k: v for k, v in prof.pop("by_name").items() if "nccl" in k.lower()}
+        with CollectiveClock() as clock:
+            step(state, device_batches[0])
+        row = {"median_ms": float(np.median(ms[1:])), **prof,
+               "nccl_kernel_ms": sum(nccl.values()), "nccl_kernels": sorted(nccl)[:4],
+               "collectives": clock.summary() if clock.calls else None}
+        print(f"9b {label}: {row}")
+        return row
+
+    def fit(label):
+        res, launches, _ = traced_fit(entry_cfg(os.path.join(tmp, label), epochs=1),
+                                      train, None, f"9b fit {label}", REMAT_PER_STEP)
+        t = np.asarray(res.step_starts)
+        period = float(np.median(np.diff(t)[1:])) * 1e3
+        dev = float(np.median(res.device_ms[1:]))
+        print(f"9b fit {label}: steady period {period:.1f} ms a step, device median "
+              f"{dev:.3f} ms, last loss {res.last_aux['loss']:.6f}")
+        if not np.isfinite(res.last_aux["loss"]):
+            raise SystemExit(f"9b fit {label}: non-finite loss")
+        return {"period_ms": period, "device_ms": dev}
+
+    out = {"plain_1": medians("without a process group (1)"),
+           "fit_plain": fit("plain")}
+    dist.init_distributed("nccl", f"file://{os.path.join(tmp, 'nccl_store')}", 0, 1,
+                          device="cuda")
+    try:
+        out["nccl"] = medians("nccl, world size 1")
+        out["fit_nccl"] = fit("nccl")
+    finally:
+        dist.shutdown()
+    out["plain_2"] = medians("without a process group (2)")
+    return out
+
+
+def run_data_parallel(model, train_batches) -> dict:
+    """Phase 9: (a) and (c) on two ranks sharing the card over gloo
+    (``dist.run_ranks``), against the single-process runs on the card; (b)
+    nccl at world size 1.  Exits on any difference beyond its tolerance."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from deflow_tpu_torch import dist
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = dist.run_ranks(dp_rank, 2, "gloo", "cuda", timeout=900)
+    print(f"9 two ranks over gloo on one card: {time.perf_counter() - t0:.1f} s")
+    out = {"ranks": [{run: {"launches": r[run]["launches"]} for run in DP_RUNS}
+                     for r in ranks]}
+    for name, loss_name, grid, dufo, seed in (("deflow", "deflowLoss", False, False, 40),
+                                              ("seflow grid", "seflowLoss", True, True, 50),
+                                              ("seflow brute", "seflowLoss", False, True, 60)):
+        want = dp_train(DP_SMALL, "fp32", [dp_batch(seed + i, dufo) for i in range(DP_STEPS)],
+                        loss_name, grid=grid, keep=True)
+        same = ranks[0][name]["digests"] == ranks[1][name]["digests"]
+        ratio = _dp_ratios(ranks[0][name], want, hold_params=loss_name == "deflowLoss")
+        print(f"9a {name} (f32, 64x64 grid, 2 x {DP_N} a rank, valid {DP_VALID} / "
+              f"{DP_VALID_RANK1}, {DP_STEPS} Adam steps), two ranks against one process "
+              f"at the global batch: " + ", ".join(f"{k} {v:.3f}" for k, v in ratio.items())
+              + f"; ranks bit for bit after every step: {same}; launches a rank "
+              + str([r[name]["launches"] for r in ranks]))
+        if not same or not all(v <= 1.0 for v in ratio.values()):
+            raise SystemExit(f"9a: the two-rank {name} run differs")
+        out[name] = {**ratio, "ranks_bit_for_bit": same}
+    want = {k: v * (DP_STEPS + 1) for k, v in PER_STEP.items()}
+    full = [r["full"] for r in ranks]
+    same = full[0]["digests"] == full[1]["digests"]
+    print(f"9a full width (bf16, 512^2 grid, {TRAIN_B} x {N} a rank, {DP_STEPS} steps): "
+          + "; ".join(f"rank {i} loss " + ", ".join(f"{a['loss']:.6f}" for a in f["aux"])
+                      + " device ms " + ", ".join(f"{t:.3f}" for t in f["ms"])
+                      + f" launches {f['launches']}" for i, f in enumerate(full))
+          + f"; bit for bit {same} (want {want} a rank); collectives of the clocked "
+          + "step: " + "; ".join(f"rank {i} {f['collectives']}" for i, f in enumerate(full)))
+    if not same or any(f["launches"] != want for f in full) or not all(
+            np.isfinite(a["loss"]) for f in full for a in f["aux"]):
+        raise SystemExit("9a: the full-width two-rank run failed")
+    out["full_ms"] = [float(np.median(f["ms"][1:])) for f in full]
+    out["full_collectives"] = [f["collectives"] for f in full]
+    for key, cfg, precision, hb, tol in (
+            ("eval f32", DP_SMALL, "fp32", dp_batch(80), 2e-4),
+            ("eval bf16", LEADERBOARD, "bf16", make_batch(81, b=B), 5e-2)):
+        want = dp_eval(cfg, precision, hb)
+        err = (ranks[0][key] - want).abs()
+        print(f"9c {key}: two ranks against one process, max |d pred_flow| "
+              f"{err.max().item():.3e} m (tol {tol}), mean {err.mean().item():.3e}; ranks "
+              f"equal {torch.equal(ranks[0][key], ranks[1][key])}")
+        if not (err.max().item() <= tol and torch.equal(ranks[0][key], ranks[1][key])):
+            raise SystemExit(f"9c: the two-rank {key} differs")
+        out[key] = err.max().item()
+    # bf16: cuDNN may round otherwise at 2 rows than at 4, so the metrics
+    # are held to 1e-3 relative (the accuracies, shares of points, 1e-3)
+    want = dp_validation()
+    worst = 0.0
+    for r in ranks:
+        if r["validation"].keys() != want.keys():
+            raise SystemExit("9c: run_validation over two ranks gave other metrics")
+        for k, v in want.items():
+            g = r["validation"][k]
+            if np.isnan(v) or np.isnan(g):
+                worst = max(worst, 0.0 if np.isnan(v) and np.isnan(g) else np.inf)
+            else:
+                worst = max(worst, abs(g - v) / (1e-3 if "Acc" in k else 1e-3 * abs(v)))
+    print(f"9c run_validation over two ranks ({B + 1} samples in batches of {B}, the "
+          f"last ragged) against one process: largest metric difference over its "
+          f"tolerance {worst:.3f}; EPE_3way_mean {want['EPE_3way_mean']:.6f}")
+    if not worst <= 1.0:
+        raise SystemExit("9c: run_validation over two ranks differs")
+    out["validation"] = worst
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        out["nccl"] = nccl_world1(model, train_batches, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2205,8 +2622,6 @@ def main() -> int:
         raise SystemExit("the 3-way or bucketed EPE is not finite")
     entry_launches = run_entry_phase(model, med)
 
-    per_step = {"segment_sum": 3, "sorted_gather": 3, "fused_gru": 1,
-                "fused_gru_bwd": 1, "cbg_fwd": 6, "cbg_bwd": 6, **no_ssl}
     runs = {}
     for label, loss_name, bts, extra in (
             ("train", "deflowLoss", train_batches, {}),
@@ -2214,7 +2629,7 @@ def main() -> int:
             ("ssl 2 x 16,384", "seflowLoss", brute_batches, {"chamfer_brute": 4})):
         torch.cuda.reset_peak_memory_stats()
         _, step_ms, launches = run_train_path(model, bts, loss_name, label)
-        want = {k: (extra.get(k, v)) * len(bts) for k, v in per_step.items()}
+        want = {k: (extra.get(k, v)) * len(bts) for k, v in PER_STEP.items()}
         print(f"launches on the {label} path: {launches} (want {want})")
         if launches != want:
             raise SystemExit(f"the {label} path did not launch every kernel as expected")
@@ -2268,6 +2683,8 @@ def main() -> int:
         if not all(ratio[k] <= 1.0 for k in held):
             raise SystemExit(f"card and CPU disagree on {what}")
 
+    dp = run_data_parallel(model, train_batches)
+
     sources = {"segment_sum": ("deflow_tpu_torch/csrc/segment_sum.cu",
                                "deflow_tpu/ops/pallas_scatter.py:211"),
                "sorted_gather": ("deflow_tpu_torch/csrc/sorted_gather.cu",
@@ -2306,11 +2723,14 @@ def main() -> int:
              "mmhead_train_launches": rest["(b) mmhead train"]["launches"][name],
              "history_train_launches": rest["(c) num_frames=3 train"]["launches"][name],
              "device_eval_launches": rest["(d) eval without host prep"]["launches"][name],
+             "dp_launches_per_rank": [sum(r[run]["launches"][name] for run in DP_RUNS)
+                                      for r in dp["ranks"]],
              **kernels[name]}
             for name, (src, rep) in sources.items()]
     print(json.dumps({"rest_of_model": {
         k: ({kk: vv for kk, vv in v.items() if kk != "launches"} if isinstance(v, dict)
             else v) for k, v in rest.items()}}))
+    print(json.dumps({"data_parallel": {k: v for k, v in dp.items() if k != "ranks"}}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

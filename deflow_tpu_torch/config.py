@@ -298,3 +298,13 @@ def from_cli(argv: Optional[List[str]] = None, config_name: str = "config") -> C
 
     args = list(sys.argv[1:] if argv is None else argv)
     return compose(config_name=config_name, overrides=args)
+
+
+def check_num_devices(cfg, world: int) -> None:
+    """``num_devices`` keeps the JAX package's meaning: -1 (or 0) takes
+    every device, here every rank the launcher started (``world``); any
+    other value must equal ``world``, or this raises ``ValueError``."""
+    n = int(cfg.get("num_devices", -1))
+    if n > 0 and n != world:
+        raise ValueError(f"num_devices={n}, but the launcher started {world} ranks "
+                         "(torchrun --nproc_per_node); -1 takes them all")

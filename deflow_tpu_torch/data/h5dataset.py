@@ -303,11 +303,27 @@ class DataLoader:
     ``utils.native.shared_pool`` (threads: the h5 reads and the C++
     ``select_pad`` release the GIL).  ``prefetch=0`` runs everything inline.
     An error in decode or ``post_collate`` reaches the consumer.
+
+    Data parallel (``world`` > 1): ``batch_size`` is the global batch.
+    Every rank draws the same order and decodes (and preps) only its rows
+    ``[rank·b, (rank + 1)·b)`` of each global batch, b = batch_size /
+    world, so the ranks' rows together are the single-process batch, row
+    for row.  A ragged last batch (``drop_last=False``) is first padded to
+    a multiple of ``world`` by repeating its last sample, as
+    :func:`pad_ragged_batch` pads it; each rank's batch then carries the
+    global batch's true size under ``"global_size"``.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  seed: int = 0, drop_last: Optional[bool] = None,
-                 prefetch: int = 2, post_collate=None, num_workers: int = 0):
+                 prefetch: int = 2, post_collate=None, num_workers: int = 0,
+                 rank: int = 0, world: int = 1):
+        if batch_size % world and (drop_last or (drop_last is None and shuffle)):
+            raise ValueError(f"batch_size={batch_size} must divide evenly over "
+                             f"{world} ranks")
+        if not 0 <= rank < world:
+            raise ValueError(f"rank {rank} of {world}")
+        self.rank, self.world = rank, world
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -339,7 +355,14 @@ class DataLoader:
                 sel = order[start:start + self.batch_size]
                 if self.drop_last and len(sel) < self.batch_size:
                     return
+                size = len(sel)
+                if self.world > 1:
+                    sel = np.concatenate([sel, sel[-1:].repeat((-size) % self.world)])
+                    b = len(sel) // self.world
+                    sel = sel[self.rank * b:(self.rank + 1) * b]
                 batch = collate(self._decode(sel))
+                if self.world > 1:
+                    batch["global_size"] = size
                 if self.post_collate is not None:
                     batch = self.post_collate(batch)
                 yield batch

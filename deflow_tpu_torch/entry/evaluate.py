@@ -16,6 +16,14 @@ batch k are read only after batch k+1 is dispatched, so the host's work on
 them overlaps the device's next step.  Labels and masks were co-permuted
 with the points by the host prep, so the metrics need no unsort; outputs
 destined for the original point order are restored with ``pc0_unsort``.
+
+Data parallel (under ``torchrun --nproc_per_node=W``, or any process
+group): the batch size is rounded down to a multiple of W (at least W) and
+the last batch padded to one, as the JAX package's mesh requires; each rank
+loads, preps and evaluates its rows; the outputs (``dist.gather_rows``) and
+the host keys the metrics or writers read (``dist.gather_host``) come
+together on rank 0, which alone computes the metrics, on the global batch's
+real rows, and writes; every rank returns the metrics.
 """
 
 from __future__ import annotations
@@ -30,7 +38,8 @@ from typing import Callable, Dict, Iterable, Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from deflow_tpu_torch.config import Config, from_cli
+from deflow_tpu_torch import dist
+from deflow_tpu_torch.config import Config, check_num_devices, from_cli
 from deflow_tpu_torch.convert import load_weights
 from deflow_tpu_torch.data.h5dataset import DataLoader, HDF5Dataset
 from deflow_tpu_torch.data.host_prep import attach_host_prep
@@ -55,21 +64,39 @@ def _sorted_prep(cfg) -> Callable[[Dict], Dict]:
 
 
 def _loader(ds, cfg) -> DataLoader:
-    return DataLoader(ds, max(1, int(cfg["batch_size"])), shuffle=False,
+    """This rank's loader of the eval splits: global batches of
+    ``batch_size`` rounded down to a multiple of the ranks (at least one a
+    rank; ``deflow_tpu/entry/evaluate.py``)."""
+    w, bs = dist.world(), int(cfg["batch_size"])
+    return DataLoader(ds, max(w, bs - bs % w), shuffle=False,
                       drop_last=False, post_collate=_sorted_prep(cfg),
-                      num_workers=int(cfg.get("num_workers", 0)))
+                      num_workers=int(cfg.get("num_workers", 0)),
+                      rank=dist.rank(), world=w)
 
 
-def _outputs(eval_step: Callable, batches: Iterable,
-             keys: Sequence[str]) -> Iterator[Tuple[Dict, Dict[str, np.ndarray]]]:
+def _outputs(eval_step: Callable, batches: Iterable, keys: Sequence[str],
+             host_keys: Sequence[str] = ()
+             ) -> Iterator[Tuple[Dict, Dict[str, np.ndarray]]]:
     """``(host_batch, {key: numpy output})`` for each item of ``batches``
     (a host batch, or a ``(host_batch, device_batch)`` pair).  Batch k's
     outputs are copied to the host asynchronously and read only after batch
-    k+1 has been dispatched."""
+    k+1 has been dispatched.
+
+    Under a process group every rank evaluates its rows, and rank 0 alone
+    yields: the outputs of every rank's rows, and ``host_keys`` of every
+    rank's host batch, rows in rank order (padding rows included: the
+    global batch's real rows come first)."""
     pending = None
     for item in batches:
         host_batch, batch = item if isinstance(item, tuple) else (item, item)
         out = eval_step(batch)
+        if dist.is_initialized():
+            out = {k: dist.gather_rows(out[k].float()) for k in keys}
+            size = host_batch.get("global_size")
+            host_batch = dist.gather_host(host_batch, host_keys)
+            if host_batch is None:
+                continue
+            host_batch["global_size"] = size
         host_out = {k: out[k].float().to("cpu", non_blocking=True) for k in keys}
         ready = None
         if out[keys[0]].is_cuda:
@@ -118,12 +145,19 @@ def run_validation(eval_step: Callable, data, cfg=None, device=None,
     process while the consumer moves on to the next batch; the terms are
     added in frame order, so the result is the serial one, bit for bit.
     Pass ``three`` and ``bucketed`` to keep the accumulators (for their
-    tables)."""
+    tables).
+
+    Under a process group (every rank calls this with its own ``eval_step``
+    and the same arguments) rank 0 computes the metrics of the global
+    batches' real rows and every rank returns them; only rank 0's
+    accumulators are filled."""
     three = ThreewayEPE() if three is None else three
     bucketed = BucketedEPE() if bucketed is None else bucketed
     if cfg is not None:
         num_workers = int(cfg.get("num_workers", 0))
         data = device_prefetch(_loader(data, cfg), device)
+    if not dist.is_main():
+        num_workers = 0
 
     def add(terms):
         for t3, tb in terms:
@@ -132,7 +166,8 @@ def run_validation(eval_step: Callable, data, cfg=None, device=None,
 
     with _metric_pool(num_workers) as pool:
         pending = ()
-        for host_batch, out in _outputs(eval_step, data, ("pred_flow", "pose_flow")):
+        for host_batch, out in _outputs(eval_step, data, ("pred_flow", "pose_flow"),
+                                        _METRIC_KEYS):
             if "flow" not in host_batch or "flow_is_valid" not in host_batch:
                 raise ValueError(
                     "run_validation needs ground-truth flow labels (keys 'flow' "
@@ -140,7 +175,7 @@ def run_validation(eval_step: Callable, data, cfg=None, device=None,
                     "a test split. Use av2_mode=test to write a submission "
                     "instead.")
             frames = []
-            for b in range(len(out["pred_flow"])):
+            for b in range(host_batch.get("global_size") or len(out["pred_flow"])):
                 mask = host_batch["pc0_mask"][b] & host_batch["flow_is_valid"][b]
                 if "eval_mask" in host_batch:
                     mask &= host_batch["eval_mask"][b]
@@ -154,9 +189,19 @@ def run_validation(eval_step: Callable, data, cfg=None, device=None,
             add(pending)
             pending = started
         add(pending)
-    metrics = dict(three.compute())
-    metrics.update(bucketed.compute())
-    return metrics
+    metrics: Dict[str, float] = {}
+    if dist.is_main():
+        metrics.update(three.compute())
+        metrics.update(bucketed.compute())
+    return dist.broadcast_object(metrics)
+
+
+# the host keys the metric terms read
+_METRIC_KEYS = ("pc0_mask", "flow", "flow_is_valid", "flow_category_indices",
+                "eval_mask")
+# and those the submission writer and the save entry read
+_WRITER_KEYS = ("scene_id", "timestamp", "pc0_mask", "pc0_unsort", "raw_lidar",
+                "raw_ego_motion", "raw_ground_mask", "raw_eval_mask")
 
 
 def _frame_full_flow(host_batch, out, b):
@@ -217,7 +262,9 @@ def write_submission(eval_step: Callable, test_ds, cfg, out_dir: str,
     Zip entries are STORED (the feather bodies are already lz4-framed);
     ``submission_deflate: true`` in ``cfg`` asks for DEFLATE.  A batch's
     frames are encoded while the device runs the next batch, on the shared
-    pool when ``cfg["num_workers"] > 1``; only the zip appends are serial."""
+    pool when ``cfg["num_workers"] > 1``; only the zip appends are serial.
+    Under a process group every rank evaluates its rows and rank 0 writes
+    the zip (the path is returned on every rank)."""
     if not getattr(test_ds, "submission_meta", False):
         raise ValueError("write_submission needs HDF5Dataset(submission_meta="
                          "True) to recover the raw per-sweep point sets")
@@ -227,14 +274,16 @@ def write_submission(eval_step: Callable, test_ds, cfg, out_dir: str,
             else zipfile.ZIP_STORED)
     batches = device_prefetch(_loader(test_ds, cfg), device)
     zip_path = os.path.join(out_dir, f"submission_v{version}.zip")
-    with zipfile.ZipFile(zip_path, "w", comp) as zf:
-        for host_batch, out in _outputs(eval_step, batches, ("pred_flow",)):
+    with (zipfile.ZipFile(zip_path, "w", comp) if dist.is_main()
+          else contextlib.nullcontext()) as zf:
+        for host_batch, out in _outputs(eval_step, batches, ("pred_flow",),
+                                        _WRITER_KEYS):
             def encode(b):
                 full, pose_flow = _frame_full_flow(host_batch, out, b)
                 return encode_submission_frame(
                     full, pose_flow, host_batch["raw_eval_mask"][b], version)
 
-            bsz = len(host_batch["scene_id"])
+            bsz = host_batch.get("global_size") or len(host_batch["scene_id"])
             if workers > 1 and bsz > 1:
                 payloads = list(shared_pool(workers).map(encode, range(bsz)))
             else:
@@ -258,9 +307,17 @@ def load_eval_step(cfg, device) -> Callable:
 
 
 def main(cfg: Optional[Config] = None, device=None) -> Dict[str, float]:
+    """Evaluate (``av2_mode=val``) or write the submission (``test``); under
+    torchrun, over its ranks."""
     if cfg is None:
         cfg = from_cli(config_name="config")
+    with dist.launched(device if device is not None else cfg.get("device")):
+        return _main(cfg, device)
+
+
+def _main(cfg, device) -> Dict[str, float]:
     dev = resolve_device(device if device is not None else cfg.get("device"))
+    check_num_devices(cfg, dist.world())
     eval_step = load_eval_step(cfg, dev)
     mode = str(cfg.get("av2_mode", "val"))
     split_dir = str(cfg["val_data"]) if mode == "val" else os.path.join(
@@ -283,13 +340,15 @@ def main(cfg: Optional[Config] = None, device=None) -> Dict[str, float]:
         ds.close()
 
     if mode != "val":
-        print(f"submission written: {zip_path}")
-        print("upload with: evalai challenge ... submit --file", zip_path)
+        if dist.is_main():
+            print(f"submission written: {zip_path}")
+            print("upload with: evalai challenge ... submit --file", zip_path)
         return {"submission": zip_path}
-    print("\n== AV2 val, official 3-way metrics ==")
-    print(three.table())
-    print("== bucketed (leaderboard v2) ==")
-    print(bucketed.table())
+    if dist.is_main():
+        print("\n== AV2 val, official 3-way metrics ==")
+        print(three.table())
+        print("== bucketed (leaderboard v2) ==")
+        print(bucketed.table())
     if cfg.get("save_res"):
         # the reference's save_res flag: write the predictions into the scenes
         from deflow_tpu_torch.entry.save import main as save_main

@@ -23,6 +23,15 @@ into ``<run_dir>/profile``.
 ``main`` composes the config and opens the ``.h5`` splits; :func:`fit`
 does the rest on any datasets shaped like ``HDF5Dataset`` (lists of sample
 dicts, where ``h5py`` is absent).
+
+Data parallel over W cards, one rank each:
+
+    torchrun --nproc_per_node=W -m deflow_tpu_torch.entry.train key=value ...
+
+``batch_size`` is the global batch (it must divide by W, as the JAX
+package's mesh requires); each rank loads and preps its rows of it, the
+step computes the global batch's loss, BN statistics and gradients, and
+rank 0 alone logs and writes the checkpoints (see ``dist.py``).
 """
 
 from __future__ import annotations
@@ -36,7 +45,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from deflow_tpu_torch.config import Config, from_cli
+from deflow_tpu_torch import dist
+from deflow_tpu_torch.config import Config, check_num_devices, from_cli
 from deflow_tpu_torch.data.h5dataset import DataLoader, HDF5Dataset
 from deflow_tpu_torch.device import resolve_device
 from deflow_tpu_torch.entry.evaluate import _sorted_prep, run_validation
@@ -99,11 +109,9 @@ class DynCapMonitor:
 
 def check_supported(cfg) -> None:
     """Raise for what the port does not run, instead of doing something
-    else: more than one device, the dyn_cap override."""
-    if int(cfg.get("num_devices", -1)) > 1:
-        raise NotImplementedError(
-            "the port trains on one device (num_devices <= 1); data parallelism "
-            "is not ported")
+    else: a ``num_devices`` other than the ranks the launcher started
+    (``-1``, or 0, takes them all), the dyn_cap override."""
+    check_num_devices(cfg, dist.world())
     DynCapMonitor()
 
 
@@ -125,15 +133,21 @@ def fit(cfg, train_ds, val_ds=None, device=None,
     """Train ``cfg``'s model on ``train_ds`` (``HDF5Dataset`` or a list of
     its items) on ``device`` (``cfg["device"]`` when None; the card unless
     ``"cpu"``), validating on ``val_ds`` in batches of ``val_batch_size``
-    (default ``batch_size``)."""
+    (default ``batch_size``).  Under a process group ``batch_size`` is the
+    global batch; every rank runs this with the same arguments."""
     dev = resolve_device(device if device is not None else cfg.get("device"))
     check_supported(cfg)
     loss_name = str(cfg["loss_fn"])
     is_ssl = loss_name in SSL_LOSS_REGISTRY
     batch_size = int(cfg["batch_size"])
+    world, main_rank = dist.world(), dist.is_main()
+    if batch_size % world:
+        raise ValueError(
+            f"batch_size={batch_size} must divide evenly over {world} devices")
     train_loader = DataLoader(train_ds, batch_size, shuffle=True, seed=int(cfg["seed"]),
                               post_collate=_sorted_prep(cfg),
-                              num_workers=int(cfg.get("num_workers", 0)))
+                              num_workers=int(cfg.get("num_workers", 0)),
+                              rank=dist.rank(), world=world)
 
     model = build_model(cfg["model"], precision=str(cfg.get("precision", "bf16")),
                         device=dev, seed=int(cfg["seed"]),
@@ -141,13 +155,15 @@ def fit(cfg, train_ds, val_ds=None, device=None,
     state = init_train_state(model, cfg, dev)
 
     cfg_dict = cfg.to_dict() if isinstance(cfg, Config) else dict(cfg)
+    # every rank knows the run's directories; rank 0 alone writes there
     logger = MetricLogger(
         project=str(cfg.get("wandb_project", "deflow-tpu")),
         run_name=f"{cfg['model']['name']}-{cfg['slurm_id']}",
-        mode=str(cfg.get("wandb_mode", "offline")),
+        mode=str(cfg.get("wandb_mode", "offline")) if main_rank else "disabled",
         entity=str(cfg.get("wandb_entity", "") or ""),
         output_dir=str(cfg["output_dir"]), config=cfg_dict)
-    profile_steps = int(cfg.get("profile", 0) or 0)
+    say = print if main_rank else (lambda *a, **k: None)
+    profile_steps = int(cfg.get("profile", 0) or 0) if main_rank else 0
     # a sync at every stage stop serialises the host with the card: only
     # when profiling
     timer = StageTimer("Total", sync_fn=(torch.cuda.synchronize
@@ -164,10 +180,10 @@ def fit(cfg, train_ds, val_ds=None, device=None,
     if cfg.get("resume"):
         # the keeper's best comes back too, as Lightning's best_model_score
         state, start_epoch = load_checkpoint(str(cfg["resume"]), state, best_keeper)
-        print(f"resumed from {cfg['resume']}: epoch {start_epoch} is next")
+        say(f"resumed from {cfg['resume']}: epoch {start_epoch} is next")
     elif cfg.get("checkpoint"):
         state = load_weights(str(cfg["checkpoint"]), state)
-        print(f"initialized weights from {cfg['checkpoint']}")
+        say(f"initialized weights from {cfg['checkpoint']}")
 
     dyn_cap_monitor = DynCapMonitor()
     log_every = int(cfg.get("log_every", 10))
@@ -192,7 +208,7 @@ def fit(cfg, train_ds, val_ds=None, device=None,
                 dyn_cap_monitor.check(host_batch)
             with timer.stage("step"):
                 state, aux = train_step(state, batch)
-            frames_seen += len(host_batch["scene_id"])
+            frames_seen += len(host_batch["scene_id"]) * world
             if i % log_every == 0:
                 vals = {k: float(v) for k, v in aux.items()}
                 logger.log({
@@ -201,32 +217,32 @@ def fit(cfg, train_ds, val_ds=None, device=None,
                     "train/frames_per_sec": frames_seen / (time.perf_counter() - t_train0),
                     "epoch": epoch,
                 }, step=state.step)
-                print(f"epoch {epoch} it {i} loss {vals['loss']:.4f} "
-                      f"epe {vals['epe']:.4f}", flush=True)
+                say(f"epoch {epoch} it {i} loss {vals['loss']:.4f} "
+                    f"epe {vals['epe']:.4f}", flush=True)
 
         if val_ds is not None and (epoch + 1) % int(cfg.get("eval_every", 1)) == 0:
             with timer.stage("val"):
                 metrics = run_validation(eval_step, val_ds, val_cfg, dev)
             logger.log({f"val/{k}": v for k, v in metrics.items()}, step=state.step)
             final_metrics = metrics
-            print(f"epoch {epoch} val EPE_3way_mean "
-                  f"{metrics.get('EPE_3way_mean', float('nan')):.4f}", flush=True)
+            say(f"epoch {epoch} val EPE_3way_mean "
+                f"{metrics.get('EPE_3way_mean', float('nan')):.4f}", flush=True)
             if best_keeper is not None:
                 with timer.stage("ckpt"):
                     path = best_keeper.update(metrics, state, epoch)
                 if path:
                     logger.log({f"best/{best_keeper.key}": best_keeper.best},
                                step=state.step)
-                    print(f"new best {monitor}={best_keeper.best:.4f}: {path}", flush=True)
+                    say(f"new best {monitor}={best_keeper.best:.4f}: {path}", flush=True)
 
         if (epoch + 1) % int(cfg.get("ckpt_every", 1)) == 0:
             with timer.stage("ckpt"):
                 path = save_checkpoint(logger.ckpt_dir, state, epoch, keeper=best_keeper)
-            print(f"saved checkpoint: {path}", flush=True)
+            say(f"saved checkpoint: {path}", flush=True)
 
     if prof is not None:
         _stop_profile(prof, logger.run_dir)
-    print(timer.report())
+    say(timer.report())
     logger.finish()
     return FitResult(final_metrics, state,
                      {} if aux is None else {k: float(v) for k, v in aux.items()},
@@ -252,9 +268,14 @@ def _stop_profile(prof, run_dir: str) -> None:
 
 def main(cfg: Optional[Config] = None, device=None) -> Dict[str, float]:
     """Train from the composed config; returns the last validation
-    metrics."""
+    metrics.  Launched by torchrun, joins its process group first."""
     if cfg is None:
         cfg = from_cli(config_name="config")
+    with dist.launched(device if device is not None else cfg.get("device")):
+        return _main(cfg, device)
+
+
+def _main(cfg, device) -> Dict[str, float]:
     dev = resolve_device(device if device is not None else cfg.get("device"))
     check_supported(cfg)
     kw = dict(max_points=int(cfg["max_points"]), remove_ground=bool(cfg["remove_ground"]),

@@ -11,6 +11,11 @@ Inputs (all [B, N, ...]):
     gt:      [B, N, 3] target (total gt flow − pose_flow)
     mask:    [B, N] bool, points that are real, in range and have valid gt
     classes: [B, N] int AV2 category index (0 = background), ff3dLoss only
+
+Under a process group every loss is this rank's SHARE of the global loss:
+the means divide by counts summed over ranks (a bucket may be empty on one
+rank and not on another), so the shares add up to the loss of the global
+batch, and the step sums the gradients over ranks.
 """
 
 from __future__ import annotations
@@ -20,15 +25,18 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from deflow_tpu_torch import dist
 from deflow_tpu_torch.ops import chamfer as _chamfer
 
 _SWEEP_DT = 0.1  # AV2 lidar sweep interval (s): flow [m] / 0.1 s = speed [m/s]
 
 
 def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Mean of x over the mask; an exact 0 when the mask is empty."""
+    """This rank's share of the mean of x over the mask of the global batch
+    (the local sum over the global count); an exact 0 when the global mask
+    is empty."""
     s = torch.where(mask, x, 0.0).sum()
-    n = mask.sum()
+    n = dist.all_reduce_(mask.sum())
     return torch.where(n > 0, s / n.clamp(min=1), 0.0)
 
 
@@ -86,6 +94,12 @@ def _rows_mean(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     return torch.where(n > 0, s / n.clamp(min=1), 0.0)
 
 
+def _samples_mean(terms: torch.Tensor) -> torch.Tensor:
+    """This rank's share of the mean over the global batch's samples (every
+    rank holds as many samples: the train entry requires it)."""
+    return terms.sum() / (terms.numel() * dist.world())
+
+
 def seflow_loss(out: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
                 truncate: float = 2.0, chamfer_method: str = "auto") -> torch.Tensor:
     """SeFlow self-supervised loss (arXiv:2407.01702 §IV), needing no gt flow:
@@ -99,8 +113,12 @@ def seflow_loss(out: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
     On the grid branch (``chamfer_method`` "grid", or "auto" with N·M >
     2^28) terms 1 and 3 come from one fused sweep per direction, with pc1's
     cell sort taken from the batch's ``pc1_cell_*`` keys when their geometry
-    matches the loss's grid; otherwise the brute search runs twice.  The
-    JAX package's ``shard_map`` branch and ``dyn_cap`` are not ported."""
+    matches the loss's grid; otherwise the brute search runs twice.
+
+    Under a process group the chamfer stays on each rank's own samples,
+    with no collective inside (the JAX package's ``shard_map`` branch), and
+    the sum of the sample terms is divided by the global sample count: this
+    rank's share of the mean.  ``NNSpec.dyn_cap`` is not ported."""
     net = out["flow"]
     total = out["pose_flow"] + net
     pc0, pc1 = batch["pc0"], batch["pc1"]
@@ -137,7 +155,7 @@ def seflow_loss(out: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
                  + _rows_mean(dd1.clamp(max=t2), dyn1))
         static = m0 & (dufo0 == 0)
         terms = terms + _rows_mean((net ** 2).sum(-1), static)
-        return terms.mean()
+        return _samples_mean(terms)
 
     d0, d1 = _chamfer.chamfer_distance(warped, pc1, m0, m1, method=chamfer_method,
                                        truncate=truncate)
@@ -153,7 +171,7 @@ def seflow_loss(out: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
                                                  truncate=truncate)
             terms = terms + (_rows_mean(dd0.clamp(max=t2), dyn0)
                              + _rows_mean(dd1.clamp(max=t2), dyn1))
-    return terms.mean()
+    return _samples_mean(terms)
 
 
 SSL_LOSS_REGISTRY: Dict[str, Callable] = {

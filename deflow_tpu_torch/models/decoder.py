@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from deflow_tpu_torch import dist
 from deflow_tpu_torch.ops.gru import FusedGRU
 from deflow_tpu_torch.ops.voxel import PillarInfo, ScatterPlan, pseudoimage_gather_batched
 
@@ -116,11 +117,20 @@ def _dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator],
     """Inverted dropout with masks drawn from ``gen`` (``F.dropout`` takes
     no generator); ``shape`` broadcasts one mask over the leading axes (the
     attention weights' mask, as flax's ``broadcast_dropout``).  Off without
-    a generator or at rate 0."""
+    a generator or at rate 0.
+
+    Under a process group every rank draws the mask of the global batch's
+    chunks (its leading axis W times this rank's) and keeps its own rows,
+    so each chunk gets the mask the single-process step gives it."""
     if gen is None or rate == 0.0:
         return x
-    keep = torch.empty(x.shape if shape is None else shape, dtype=torch.bool,
-                       device=x.device).bernoulli_(1.0 - rate, generator=gen)
+    if shape is None:
+        g, w = x.shape[0], dist.world()
+        keep = torch.empty((g * w, *x.shape[1:]), dtype=torch.bool, device=x.device)
+        keep = keep.bernoulli_(1.0 - rate, generator=gen)[dist.rank() * g:][:g]
+    else:
+        keep = torch.empty(shape, dtype=torch.bool,
+                           device=x.device).bernoulli_(1.0 - rate, generator=gen)
     return torch.where(keep, x / (1.0 - rate), 0)
 
 

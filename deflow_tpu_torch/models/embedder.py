@@ -30,6 +30,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from deflow_tpu_torch import dist
 from deflow_tpu_torch.models.running_stats import update_running_
 from deflow_tpu_torch.ops.voxel import (
     TRASH_PAD, PillarInfo, ScatterPlan, VoxelConfig, compute_pillar_info,
@@ -44,15 +45,18 @@ def masked_batch_norm(x: torch.Tensor, mask: torch.Tensor,
     Eval: the running statistics.  Train: mean and (biased, two-pass)
     variance over the ``mask``-true rows only, as torch BatchNorm1d sees the
     compacted points; the running statistics then move the torch way,
-    ``ra = (1 − momentum)·ra + momentum·batch``, with the UNBIASED variance."""
+    ``ra = (1 − momentum)·ra + momentum·batch``, with the UNBIASED variance.
+    Under a process group the rows are the global batch's: Σx with the
+    count, then Σ(x − mean)², are summed over ranks (differentiably)."""
     xf = x.float()
     if bn.training:
         m = mask.float()[..., None]
-        n = m.sum().clamp(min=1.0)
         dims = tuple(range(x.dim() - 1))
-        mean = (xf * m).sum(dims) / n
+        tot = dist.all_reduce_sum(torch.cat([(xf * m).sum(dims), m.sum().reshape(1)]))
+        n = tot[-1].clamp(min=1.0)
+        mean = tot[:-1] / n
         diff = (xf - mean) * m
-        var = (diff * diff).sum(dims) / n
+        var = dist.all_reduce_sum((diff * diff).sum(dims)) / n
         with torch.no_grad():
             unbiased = var * n / (n - 1.0).clamp(min=1.0)
         update_running_(bn.running_mean, mean, bn.momentum)

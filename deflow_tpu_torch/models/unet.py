@@ -13,7 +13,8 @@ Compute dtype: convolutions run in ``dtype`` (weights cast per call); BN and
 GELU of ``ConvWithNorms`` run in f32, as in the JAX package.
 
 Training (``module.train()``): BN takes the batch statistics of the siamese
-2B batch with flax ``BatchNorm`` semantics (fast variance E[x²] − E[x]²
+2B batch (under a process group: of every rank's, the global batch) with
+flax ``BatchNorm`` semantics (fast variance E[x²] − E[x]²
 clipped at 0; running ``ra = 0.9·ra + 0.1·batch`` with the BIASED variance).
 When :func:`~deflow_tpu_torch.ops.cbg.use_fused_cbg` allows it, each of the
 256 and 128 encoder groups (stem + three 3x3 blocks) runs as one fused
@@ -28,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from deflow_tpu_torch import dist
 from deflow_tpu_torch.models.running_stats import update_running_
 from deflow_tpu_torch.ops.cbg import cbg_chain, use_fused_cbg
 
@@ -54,8 +56,13 @@ class ConvWithNorms(nn.Module):
         if not (y.shape[2] == 1 and y.shape[3] == 1):
             bn = self.batchnorm
             if self.training:
-                mean = y.mean((0, 2, 3))
-                var = ((y * y).mean((0, 2, 3)) - mean * mean).clamp(min=0.0)
+                # [Σy, Σy², n] over the global batch (summed over ranks)
+                n = y.new_full((1,), y.numel() // y.shape[1])
+                tot = dist.all_reduce_sum(torch.cat(
+                    [y.sum((0, 2, 3)), (y * y).sum((0, 2, 3)), n]))
+                c = y.shape[1]
+                mean = tot[:c] / tot[-1]
+                var = (tot[c:2 * c] / tot[-1] - mean * mean).clamp(min=0.0)
                 self.update_stats(mean, var)
             else:
                 mean, var = bn.running_mean, bn.running_var

@@ -19,6 +19,14 @@ f32, with the fast variance E[x²] − E[x]²; the matmul operands (the BN+GELU
 activation, ds) are rounded to the compute dtype; BN and GELU run in f32 with
 the exact (erf) GELU.  Finalising mean, var, istd and the backward's A/B
 vectors is [C]-sized work in plain torch, as the JAX chain leaves it to XLA.
+
+Under a process group the BN statistics are the global batch's: the head's
+[Σx, Σx²] and each block's partial sums are summed over ranks in the
+forward, the top block's [Σdz, Σdz·ẑ] and each block's partial
+[Σdz_prev, Σdz_prev·ẑ_prev] in the backward (for the BN backward; the BN
+parameters' gradients take this rank's own sums, which the step then sums
+over ranks), and n is W·B·H·W (every rank runs the same per-card shape).
+The kernels do not change.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from deflow_tpu_torch import dist
 from deflow_tpu_torch.ops import _build
 
 S_MEAN, S_ISTD, S_GAMMA, S_BETA, S_A, S_B = range(6)
@@ -240,13 +249,13 @@ class _Chain(torch.autograd.Function):
     def forward(ctx, eps, nb, has_head, x, *flat):
         params = [flat[4 * i:4 * i + 4] for i in range(nb)]
         b, h, w, _ = x.shape
-        n = b * h * w
+        n = b * h * w * dist.world()
         means, variances, istds, s_list = [], [], [], []
         if has_head:
             g0, b0 = flat[4 * nb:4 * nb + 2]
             xf = x.float()
-            mean0, var0, istd0 = _stats(
-                torch.stack([xf.sum((0, 1, 2)), (xf * xf).sum((0, 1, 2))]), n, eps)
+            mean0, var0, istd0 = _stats(dist.all_reduce_(
+                torch.stack([xf.sum((0, 1, 2)), (xf * xf).sum((0, 1, 2))])), n, eps)
             scal = scal_slab(mean0, istd0, g0, b0)
             head_stats = [mean0, istd0]
             means.append(mean0)
@@ -256,7 +265,7 @@ class _Chain(torch.autograd.Function):
         s_prev = x
         for wm, bi, ga, be in params:
             s, ps = cbg_block_fwd(s_prev, wm, bi, scal)
-            mean, var, istd = _stats(ps.sum(0), n, eps)
+            mean, var, istd = _stats(dist.all_reduce_(ps.sum(0)), n, eps)
             scal = scal_slab(mean, istd, ga, be)
             s_list.append(s)
             means.append(mean)
@@ -282,14 +291,17 @@ class _Chain(torch.autograd.Function):
         head_stats, flat = (rest[:2], rest[2:]) if has_head else ([], rest)
         params = [flat[4 * i:4 * i + 4] for i in range(nb)]
         b, h, w, _ = x.shape
-        n = b * h * w
+        n = b * h * w * dist.world()
 
         ga, be = params[-1][2], params[-1][3]
         s_top = s_list[-1].float()
         z_top = bn_apply(s_top, scal_slab(means[-1], istds[-1], ga, be))
         dzf = dy.float() * gelu_grad(z_top)
         z_hat = (s_top - means[-1]) * istds[-1]
-        sum_dz, sum_dzz = dzf.sum((0, 1, 2)), (dzf * z_hat).sum((0, 1, 2))
+        # this rank's [Σdz, Σdz·ẑ] (its share of the BN parameters'
+        # gradients) and the global ones (the BN backward's A and B)
+        local = torch.stack([dzf.sum((0, 1, 2)), (dzf * z_hat).sum((0, 1, 2))])
+        sum_dz, sum_dzz = dist.all_reduce_(local.clone())
         dz = dzf.to(dy.dtype).contiguous()
 
         grads = [None] * nb
@@ -308,14 +320,15 @@ class _Chain(torch.autograd.Function):
             dzp, dw, db_ps, psp = cbg_block_bwd(dz, s_list[i], sp, wm, scal_in,
                                                 scal_out)
             grads[i] = (dw.to(wm.dtype), db_ps.sum(0).to(bi.dtype),
-                        sum_dzz.to(ga.dtype), sum_dz.to(be.dtype))
+                        local[1].to(ga.dtype), local[0].to(be.dtype))
             if i > 0 or has_head:
-                sum_dz, sum_dzz = psp.sum(0)
+                local = psp.sum(0)
+                sum_dz, sum_dzz = dist.all_reduce_(local.clone())
             dz = dzp
         head_grads = []
         if has_head:
             g0, b0 = flat[4 * nb:]
-            head_grads = [sum_dzz.to(g0.dtype), sum_dz.to(b0.dtype)]
+            head_grads = [local[1].to(g0.dtype), local[0].to(b0.dtype)]
             slab = scal_slab(head_stats[0], head_stats[1], g0, b0,
                              sum_dz / n, sum_dzz / n)
             z0_hat = (x.float() - slab[S_MEAN]) * slab[S_ISTD]

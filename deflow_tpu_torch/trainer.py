@@ -12,6 +12,14 @@ history frames), and the checkpoints (``save_checkpoint``,
 the final predicted flow is the rigid ego flow everywhere plus the network
 flow at voxel-valid points.
 
+Data parallelism (under a ``torch.distributed`` process group, see
+``dist.py``): ``init_train_state`` broadcasts rank 0's parameters and BN
+buffers, each rank's step computes its share of the global loss on its rows
+and sums the gradients over ranks before the optimizer step, so every rank
+takes the same step; ``aux`` holds the global values; checkpoints are
+written by rank 0 and read by every rank.  No ``DistributedDataParallel``
+wrapper: it would rename the state-dict keys and average the gradients.
+
 Optimizer semantics follow optax: Adam (b1 0.9, b2 0.999, eps 1e-8), AdamW
 with optax's default weight decay 1e-4, SGD with momentum 0.9; a global-norm
 clip that scales the gradients by clip/norm only when norm >= clip; every
@@ -30,7 +38,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from deflow_tpu_torch import convert
+from deflow_tpu_torch import convert, dist
 from deflow_tpu_torch.data.h5dataset import background
 from deflow_tpu_torch.data.host_prep import (CHAMFER_CELL_KEYS, HOST_PREP_KEYS,
                                              host_prep_from_batch)
@@ -212,10 +220,12 @@ class TrainState:
 
 
 def init_train_state(model: torch.nn.Module, cfg, device=None) -> TrainState:
-    """The model on ``device`` (the card unless ``"cpu"``) with a fresh
-    optimizer from ``cfg``."""
+    """The model on ``device`` (the card unless ``"cpu"``), with rank 0's
+    parameters and BN buffers under a process group, and a fresh optimizer
+    from ``cfg``."""
     dev = resolve_device(device)
     model.to(dev)
+    dist.broadcast_module(model)
     opt = make_optimizer(cfg)
     return TrainState(model, opt.build(model.parameters()), opt.clip)
 
@@ -236,7 +246,8 @@ def make_train_step(model: torch.nn.Module, loss_name: str,
     model's output dict and the batch (DUFO labels, pc1's cell prep).
     ``aux`` holds device scalars ``loss``, ``epe`` (masked mean L2 of flow −
     target; 0 for SSL), ``valid_points`` (SSL: pc0_valid & pc0_mask) and
-    ``grad_norm`` (before clipping).  Each step runs the model in train mode
+    ``grad_norm`` (before clipping), of the global batch under a process
+    group (the gradients summed over ranks first).  Each step runs the model in train mode
     and each eval step in eval mode, so the two may alternate.
 
     ``remat``: the model's forward (not the loss) runs under
@@ -244,7 +255,9 @@ def make_train_step(model: torch.nn.Module, loss_name: str,
     ``model.apply`` in ``jax.checkpoint``: the backward recomputes it instead
     of keeping its saved tensors, so every forward kernel launches twice a
     step.  The recompute leaves the BN running statistics alone, and on the
-    CPU the step is the plain step bit for bit."""
+    CPU the step is the plain step bit for bit.  Under a process group the
+    recompute issues the forward's collectives again, in the same order on
+    every rank."""
     dev = resolve_device(device)
     model.to(dev)
     is_ssl = loss_name in SSL_LOSS_REGISTRY
@@ -275,16 +288,21 @@ def make_train_step(model: torch.nn.Module, loss_name: str,
             mask = out["pc0_valid"] & b["flow_is_valid"]
             loss = loss_fn(out["flow"], target, mask, b.get("flow_category_indices"))
         loss.backward()
+        dist.all_reduce_grads(model.parameters())
         grad_norm = apply_gradients(state.optimizer, model.parameters(), state.clip)
         state.step += 1
         with torch.no_grad():
-            n = mask.sum()
             if is_ssl:      # no gt flow to compare against
-                epe = torch.zeros((), device=dev)
+                err_sum = torch.zeros((), device=dev)
             else:
                 err = torch.linalg.vector_norm(out["flow"] - target, dim=-1)
-                epe = torch.where(mask, err, 0.0).sum() / n.clamp(min=1)
-        return state, {"loss": loss.detach(), "epe": epe, "valid_points": n,
+                err_sum = torch.where(mask, err, 0.0).sum()
+            # the loss share, the error sum and the count, summed over ranks
+            tot = dist.all_reduce_(torch.stack([loss.detach().float(), err_sum,
+                                                mask.sum().float()]))
+            loss_g, n = tot[0], tot[2].to(torch.int64)
+            epe = tot[1] / n.clamp(min=1)
+        return state, {"loss": loss_g, "epe": epe, "valid_points": n,
                        "grad_norm": grad_norm}
 
     return train_step
@@ -303,9 +321,18 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, epoch: int,
     ``ModelCheckpoint``'s ``best_model_score``).  So
     ``convert.load_weights`` and the eval entry read it as they read a
     reference checkpoint.  Written to a temporary name, then renamed: a
-    reader never sees half a file."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    reader never sees half a file.  Under a process group rank 0 writes and
+    every rank waits until it has."""
     path = os.path.abspath(os.path.join(ckpt_dir, f"{name or f'epoch_{epoch}'}.ckpt"))
+    if dist.is_main():
+        _write_checkpoint(ckpt_dir, path, state, epoch, keeper)
+    dist.barrier()
+    return path
+
+
+def _write_checkpoint(ckpt_dir: str, path: str, state: TrainState, epoch: int,
+                      keeper: Optional["BestCheckpointKeeper"]) -> None:
+    os.makedirs(ckpt_dir, exist_ok=True)
     payload = {
         "state_dict": {f"model.{k}": v.detach()
                        for k, v in state.model.state_dict().items()},
@@ -318,7 +345,6 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, epoch: int,
     tmp = f"{path}.tmp{os.getpid()}"
     torch.save(payload, tmp)
     os.replace(tmp, path)
-    return path
 
 
 def load_checkpoint(path: str, state: TrainState,

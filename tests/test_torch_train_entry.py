@@ -562,10 +562,12 @@ def test_dyncap_env_override_raises(data_root, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("override", ["num_devices=2"])
 def test_main_refuses_what_is_not_ported(data_root, tmp_path, override):
+    """``num_devices`` other than the ranks the launcher started (one
+    process here) raises before anything is written."""
     cfg = compose("config", _overrides(data_root, str(tmp_path)) + [override])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="num_devices=2, but the launcher started 1"):
         TE.main(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="num_devices=2, but the launcher started 1"):
         TE.fit(cfg, _small_samples(2), device="cpu")
     assert not os.path.exists(tmp_path / "wandb")
 

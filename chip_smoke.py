@@ -15,7 +15,8 @@ Phases (any failure exits non-zero):
    error against its plain PyTorch version, its time, the plain version's
    time, a library call's (or call sequence's) time, and the bound (the GRU
    backward and the fused conv3x3+BN+GELU backward also split by the
-   kernels they launch); first, every plan fed to a segment-sum is checked
+   kernels they launch; the fused blocks at 256^2x64, 128^2x128 and
+   64^2x256 at 2B = 4); first, every plan fed to a segment-sum is checked
    to ascend within each sample, sentinels last; the segment-sum also bit
    for bit on integer features, at the train path's embedder shape and on
    the skewed clouds' pillar ids (points per occupied pillar); the
@@ -29,7 +30,10 @@ Phases (any failure exits non-zero):
    lane segment-sum and their library calls also timed as 20 launches
    captured in one CUDA graph (no host launch overhead); then the
    full-width sweep against the brute search (truncated distances, both
-   directions, all and dynamic candidates);
+   directions, all and dynamic candidates), on the SSL batch and on the
+   skewed clouds, with the share of the rows whose neighbour lies below
+   ring·cell on which both find the same distance (``tools/sweep_check.py``'s
+   exactness check);
 3b. the kernels on the device binning path's call patterns at 4 x 98,304
    (the points in their own order): the segment-sum on a device sort's
    ids, 4 bf16 lanes (the centroids) and 33 (the features), after the
@@ -112,8 +116,22 @@ Phases (any failure exits non-zero):
    relative); (b) the full-width train step and
    ``entry.train.fit`` under an nccl group of world size 1 against the
    same without a group, and the device time of the nccl kernels a step;
-10. a JSON line of phase 8's numbers, one of phase 9's, one JSON line of
-   kernels, the card line, and the result line.
+11. the JAX package's last surface, each path at full width with its
+   launch counts held: (a) the leaderboard step (bf16, 2 x 98,304) under
+   DEFLOW_FUSED_CBG=all (7 fused-block forwards and backwards a step, the
+   64^2 group's 256 channels chained) against auto, in turns; the f32
+   small model's step under all and under 64 against 0, on the card;
+   (b) DEFLOW_REMAT 1 and conv against 0: the same loss, gradients within
+   the card's run-to-run spread, BN statistics moved once, peak memory and
+   step ms, also at 16 per card; (c) SeFlow with dyn_cap at 20% and 5% of
+   N: the first step's loss equal to the uncompacted one, 2 sweeps and 1
+   lane sum a step, the chamfer's d_pc0 on fixed clouds equal off the rows
+   the truncated f-terms touch; (d) the eval with scatter_mode="max", with
+   and without host prep, and its f32 small model against the CPU; (e) the
+   DUFO labeller on a synthetic 20-frame drive of 98,304 points a frame,
+   the card against the CPU;
+10. a JSON line of phase 8's numbers, one of phase 9's, one of phase 11's,
+   one JSON line of kernels, the card line, and the result line.
 Step times are medians of the steady steps (all but the first, which warms
 cuDNN up); the eval phase also prints their mean.
 Needs one CUDA card; exits non-zero without one.
@@ -635,10 +653,12 @@ def check_train_kernels(model, host_batch, splits: list):
     the segment-sum and the row gather as each other's backward, on the ids
     the autograd functions build from ``host_batch``; the GRU backward at
     [B*N] points; the fused conv3x3+BN+GELU forward and backward at both
-    chain widths of the siamese 2B batch; each against its plain version.
+    chain widths of the siamese 2B batch (the 64^2 group's 256 channels
+    too); each against its plain version.
     Returns the bf16 measurements: the backward uses of the segment-sum and
     the gather under "as_gather_bwd" / "as_scatter_bwd", the fused blocks'
-    256^2 width first and the 128^2 width under "width_128".  Appends to
+    256^2 width first, the 128^2 and 64^2 widths under "width_128" and
+    "width_64".  Appends to
     ``splits`` (name, result, call) for the GRU backward and each fused
     block backward, whose split by kernel (``split_ms``) the caller
     measures after every other timing of the phase: torch.profiler leaves
@@ -716,7 +736,8 @@ def check_train_kernels(model, host_batch, splits: list):
     # -- fused blocks at the two chain widths of the siamese batch
     net = model.backbone
     hw = model.voxel_cfg.pseudoimage_hw
-    for (name, step, res) in (("256", 2, hw[0] // 2), ("128", 6, hw[0] // 4)):
+    for (name, step, res) in (("256", 2, hw[0] // 2), ("128", 6, hw[0] // 4),
+                              ("64", 10, hw[0] // 8)):
         wm, bias, gamma, beta = (t.detach() for t in
                                  getattr(net, f"encoder_step_{step}").chain_params(torch.float32))
         c, o = wm.shape[2], wm.shape[3]
@@ -784,11 +805,11 @@ def check_train_kernels(model, host_batch, splits: list):
             if name == "256":
                 results[kname] = r
             else:
-                results[kname]["width_128"] = r
+                results[kname][f"width_{name}"] = r
     results["sorted_gather"] = {"as_scatter_bwd": scatter_bwd}
     results["segment_sum"] = {"as_gather_bwd": gather_bwd, "train_embedder": embedder}
     for name, r in results.items():
-        for rr in (r, *(r.get(k) for k in ("width_128", "as_scatter_bwd",
+        for rr in (r, *(r.get(k) for k in ("width_128", "width_64", "as_scatter_bwd",
                                             "as_gather_bwd", "train_embedder"))):
             if rr and "ms" in rr:
                 print(f"{name} {rr.get('shape', '')}: {rr['ms']:.4f} ms (bound "
@@ -882,7 +903,6 @@ def check_ssl_kernels(ssl_batch, brute_batch):
     sums within 1e-6 of their largest element."""
     import torch
 
-    from deflow_tpu_torch.data.host_prep import chamfer_cell_prep
     from deflow_tpu_torch.ops import chamfer, nn, scatter, voxel
     from deflow_tpu_torch.trainer import SSL_TRAIN_KEYS, device_batch
 
@@ -898,17 +918,7 @@ def check_ssl_kernels(ssl_batch, brute_batch):
     timed = {what: hold_sweep(what, qc, cc, spec)
              for what, (qc, cc) in (("pc0->pc1", (c0, c1)), ("pc1->pc0", (c1, c0)))}
     results["cell_sweep"] = {**timed["pc0->pc1"], "pc1_to_pc0": timed["pc1->pc0"]}
-    rng = np.random.default_rng(5)
-    pts, masks = zip(*(skewed_cloud(rng, N, VALID) for _ in range(2 * TRAIN_B)))
-    pts = torch.from_numpy(np.stack(pts)).reshape(2, TRAIN_B, N, 3)
-    masks = torch.from_numpy(np.stack(masks)).reshape(2, TRAIN_B, N)
-    flags = masks & torch.from_numpy(rng.random(masks.shape) < 0.15)
-    s0 = chamfer._sweep_sort(pts[0].to(dev), masks[0].to(dev), flags[0].to(dev), spec)
-    cps = [chamfer_cell_prep(pts[1, i].numpy(), masks[1, i].numpy(), flags[1, i].numpy(),
-                             cell=spec.cell) for i in range(TRAIN_B)]
-    s1 = chamfer._sweep_cloud_from_host(
-        *(torch.from_numpy(np.stack([c[k] for c in cps])).to(dev)
-          for k in ("lanes", "sid", "start")), spec)
+    s0, s1, (sk0, sk1, skm0, skm1, _, _) = skewed_ssl_clouds(spec)
     results["cell_sweep"]["skewed"] = {
         what: hold_sweep(f"{what} skewed", qc, cc, spec)
         for what, (qc, cc) in (("pc0->pc1", (s0, s1)), ("pc1->pc0", (s1, s0)))}
@@ -917,8 +927,8 @@ def check_ssl_kernels(ssl_batch, brute_batch):
     # batch: long runs in the dense near field and the two clusters
     cfg = voxel.VoxelConfig(tuple(VOXEL), tuple(RANGE))
     seg = cfg.num_pillars + voxel.TRASH_PAD
-    pid = voxel.compute_pillar_info(pts.reshape(-1, N, 3).to(dev),
-                                    masks.reshape(-1, N).to(dev), cfg).pillar_id
+    pid = voxel.compute_pillar_info(torch.cat([sk0, sk1]), torch.cat([skm0, skm1]),
+                                    cfg).pillar_id
     sk_ids = voxel.make_presorted_plan(pid.sort(dim=1).values, seg)
     nb = pid.shape[0]
     check_plan("(embedder, skewed clouds)", sk_ids, nb * seg, nb)
@@ -1017,27 +1027,60 @@ def check_ssl_kernels(ssl_batch, brute_batch):
     return results
 
 
-def sweep_vs_brute(ssl_batch) -> float:
-    """The full-width sweep against the brute search on one SSL batch, both
-    directions, all and dynamic candidates: min(d, truncate²) must agree on
-    every valid query row.  The sweep's (dx² + dy²) + dz² is accurate to a
-    few ulps; the brute search's |p|² + |q|² − 2p·q cancels, with an error
-    below 10·u·R² (u = 2^-24, R² the largest squared norm: 2u for each
-    squared norm, 4u for the doubled dot, 2u for their sum), held here to
-    8·eps32·R² = 16·u·R².  Distances, not indices, are compared.  Returns
-    the largest difference over its tolerance."""
+def skewed_ssl_clouds(spec):
+    """Phase 3's two skewed 2 x 98,304 clouds (the same seed): pc0 sorted on
+    the device with 15% of its rows flagged, pc1 from the host cell prep;
+    as :func:`ssl_clouds` returns them."""
+    import torch
+
+    from deflow_tpu_torch.data.host_prep import chamfer_cell_prep
+    from deflow_tpu_torch.ops import chamfer
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    pts, masks = zip(*(skewed_cloud(rng, N, VALID) for _ in range(2 * TRAIN_B)))
+    pts = torch.from_numpy(np.stack(pts)).reshape(2, TRAIN_B, N, 3)
+    masks = torch.from_numpy(np.stack(masks)).reshape(2, TRAIN_B, N)
+    flags = masks & torch.from_numpy(rng.random(masks.shape) < 0.15)
+    c0 = chamfer._sweep_sort(pts[0].to(dev), masks[0].to(dev), flags[0].to(dev), spec)
+    cps = [chamfer_cell_prep(pts[1, i].numpy(), masks[1, i].numpy(), flags[1, i].numpy(),
+                             cell=spec.cell) for i in range(TRAIN_B)]
+    c1 = chamfer._sweep_cloud_from_host(
+        *(torch.from_numpy(np.stack([c[k] for c in cps])).to(dev)
+          for k in ("lanes", "sid", "start")), spec)
+    return c0, c1, tuple(t.to(dev) for t in (pts[0], pts[1], masks[0], masks[1],
+                                             flags[0], flags[1]))
+
+
+def sweep_vs_brute(ssl_batch=None, label: str = "") -> tuple:
+    """The full-width sweep against the brute search on one SSL batch (or,
+    without one, on phase 3's skewed clouds), both directions, all and
+    dynamic candidates: min(d, truncate²) must agree on every valid query
+    row.  The sweep's (dx² + dy²) + dz² is accurate to a few ulps; the
+    brute search's |p|² + |q|² − 2p·q cancels, with an error below 10·u·R²
+    (u = 2^-24, R² the largest squared norm: 2u for each squared norm, 4u
+    for the doubled dot, 2u for their sum), held here to 8·eps32·R² =
+    16·u·R².  Distances, not indices, are compared (the counterpart of
+    ``tools/sweep_check.py``'s exactness below ring·cell).  Returns the
+    largest difference over its tolerance and the share of the rows whose
+    brute neighbour lies below ring·cell on which the sweep found the same
+    distance within it."""
     from deflow_tpu_torch.ops import chamfer, nn
     from deflow_tpu_torch.trainer import SSL_TRAIN_KEYS, device_batch
 
     spec = chamfer._resolve_spec("grid", N, N, TRUNCATE, None)
-    db = device_batch(ssl_batch, None, SSL_TRAIN_KEYS)
-    c0, c1, (warped, pc1, m0, m1, f0, f1) = ssl_clouds(db, spec)
+    if ssl_batch is None:
+        c0, c1, (warped, pc1, m0, m1, f0, f1) = skewed_ssl_clouds(spec)
+    else:
+        db = device_batch(ssl_batch, None, SSL_TRAIN_KEYS)
+        c0, c1, (warped, pc1, m0, m1, f0, f1) = ssl_clouds(db, spec)
     d0a, _, d0f, _ = chamfer._sweep_dir(c0, c1, spec, dual=True)
     d1a, _, d1f, _ = chamfer._sweep_dir(c1, c0, spec, dual=True)
     r2 = max(warped.square().sum(-1).max().item(), pc1.square().sum(-1).max().item())
     tol = 8 * float(np.finfo(np.float32).eps) * r2
     t2 = TRUNCATE ** 2
-    worst = 0.0
+    radius2 = (spec.ring * spec.cell) ** 2
+    worst, near, same = 0.0, 0, 0
     for what, ds, p, q, qmask, rows in (
             ("pc0->pc1 all", d0a, warped, pc1, m1, m0),
             ("pc0->pc1 dynamic", d0f, warped, pc1, f1, f0),
@@ -1046,11 +1089,14 @@ def sweep_vs_brute(ssl_batch) -> float:
         db_, _ = nn.chamfer_min(p, q, qmask)
         diff = (ds.clamp(max=t2) - db_.clamp(max=t2)).abs()[rows]
         below = (db_[rows] < t2).float().mean().item()
-        print(f"sweep vs brute, {what}: {int(rows.sum())} rows ({below:.3f} with a "
+        close = rows & (db_ < radius2)
+        near += int(close.sum())
+        same += int(((ds - db_).abs() <= tol)[close].sum())
+        print(f"sweep vs brute{label}, {what}: {int(rows.sum())} rows ({below:.3f} with a "
               f"neighbour below {TRUNCATE:g} m), max |d| difference "
               f"{diff.max().item():.3e} m^2 (tol {tol:.3e})")
         worst = max(worst, diff.max().item() / tol)
-    return worst
+    return worst, same / max(near, 1)
 
 
 def run_main_path(model, batches):
@@ -2025,10 +2071,12 @@ def profile_step(step, launched: dict) -> None:
     return {"wall_ms": wall_ms, "busy_ms": busy, "ops": len(spans), "by_name": by_name}
 
 
-def reference_check(seed: int, model_cfg=None, hosted: bool = True) -> float:
+def reference_check(seed: int, model_cfg=None, hosted: bool = True,
+                    scatter_mode: str = "avg") -> float:
     """Phase 7a: f32 model on a small input, card vs CPU; max |Δ pred_flow|.
     ``model_cfg`` overrides the leaderboard model's keys (the MMHead);
-    ``hosted=False`` evaluates the raw batch (the device binning path)."""
+    ``hosted=False`` evaluates the raw batch (the device binning path);
+    ``scatter_mode="max"`` gives the embedder the max scatter."""
     from deflow_tpu_torch.models import build_model
     from deflow_tpu_torch.trainer import make_eval_step
 
@@ -2040,6 +2088,7 @@ def reference_check(seed: int, model_cfg=None, hosted: bool = True) -> float:
     outs = []
     for dev in ("cuda", "cpu"):
         model = build_model(small, precision="fp32", device=dev, seed=seed)
+        model.embedder.scatter_mode = scatter_mode
         outs.append(make_eval_step(model, device=dev)(hb)["pred_flow"].cpu())
     return (outs[0] - outs[1]).abs().max().item()
 
@@ -2099,6 +2148,17 @@ def train_reference_check(seed: int, loss_name: str = "deflowLoss",
             states.append({k: v.detach().cpu() for k, v in model.state_dict().items()})
     finally:
         chamfer._AUTO_GRID_PAIRS = threshold
+    ratio, worst = step_ratios(auxes, grads, states)
+    print(f"  {loss_name}: the parameter farthest off is an element of {worst[0]}, "
+          f"whose CPU gradient is {worst[1]:.3e} (Adam's eps 1e-8)")
+    return ratio
+
+
+def step_ratios(auxes, grads, states):
+    """Two runs of one f32 train step (the second the reference), each
+    quantity's largest difference over its tolerance (train_reference_check's
+    tolerances), and the parameter element farthest off with its reference
+    gradient."""
     ratio = {k: abs(auxes[0][k] - auxes[1][k]) / abs(auxes[1][k]) / 1e-4
              for k in ("loss", "grad_norm")}
     ratio["grad"] = ratio["param"] = 0.0
@@ -2125,9 +2185,7 @@ def train_reference_check(seed: int, loss_name: str = "deflowLoss",
             ratio["param"] = off.max().item()
             g = grads[1].get(key)
             worst = (key, float("nan") if g is None else g.flatten()[off.argmax()].item())
-    print(f"  {loss_name}: the parameter farthest off is an element of {worst[0]}, "
-          f"whose CPU gradient is {worst[1]:.3e} (Adam's eps 1e-8)")
-    return ratio
+    return ratio, worst
 
 
 # phase 9: data parallelism.  Steps of each DP run; the small f32 check's
@@ -2523,6 +2581,371 @@ def run_data_parallel(model, train_batches) -> dict:
     return out
 
 
+# phase 11: the JAX package's last surface.  Steps (or batches) of each
+# path; a train step's launches with the 64^2 group chained too
+# (DEFLOW_FUSED_CBG=all), an SSL step's, a max-scatter eval batch's (either
+# route: the centroid and count sums of both clouds, the centroids'
+# gathers and the decoder's); the dyn_cap shares of N; the DUFO scene
+SURFACE_STEPS = 3
+ALL_PER_STEP = dict(PER_STEP, cbg_fwd=7, cbg_bwd=7)
+SSL_PER_STEP = dict(PER_STEP, cell_sweep=2, segment_sum_lanes=1)
+MAX_EVAL_PER_BATCH = {"segment_sum": 4, "sorted_gather": 3, "fused_gru": 1}
+DYNCAP_SHARES = (0.20, 0.05)
+DUFO_FRAMES, DUFO_WINDOW = 20, 10
+
+
+class env:
+    """Set environment variable ``name`` to ``value`` within the block."""
+
+    def __init__(self, name: str, value: str):
+        self.name, self.value = name, value
+
+    def __enter__(self):
+        self.old = os.environ.get(self.name)
+        os.environ[self.name] = self.value
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            del os.environ[self.name]
+        else:
+            os.environ[self.name] = self.old
+
+
+def policy_check(seed: int, policy: str) -> dict:
+    """(a) One f32 deflowLoss step of the small model (64^2 grid, 2 x 4,096
+    slots: the groups' maps 32^2, 16^2, 8^2, all chained at 2B = 4) under
+    ``DEFLOW_FUSED_CBG=policy`` against the same step under ``0`` (plain
+    cuDNN), both on the card: the ratios of train_reference_check, and the
+    fused blocks' launches of the policy's step."""
+    from deflow_tpu_torch.models import build_model
+    from deflow_tpu_torch.trainer import init_train_state, make_train_step
+
+    small = dict(LEADERBOARD, voxel_size=[1.6, 1.6, 6.0], grid_feature_size=[64, 64])
+    hb, _ = held_prep(make_batch(seed, b=2, n=4096, valid=3500), small["voxel_size"])
+    auxes, grads, states, launches = [], [], [], []
+    for value in (policy, "0"):
+        with env("DEFLOW_FUSED_CBG", value):
+            model = build_model(small, precision="fp32", seed=seed)
+            state = init_train_state(model, {"lr": LR})
+            reset_launches()
+            state, aux = make_train_step(model, "deflowLoss")(state, hb)
+            launches.append(read_launches())
+        auxes.append({k: float(v) for k, v in aux.items()})
+        grads.append({k: p.grad.detach().cpu() for k, p in model.named_parameters()})
+        states.append({k: v.detach().cpu() for k, v in model.state_dict().items()})
+    ratio, _ = step_ratios(auxes, grads, states)
+    return {"ratio": ratio, "cbg": (launches[0]["cbg_fwd"], launches[0]["cbg_bwd"]),
+            "cbg_plain": (launches[1]["cbg_fwd"], launches[1]["cbg_bwd"])}
+
+
+def remat_run(batch, mode: str, steps: int = 2, seed: int = 11) -> dict:
+    """(b) A bf16 deflowLoss step of a fresh model (seed ``seed``) under
+    ``DEFLOW_REMAT=mode``: its loss, gradients, BN buffers before and
+    after, the peak memory above the state (GiB; 'does not fit' when the
+    card runs out), then ``steps`` more steps' median device ms."""
+    import torch
+
+    from deflow_tpu_torch.models import build_model
+    from deflow_tpu_torch.trainer import TRAIN_KEYS, device_batch, init_train_state, make_train_step
+
+    with env("DEFLOW_REMAT", mode):
+        model = build_model(LEADERBOARD, precision="bf16", seed=seed)
+        state = init_train_state(model, {"lr": LR, "optimizer": "adam"})
+        stats = lambda: {k: v.clone() for k, v in model.state_dict().items() if "running" in k}
+        before = stats()
+        db = device_batch(batch, keys=TRAIN_KEYS)
+        step = make_train_step(model, "deflowLoss")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            state, aux = step(state, db)
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError:
+            return {"peak_gib": "does not fit"}
+        out = {"peak_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+               "loss": float(aux["loss"]), "before": before, "after": stats(),
+               "grads": {k: p.grad.detach().float().clone()
+                         for k, p in model.named_parameters()}}
+        _, ms = _timed_steps(lambda d: step(state, d), [db] * steps, lambda o: None)
+    out["ms"] = float(np.median(ms))
+    return out
+
+
+def hold_block_remat(batch, big_batch) -> dict:
+    """(b) ``DEFLOW_REMAT`` 1 and conv against 0 at 2 per card (only the
+    64^2 group's two blocks are wrapped: the others chain at 2B = 4): the
+    same first-step loss, gradients within SPREAD times two plain steps'
+    difference, every BN statistic moved once (hold_remat's rules); then
+    the peak and step ms of each at 16 per card (2B = 32: no chain, all
+    ten encoder blocks wrapped)."""
+    import torch
+
+    runs = {"0": remat_run(batch, "0")}
+    runs["0 again"] = remat_run(batch, "0")
+    floor = _grad_spread(runs["0"]["grads"], runs["0 again"]["grads"])
+    res = {}
+    for mode in ("1", "conv"):
+        r = runs[mode] = remat_run(batch, mode)
+        grad = _grad_spread(runs["0"]["grads"], r["grads"])
+        ref = runs["0"]
+        share = max(((r["after"][k] - ref["after"][k]).abs().max()
+                     / (ref["after"][k] - v).abs().max().clamp(min=1e-30)).item()
+                    for k, v in ref["before"].items())
+        ok = (r["loss"] == ref["loss"] and grad[0] <= SPREAD * floor[0]
+              and share <= REMAT_STATS_SHARE)
+        print(f"(b) DEFLOW_REMAT={mode} against 0 ({TRAIN_B} x {N:,}, bf16): loss "
+              f"{r['loss']!r} against {ref['loss']!r}; largest gradient difference "
+              f"{grad[0]:.3e} in {grad[1]} (two plain steps {floor[0]:.3e}; tol "
+              f"{SPREAD}x); BN statistics {share:.3e} of the plain move (tol "
+              f"{REMAT_STATS_SHARE:g}); peak {r['peak_gib']:.3f} GiB against "
+              f"{ref['peak_gib']:.3f}; step {r['ms']:.3f} ms against {ref['ms']:.3f}: "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"DEFLOW_REMAT={mode} disagrees with the plain step")
+        res[f"remat_{mode}"] = {"peak_gib": r["peak_gib"], "ms": r["ms"],
+                                "grad_over_floor": grad[0] / max(floor[0], 1e-30)}
+    res["remat_0"] = {"peak_gib": runs["0"]["peak_gib"], "ms": runs["0"]["ms"]}
+    del runs
+    torch.cuda.empty_cache()
+    for mode in ("0", "1", "conv"):
+        r = remat_run(big_batch, mode, steps=1)
+        show = lambda v: v if isinstance(v, str) else f"{v:.2f} GiB"
+        print(f"(b) DEFLOW_REMAT={mode} at {CONFIG_BATCH} per card ({CONFIG_BATCH} x "
+              f"{N:,}, 2B = {2 * CONFIG_BATCH}): peak {show(r['peak_gib'])}"
+              + (f", step {r['ms']:.3f} ms" if "ms" in r else ""))
+        res[f"remat_{mode}_at_{CONFIG_BATCH}"] = {"peak_gib": r["peak_gib"],
+                                                 "ms": r.get("ms")}
+        del r
+        torch.cuda.empty_cache()
+    return res
+
+
+def dyncap_grads(db, caps) -> dict:
+    """(c) The chamfer-level d_pc0 of the SSL batch's fixed clouds (pc0
+    ego-compensated, pc1 from the host cell prep, 15% flagged) for each
+    ``dyn_cap``; and the rows the truncated f-terms touch at each cap (the
+    flagged rows past it, and the pc0 f-matches of pc1's rows past it)."""
+    import torch
+
+    from deflow_tpu_torch.ops import chamfer
+
+    spec = chamfer._resolve_spec("grid", N, N, TRUNCATE, None)
+    m0, m1 = db["pc0_mask"], db["pc1_mask"]
+    f0, f1 = m0 & (db["dufo_label0"] > 0), m1 & (db["dufo_label1"] > 0)
+    host = (db["pc1_cell_lanes"], db["pc1_cell_sid"], db["pc1_cell_start"])
+    out = {}
+    for cap in caps:
+        p0 = db["pc0_transformed"].detach().clone().requires_grad_()
+        d = chamfer.ssl_chamfer_distances(p0, db["pc1"], m0, m1, f0, f1, truncate=TRUNCATE,
+                                          spec=spec._replace(dyn_cap=cap), host_c1=host)
+        sum(x.clamp(max=TRUNCATE ** 2).sum() for x in d).backward()
+        touched = torch.zeros_like(m0)
+        if cap is not None:
+            masked = lambda p, m: torch.where(m[..., None], p, 0.0)
+            i1f = chamfer._SSLNN.apply(masked(p0.detach(), m0), masked(db["pc1"], m1),
+                                       m0, m1, f0, f1, spec, host)[7]
+            touched = f0 & (f0.cumsum(-1) > cap)
+            past1 = f1 & (f1.cumsum(-1) > cap)
+            for s_ in range(m0.shape[0]):
+                hit = i1f[s_][past1[s_]]
+                touched[s_, hit[hit >= 0]] = True
+        out[cap] = (p0.grad, touched, int(f0.sum(-1).max()), int(f1.sum(-1).max()))
+    return out
+
+
+def dufo_frames(seed: int = 9, frames: int = DUFO_FRAMES, n: int = N) -> list:
+    """(e) A synthetic drive for the DUFO labeller: the ego at 10 m/s, a
+    slight turn; four walls around it (rays cross empty space to reach
+    them), 10% ground points (ground_mask), six boxes of ~1,600 points
+    each moving at up to 10 m/s; ``n`` points a frame in the ego frame."""
+    rng = np.random.default_rng(seed)
+    k = 400_000
+    side = rng.integers(0, 4, k)
+    u = rng.random(k)
+    x = np.where(side < 2, -40 + 100 * u, np.where(side == 2, -40.0, 60.0))
+    y = np.where(side < 2, np.where(side == 0, -35.0, 35.0), -35 + 70 * u)
+    walls = np.stack([x + rng.normal(0, 0.05, k), y + rng.normal(0, 0.05, k),
+                      rng.uniform(0.2, 4.0, k)], -1)
+    boxes = [(np.array([rng.uniform(-10, 30), rng.uniform(-25, 25), 1.0]),
+              rng.uniform(-10, 10, 3) * [1, 1, 0],
+              rng.uniform(-1, 1, (n // 60, 3)) * [2.2, 1.0, 0.8]) for _ in range(6)]
+    n_box = sum(len(b[2]) for b in boxes)
+    n_ground = n // 10
+    n_wall = n - n_box - n_ground
+    out = []
+    for t in range(frames):
+        yaw = 0.01 * t
+        rot = np.array([[np.cos(yaw), -np.sin(yaw), 0], [np.sin(yaw), np.cos(yaw), 0],
+                        [0, 0, 1]])
+        ego = np.array([1.0 * t, 0.2 * t, 1.8])
+        ground = np.stack([rng.uniform(-40, 60, n_ground), rng.uniform(-35, 35, n_ground),
+                           rng.uniform(-0.2, 0.05, n_ground)], -1)
+        city = np.concatenate([walls[rng.integers(0, k, n_wall)], ground,
+                               *(c + v * 0.1 * t + shape for c, v, shape in boxes)])
+        pose = np.eye(4)
+        pose[:3, :3], pose[:3, 3] = rot, ego
+        gm = np.zeros(n, bool)
+        gm[n_wall:n_wall + n_ground] = True
+        out.append({"lidar": ((city - ego) @ rot).astype(np.float32), "pose": pose,
+                    "ground_mask": gm})
+    return out
+
+
+def run_last_surface(eval_batches, train_batches, ssl_batches) -> dict:
+    """Phase 11, each path at full width with its launch counts held:
+    (a) the leaderboard step under DEFLOW_FUSED_CBG=all against auto, and
+    the f32 small model under all and 64 against 0; (b) DEFLOW_REMAT;
+    (c) SeFlow with dyn_cap above and below the dynamic counts; (d) the
+    max-scatter eval with and without host prep; (e) the DUFO labeller on
+    the card against the CPU."""
+    import torch
+
+    from deflow_tpu_torch.dataprocess.process import label_frames
+    from deflow_tpu_torch.data.host_prep import attach_host_prep
+    from deflow_tpu_torch.models import build_model
+    from deflow_tpu_torch.trainer import (SSL_TRAIN_KEYS, TRAIN_KEYS, device_batch,
+                                          init_train_state, make_eval_step, make_train_step)
+
+    out, launched = {}, {}
+    t_phase = time.perf_counter()
+
+    def path(label, per, items, run, check=lambda o: o):
+        torch.cuda.synchronize()
+        reset_launches()
+        res, ms = _timed_steps(run, items, check)
+        launches = read_launches()
+        want = _want(per, len(items))
+        med = float(np.median(ms[1:]))
+        print(f"{label}: device ms " + ", ".join(f"{t:.3f}" for t in ms)
+              + f"; steady median {med:.3f} ms; launches {launches} (want {want})")
+        if launches != want:
+            raise SystemExit(f"{label} did not launch every kernel as expected")
+        out[label] = {"device_ms": ms, "median_ms": med}
+        launched[label] = launches
+        return res
+
+    def finite(res):
+        aux = {k: float(v) for k, v in res[1].items()}
+        if not all(np.isfinite(v) for v in aux.values()):
+            raise SystemExit(f"a step gave non-finite values {aux}")
+        return aux
+
+    # (a) the chain policy: the leaderboard step, auto / all / all / auto
+    tdbs = [device_batch(hb, keys=TRAIN_KEYS) for hb in train_batches[:SURFACE_STEPS]]
+    for i, policy in enumerate(("auto", "all", "all", "auto")):
+        with env("DEFLOW_FUSED_CBG", policy):
+            model = build_model(LEADERBOARD, precision="bf16", seed=0)
+            state = init_train_state(model, {"lr": LR, "optimizer": "adam"})
+            step = make_train_step(model, "deflowLoss")
+            path(f"(a) train, DEFLOW_FUSED_CBG={policy}, run {i // 2 + 1}",
+                 ALL_PER_STEP if policy == "all" else PER_STEP, tdbs,
+                 lambda db: step(state, db), finite)
+    del model, state, step, tdbs
+    for policy in ("all", "64"):
+        r = policy_check(7, policy)
+        print(f"(a) f32 64x64 step on the card, DEFLOW_FUSED_CBG={policy} against 0: "
+              "largest difference over its tolerance: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in r["ratio"].items())
+              + f"; fused blocks forward/backward {r['cbg']} (0: {r['cbg_plain']})")
+        want = {"all": (7, 7), "64": (1, 1)}[policy]
+        if not (all(v <= 1.0 for v in r["ratio"].values()) and r["cbg"] == want
+                and r["cbg_plain"] == (0, 0)):
+            raise SystemExit(f"DEFLOW_FUSED_CBG={policy} disagrees with the plain U-Net")
+        out[f"(a) f32 {policy} against 0"] = r
+    torch.cuda.empty_cache()
+
+    # (b) per-block remat at 2 and at 16 per card
+    big = attach_host_prep(make_batch(600, b=CONFIG_BATCH), VOXEL, RANGE,
+                           num_workers=HOST_WORKERS)
+    out["(b) remat"] = hold_block_remat(train_batches[0], big)
+    del big
+    torch.cuda.empty_cache()
+
+    # (c) SeFlow with dyn_cap: the loss of the first step (the forward never
+    # changes), 2 sweeps and 1 lane sum a step, and the chamfer's d_pc0
+    sdbs = [device_batch(hb, keys=SSL_TRAIN_KEYS) for hb in ssl_batches[:SURFACE_STEPS]]
+    caps = [None] + [int(share * N) for share in DYNCAP_SHARES]
+    first = {}
+    for cap in caps:
+        with env("DEFLOW_SSL_DYNCAP", "0" if cap is None else str(cap)):
+            model = build_model(LEADERBOARD, precision="bf16", seed=0)
+            state = init_train_state(model, {"lr": LR, "optimizer": "adam"})
+            step = make_train_step(model, "seflowLoss")
+            auxes = path(f"(c) seflow, dyn_cap {cap}", SSL_PER_STEP, sdbs,
+                         lambda db: step(state, db), finite)
+        first[cap] = auxes[0]["loss"]
+    del model, state, step
+    print("(c) first-step loss by dyn_cap: " + ", ".join(f"{c}: {v!r}" for c, v in first.items()))
+    if len(set(first.values())) != 1:
+        raise SystemExit("dyn_cap changed the SeFlow loss")
+    grads = dyncap_grads(sdbs[0], caps)
+    full = grads[None][0]
+    scale = full.abs().max().item()
+    for cap in caps[1:]:
+        g, touched, n0, n1 = grads[cap]
+        diff = (g - full).abs().max(-1).values
+        off = diff[~touched].max().item() / scale
+        changed = int((diff > 1e-5 * scale).sum())
+        print(f"(c) chamfer d_pc0, dyn_cap {cap} (flagged rows a sample up to {n0} / "
+              f"{n1}): largest difference off the {int(touched.sum())} touched rows "
+              f"{off:.3e} of the largest element (tol 1e-5); rows differing by more "
+              f"{changed}, all touched: {bool((diff[~touched] <= 1e-5 * scale).all())}")
+        if not off <= 1e-5 or (cap >= max(n0, n1)) != (int(touched.sum()) == 0):
+            raise SystemExit(f"the compacted backward at dyn_cap {cap} disagrees")
+        out[f"(c) d_pc0 at dyn_cap {cap}"] = {"off_touched_rel": off, "changed_rows": changed,
+                                            "touched_rows": int(touched.sum()),
+                                            "max_flagged": [n0, n1]}
+    out["(c) first_step_loss"] = first[None]
+    del sdbs, grads
+    torch.cuda.empty_cache()
+
+    # (d) the max scatter's eval, host-sorted batches and raw ones
+    model = build_model(LEADERBOARD, precision="bf16", seed=0)
+    model.embedder.scatter_mode = "max"
+    step = make_eval_step(model)
+
+    def finite_eval(o):
+        if not all(torch.isfinite(v).all() for v in o.values() if v.is_floating_point()):
+            raise SystemExit("the max-scatter eval gave non-finite values")
+        return o
+    for label, hbs in (("(d) max-scatter eval, host prep", eval_batches[:SURFACE_STEPS]),
+                       ("(d) max-scatter eval, no host prep",
+                        [make_batch(100 + i) for i in range(SURFACE_STEPS)])):
+        path(label, MAX_EVAL_PER_BATCH, [device_batch(hb) for hb in hbs], step, finite_eval)
+    del model, step
+    for hosted in (True, False):
+        err = reference_check(seed=7, hosted=hosted, scatter_mode="max")
+        print(f"(d) reference check, max scatter{'' if hosted else ', no host prep'} "
+              f"(f32, 64x64 grid, card vs CPU): max |d pred_flow| {err:.3e} (tol 2e-4)")
+        if not err < 2e-4:
+            raise SystemExit("card and CPU disagree on the max-scatter eval")
+        out[f"(d) f32 card vs cpu{'' if hosted else ', no host prep'}"] = err
+
+    # (e) the DUFO labeller, the card against the CPU
+    frames = dufo_frames()
+    labels, ms = {}, {}
+    for where, dev in (("card", "cuda"), ("card", "cuda"), ("cpu", "cpu")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        labels[where] = label_frames(frames, DUFO_WINDOW, device=dev)
+        torch.cuda.synchronize()
+        ms[where] = (time.perf_counter() - t0) * 1e3 / len(frames)
+    card, cpu = np.concatenate(labels["card"]), np.concatenate(labels["cpu"])
+    differ = float((card != cpu).mean())
+    print(f"(e) DUFO labels, {len(frames)} frames x {N:,}, window {DUFO_WINDOW}: card "
+          f"{ms['card']:.1f} ms a frame (the second run), CPU {ms['cpu']:.1f} ms; share "
+          f"differing {differ:.3e}; dynamic fraction card {card.mean():.4f}, CPU "
+          f"{cpu.mean():.4f}")
+    if differ > 1e-4:
+        raise SystemExit("the DUFO labels on the card disagree with the CPU's")
+    out["(e) dufo"] = {"card_ms_per_frame": ms["card"], "cpu_ms_per_frame": ms["cpu"],
+                       "share_differing": differ, "dynamic_fraction": float(card.mean())}
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 11: {out['seconds']:.1f} s")
+    return out, launched
+
+
 def main() -> int:
     import torch
 
@@ -2596,11 +3019,13 @@ def main() -> int:
     del splits, fn          # the kernels' inputs: not held through the step phases
     for name, r in check_new_patterns(model, make_batch(100)).items():
         kernels[name].update(r)
-    worst = sweep_vs_brute(ssl_batches[1])
-    print(f"sweep vs brute (full width): largest difference over its tolerance "
-          f"{worst:.3f}")
-    if not worst <= 1.0:
-        raise SystemExit("the sweep and the brute search disagree below the radius")
+    for what, args in (("", (ssl_batches[1],)), (" (skewed clouds)", (None, " (skewed)"))):
+        worst, share = sweep_vs_brute(*args)
+        print(f"sweep vs brute (full width){what}: largest difference over its "
+              f"tolerance {worst:.3f}; same neighbour on {share:.6f} of the rows whose "
+              f"neighbour lies below ring*cell")
+        if not (worst <= 1.0 and share == 1.0):
+            raise SystemExit("the sweep and the brute search disagree below the radius")
 
     no_ssl = {"segment_sum_lanes": 0, "cell_sweep": 0, "chamfer_brute": 0}
     metrics, tables, device_ms, eval_launches = run_main_path(model, batches)
@@ -2684,6 +3109,7 @@ def main() -> int:
             raise SystemExit(f"card and CPU disagree on {what}")
 
     dp = run_data_parallel(model, train_batches)
+    surface, surface_launches = run_last_surface(batches, train_batches, ssl_batches)
 
     sources = {"segment_sum": ("deflow_tpu_torch/csrc/segment_sum.cu",
                                "deflow_tpu/ops/pallas_scatter.py:211"),
@@ -2725,12 +3151,14 @@ def main() -> int:
              "device_eval_launches": rest["(d) eval without host prep"]["launches"][name],
              "dp_launches_per_rank": [sum(r[run]["launches"][name] for run in DP_RUNS)
                                       for r in dp["ranks"]],
+             "last_surface_launches": {k: v[name] for k, v in surface_launches.items()},
              **kernels[name]}
             for name, (src, rep) in sources.items()]
     print(json.dumps({"rest_of_model": {
         k: ({kk: vv for kk, vv in v.items() if kk != "launches"} if isinstance(v, dict)
             else v) for k, v in rest.items()}}))
     print(json.dumps({"data_parallel": {k: v for k, v in dp.items() if k != "ranks"}}))
+    print(json.dumps({"last_surface": surface}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

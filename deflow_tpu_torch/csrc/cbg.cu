@@ -17,9 +17,10 @@
 // roll-based taps and polynomial erf are Mosaic workarounds and are not
 // carried over: image borders are zero by masking on load, and GELU uses erff.
 //
-// Bound on the H100: at 2B = 4, 256²x64→64 and 128²x128→128 each cost
-// 19.3 GFLOP per forward (two such products per backward) against 67 MB
-// (256²) and 34 MB (128²) of activations: operations and bytes are about even.
+// Bound on the H100: at 2B = 4, 256²x64→64, 128²x128→128 and 64²x256→256
+// each cost 19.3 GFLOP per forward (two such products per backward) against
+// 67 MB (256²), 34 MB (128²) and 17 MB (64²) of activations: operations and
+// bytes are about even at 256², operations bound the narrower maps.
 //
 // Design.  All products are 16x16 tiles: on bf16 tensor cores (WMMA in the
 // backward, mma.sync with ldmatrix operands in the forward), FFMA on f32
@@ -33,7 +34,11 @@
 // every 64 pixels (~151 M element loads at both path widths) and run the
 // input's BN+GELU on each input row three times, so a block owns R image
 // rows of one sample (4 at <= 64 input channels in bf16, 2 at 128, 1 in f32)
-// x 64 pixels x all O (<= 128) output channels.  Its window (rows y0-1 ..
+// x 64 pixels x one slice of up to CHUNK = 128 output channels (all O up to
+// 128; at 256 output channels a second row of blocks takes the second
+// slice).  Input channels beyond 128 stream through the window in chunks of
+// 128: the window holds one chunk at a time, and the accumulators carry
+// over the chunks.  Its window (rows y0-1 ..
 // y0+R, pixels x0-1 .. x0+64) and its weights arrive by 16-byte cp.async
 // copies, all in flight at once; the BN+GELU then runs in place once per
 // window element (each input row in 1.5-2 windows), from scalars a thread
@@ -59,9 +64,12 @@
 //   hold all 9 taps' accumulators, so xa and ds are read about once per
 //   tile pair (xa 1.5 times: the halo rows).
 // - dgrad: a block owns 2 image rows (4 at <= 64 input channels) x 64
-//   pixels, so each staged tap of weights serves 2-4x the pixels; at <= 64
+//   pixels x one slice of up to 128 input channels (a second row of blocks
+//   at 256), so each staged tap of weights serves 2-4x the pixels; at <= 64
 //   channels all 9 taps stay in shared memory, at 128 the next tap is copied
-//   with cp.async under the current tap's products.  Each ds row lands in
+//   with cp.async under the current tap's products.  Output channels beyond
+//   128 stream through the ds window in chunks of 128, as the forward's
+//   input channels do.  Each ds row lands in
 //   1.5-2 windows, not 3; the window's BN backward reads its scalars from
 //   shared memory and moves 16 bytes a load and store, as does the epilogue.
 // The dgrad writes ds (and xa when the input had a BN) once for the wgrad.
@@ -82,7 +90,8 @@ constexpr int TP = 64;                   // output pixels per block (one row seg
 constexpr int WIN = TP + 2;              // window pixels per row
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
-constexpr int MAXC = 128;
+constexpr int MAXC = 256;
+constexpr int CHUNK = 128;               // channels of a window chunk and of a block's slice
 constexpr float SQRT1_2 = 0.7071067811865476f;
 constexpr float SQRT1_2PI = 0.3989422804014327f;
 
@@ -95,6 +104,7 @@ __device__ __forceinline__ float gelu_grad(float x) {
 
 __host__ __device__ inline int r16(int v) { return (v + 15) / 16 * 16; }
 __host__ __device__ inline int r64(int v) { return (v + 63) / 64 * 64; }
+__host__ __device__ inline int chunk16(int v) { return r16(v) < CHUNK ? r16(v) : CHUNK; }
 __host__ inline size_t align256(size_t v) { return (v + 255) & ~(size_t)255; }
 
 // ---------------------------------------------------------------- wgrad
@@ -270,15 +280,17 @@ __global__ void wgrad_reduce(const float* __restrict__ part, int slabs, int c, i
 }
 
 // ---------------------------------------------------------------- dgrad
-// A block owns R image rows of one sample x one 64-pixel segment and all C
-// output channels.  Its window holds ds for rows y0-1 .. y0+R and pixels
-// x0-1 .. x0+64 (the BN backward applied once per element, from the BN
-// scalars staged in shared memory, with 16-byte loads); its weights are all
-// 9 taps when they fit beside the window (64 channels in bf16), else one tap
-// at a time, the next one copied with cp.async while the current one's
-// products run (double-buffered in bf16).  Warp (pw, cw) owns pixel tile pw
-// of each of the R rows and c tiles cw, cw + 2, ...: per 16-deep step R A and
-// up to NC B fragments feed R x NC products.
+// A block owns R image rows of one sample x one 64-pixel segment x one slice
+// of up to CHUNK output channels c (blockIdx.y).  Its window holds ds for
+// rows y0-1 .. y0+R and pixels x0-1 .. x0+64 and one chunk of up to CHUNK
+// channels o (the BN backward applied once per element, from the BN scalars
+// staged in shared memory, with 16-byte loads); the chunks follow one
+// another through the window, the accumulators carrying over.  Its weights
+// are all 9 taps when they fit beside the window (64 channels in bf16, one
+// chunk), else one tap at a time, the next one copied with cp.async while the
+// current one's products run (double-buffered in bf16).  Warp (pw, cw) owns
+// pixel tile pw of each of the R rows and c tiles cw, cw + 2, ... of the
+// slice: per 16-deep step R A and up to NC B fragments feed R x NC products.
 constexpr int SMEM_MAX = 232448;          // dynamic shared memory of one H100 block
 
 struct DgLayout {
@@ -287,26 +299,29 @@ struct DgLayout {
 };
 
 // Shared memory of the dgrad kernel: BN scalars [6][O16] and [6][C16] f32;
-// the window [R + 2][WIN][O16 + 16]; weights [9 or NBUF][C16][O16 + 8]; the
-// f32 epilogue staging 2 x [R * TP][C16 + 4] reuses the window and weights.
+// the window [R + 2][WIN][OK + 16]; weights [9 or NBUF][CS][OK + 8]; the
+// f32 epilogue staging 2 x [R * TP][CS + 4] reuses the window and weights
+// (OK: the o chunk, CS: the c slice, each min(16-rounded width, CHUNK)).
 template <typename T, int R>
 __host__ __device__ inline DgLayout dg_layout(int c, int o) {
   constexpr int NBUF = sizeof(T) == 2 ? 2 : 1;
-  const int c16 = r16(c), o16 = r16(o), sz = (int)sizeof(T);
+  const int c16 = r16(c), o16 = r16(o), cs = chunk16(c), ok = chunk16(o);
+  const int sz = (int)sizeof(T);
   const int scal = (6 * (c16 + o16) * 4 + 127) / 128 * 128;
-  const int win = ((R + 2) * WIN * (o16 + 16) * sz + 127) / 128 * 128;
-  const int tap = c16 * (o16 + 8) * sz;
-  const int stage = 2 * R * TP * (c16 + 4) * 4;
+  const int win = ((R + 2) * WIN * (ok + 16) * sz + 127) / 128 * 128;
+  const int tap = cs * (ok + 8) * sz;
+  const int stage = 2 * R * TP * (cs + 4) * 4;
   DgLayout L;
   L.win = scal;
   L.w = scal + win;
-  L.resident = scal + (win + 9 * tap > stage ? win + 9 * tap : stage) <= SMEM_MAX;
+  L.resident = o16 <= CHUNK &&
+               scal + (win + 9 * tap > stage ? win + 9 * tap : stage) <= SMEM_MAX;
   const int body = win + (L.resident ? 9 : NBUF) * tap;
   L.total = scal + (body > stage ? body : stage);
   return L;
 }
 
-// Rows per dgrad block: 4 when C <= 64 (bf16), else 2; 1 in f32.
+// Rows per dgrad block: 4 when C <= 64 (bf16), else 2 (128 and 256); 1 in f32.
 inline int dg_rows(int c, int esz) { return esz == 4 ? 1 : (r16(c) <= 64 ? 4 : 2); }
 
 // V consecutive elements from global memory: one 16-byte load with vec,
@@ -374,34 +389,38 @@ cbg_dgrad_kernel(const T* __restrict__ dz, const T* __restrict__ si,
   constexpr int V = 16 / sizeof(T), NC = R >= 4 ? 2 : 4, NBUF = sizeof(T) == 2 ? 2 : 1;
   extern __shared__ __align__(128) unsigned char smem[];
   const DgLayout L = dg_layout<T, R>(c, o);
-  const int c16 = r16(c), o16 = r16(o), ldw = o16 + 16, ldo = o16 + 8, lds = c16 + 4;
+  const int c16 = r16(c), o16 = r16(o), cs = chunk16(c), ok = chunk16(o);
+  const int ldw = ok + 16, ldo = ok + 8, lds = cs + 4;
   float* s_in = (float*)smem;                  // scal_in  [6][O16]
   float* s_out = s_in + 6 * o16;               // scal_out [6][C16]
   T* win = (T*)(smem + L.win);
   T* s_w = (T*)(smem + L.w);
   float* stage = (float*)(smem + L.win);       // d [R * TP][lds], after the products
   float* stage2 = stage + R * TP * lds;        // d · ẑ_prev
-  const int tap_elems = c16 * ldo;
+  const int tap_elems = cs * ldo;
   const int segs = (w + TP - 1) / TP, grps = (h + R - 1) / R;
   const int blk = blockIdx.x;
   const int seg = blk % segs, grp = (blk / segs) % grps, b = blk / (segs * grps);
   const int x0 = seg * TP, y0 = grp * R;
   const int np = w - x0 < TP ? w - x0 : TP, nr = h - y0 < R ? h - y0 : R;
+  const int c0 = blockIdx.y * CHUNK;           // this block's slice of c
+  const bool first = blockIdx.y == 0;          // the slice that writes ds and db
   const size_t row0 = (size_t)b * h;
   const T zero = from_f<T>(0.f);
 
-  auto load_tap = [&](int tap, T* dst) {
-    const int chunks = o16 / V;
-    for (int i = threadIdx.x; i < c16 * chunks; i += THREADS) {
+  // weights of one tap for the slice's c and the o chunk from o0
+  auto load_tap = [&](int tap, int o0, T* dst) {
+    const int chunks = ok / V;
+    for (int i = threadIdx.x; i < cs * chunks; i += THREADS) {
       const int ci = i / chunks, oi = (i % chunks) * V;
-      const bool ok = ci < c && oi < o;
-      const T* src = ok ? wmat + ((size_t)tap * c + ci) * o + oi : wmat;
+      const bool in = c0 + ci < c && o0 + oi < o;
+      const T* src = in ? wmat + ((size_t)tap * c + c0 + ci) * o + o0 + oi : wmat;
       T* d = dst + ci * ldo + oi;
       if (vec) {
-        cp_async16(d, src, ok);
+        cp_async16(d, src, in);
       } else {
 #pragma unroll
-        for (int q = 0; q < V; ++q) d[q] = ok && oi + q < o ? src[q] : zero;
+        for (int q = 0; q < V; ++q) d[q] = in && o0 + oi + q < o ? src[q] : zero;
       }
     }
   };
@@ -416,80 +435,88 @@ cbg_dgrad_kernel(const T* __restrict__ dz, const T* __restrict__ si,
       s_out[i] = ci < c ? scal_out[k * c + ci] : 0.f;
     }
   }
-  if (L.resident) {
-    for (int tap = 0; tap < 9; ++tap) load_tap(tap, s_w + tap * tap_elems);
-  } else if (NBUF == 2) {
-    load_tap(0, s_w);
-  }
-  cp_async_commit();
-  __syncthreads();
 
-  // ds = γ·istd·(dz − A − ẑ·B) on the window, once per element; the centre
-  // rows are also this block's share of ds for the wgrad kernel
-  const int och = o16 / V;
-  for (int i = threadIdx.x; i < (R + 2) * WIN * och; i += THREADS) {
-    const int k = i % och, j = (i / och) % WIN, r = i / (och * WIN);
-    const int yy = y0 + r - 1, xx = x0 + j - 1, oi = k * V;
-    alignas(16) T v[V];
-    if (yy >= 0 && yy < h && xx >= 0 && xx < w && oi < o) {
-      const size_t e = ((row0 + yy) * w + xx) * o + oi;
-      alignas(16) T dv[V], sv[V];
-      ld_vec(dv, dz + e, o - oi, vec);
-      ld_vec(sv, si + e, o - oi, vec);
-#pragma unroll
-      for (int q = 0; q < V; ++q) {
-        const float* sc = s_in + oi + q;
-        const float zh = (to_f(sv[q]) - sc[S_MEAN * o16]) * sc[S_ISTD * o16];
-        v[q] = from_f<T>(sc[S_GAMMA * o16] * sc[S_ISTD * o16]
-                         * (to_f(dv[q]) - sc[S_A * o16] - zh * sc[S_B * o16]));
-      }
-      if (r >= 1 && r <= R && j >= 1 && j <= TP) st_vec(ds_out + e, v, o - oi, vec);
-    } else {
-#pragma unroll
-      for (int q = 0; q < V; ++q) v[q] = zero;
-    }
-    st_vec(win + (r * WIN + j) * ldw + oi, v, V, true);
-  }
-  __syncthreads();
-  for (int oi = threadIdx.x; oi < o; oi += THREADS) {
-    float s1 = 0.f;
-    for (int r = 1; r <= nr; ++r)
-      for (int p = 0; p < np; ++p) s1 += to_f(win[(r * WIN + 1 + p) * ldw + oi]);
-    db_part[(size_t)blk * o + oi] = s1;
-  }
-
-  // dx[p][c] = Σ_tap Σ_o win[r + 2 - ky][p + 2 - kx][o] · W[ky][kx][c][o]
-  const int warp = threadIdx.x / 32, pw = warp % 4, cw = warp / 4, ct_n = c16 / 16;
+  const int warp = threadIdx.x / 32, pw = warp % 4, cw = warp / 4, ct_n = cs / 16;
   Acc<T> acc[R][NC];
 #pragma unroll
   for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int j = 0; j < NC; ++j) acc[r][j].zero();
-  for (int tap = 0; tap < 9; ++tap) {
-    const T* wt = s_w;
+
+  for (int o0 = 0; o0 < o; o0 += CHUNK) {
+    // the previous chunk's products ended with a barrier: the window and the
+    // weights are free
     if (L.resident) {
-      wt += tap * tap_elems;
-      cp_async_wait<0>();
+      for (int tap = 0; tap < 9; ++tap) load_tap(tap, o0, s_w + tap * tap_elems);
     } else if (NBUF == 2) {
-      if (tap + 1 < 9) {
-        load_tap(tap + 1, s_w + ((tap + 1) & 1) * tap_elems);
-        cp_async_commit();
-        cp_async_wait<1>();
+      load_tap(0, o0, s_w);
+    }
+    cp_async_commit();
+    __syncthreads();
+
+    // ds = γ·istd·(dz − A − ẑ·B) on the window, once per element; the centre
+    // rows are also this block's share of ds for the wgrad kernel
+    const int och = ok / V;
+    for (int i = threadIdx.x; i < (R + 2) * WIN * och; i += THREADS) {
+      const int k = i % och, j = (i / och) % WIN, r = i / (och * WIN);
+      const int yy = y0 + r - 1, xx = x0 + j - 1, oi = o0 + k * V;
+      alignas(16) T v[V];
+      if (yy >= 0 && yy < h && xx >= 0 && xx < w && oi < o) {
+        const size_t e = ((row0 + yy) * w + xx) * o + oi;
+        alignas(16) T dv[V], sv[V];
+        ld_vec(dv, dz + e, o - oi, vec);
+        ld_vec(sv, si + e, o - oi, vec);
+#pragma unroll
+        for (int q = 0; q < V; ++q) {
+          const float* sc = s_in + oi + q;
+          const float zh = (to_f(sv[q]) - sc[S_MEAN * o16]) * sc[S_ISTD * o16];
+          v[q] = from_f<T>(sc[S_GAMMA * o16] * sc[S_ISTD * o16]
+                           * (to_f(dv[q]) - sc[S_A * o16] - zh * sc[S_B * o16]));
+        }
+        if (first && r >= 1 && r <= R && j >= 1 && j <= TP) st_vec(ds_out + e, v, o - oi, vec);
       } else {
-        cp_async_wait<0>();
+#pragma unroll
+        for (int q = 0; q < V; ++q) v[q] = zero;
       }
-      wt += (tap & 1) * tap_elems;
-    } else {
-      load_tap(tap, s_w);
-      cp_async_commit();
-      cp_async_wait<0>();
+      st_vec(win + (r * WIN + j) * ldw + k * V, v, V, true);
     }
     __syncthreads();
-    const int ky = tap / 3, kx = tap % 3;
-    const T* a0 = win + ((2 - ky) * WIN + pw * 16 + 2 - kx) * ldw;
-    for (int kk = 0; kk < o16 / 16; ++kk)
-      dg_step<T, R, NC>(acc, a0 + kk * 16, ldw, wt + kk * 16, ldo, cw, ct_n);
-    __syncthreads();
+    if (first) {
+      for (int oi = threadIdx.x; oi < ok && o0 + oi < o; oi += THREADS) {
+        float s1 = 0.f;
+        for (int r = 1; r <= nr; ++r)
+          for (int p = 0; p < np; ++p) s1 += to_f(win[(r * WIN + 1 + p) * ldw + oi]);
+        db_part[(size_t)blk * o + o0 + oi] = s1;
+      }
+    }
+
+    // dx[p][c] += Σ_tap Σ_o win[r + 2 - ky][p + 2 - kx][o] · W[ky][kx][c][o]
+    for (int tap = 0; tap < 9; ++tap) {
+      const T* wt = s_w;
+      if (L.resident) {
+        wt += tap * tap_elems;
+        cp_async_wait<0>();
+      } else if (NBUF == 2) {
+        if (tap + 1 < 9) {
+          load_tap(tap + 1, o0, s_w + ((tap + 1) & 1) * tap_elems);
+          cp_async_commit();
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        wt += (tap & 1) * tap_elems;
+      } else {
+        load_tap(tap, o0, s_w);
+        cp_async_commit();
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const int ky = tap / 3, kx = tap % 3;
+      const T* a0 = win + ((2 - ky) * WIN + pw * 16 + 2 - kx) * ldw;
+      for (int kk = 0; kk < ok / 16; ++kk)
+        dg_step<T, R, NC>(acc, a0 + kk * 16, ldw, wt + kk * 16, ldo, cw, ct_n);
+      __syncthreads();
+    }
   }
 #pragma unroll
   for (int r = 0; r < R; ++r)
@@ -501,12 +528,12 @@ cbg_dgrad_kernel(const T* __restrict__ dz, const T* __restrict__ si,
 
   // dz_prev = dx · gelu'(z_prev) and xa = gelu(z_prev) when the input had a
   // BN, in f32; the column sums of the block in fixed order
-  const int cch = c16 / V;
+  const int cch = cs / V;
   for (int i = threadIdx.x; i < nr * np * cch; i += THREADS) {
-    const int k = i % cch, pp = i / cch, p = pp % np, r = pp / np, ci = k * V;
+    const int k = i % cch, pp = i / cch, p = pp % np, r = pp / np, cl = k * V, ci = c0 + cl;
     if (ci >= c) continue;
-    float* st = stage + (r * TP + p) * lds + ci;
-    float* st2 = stage2 + (r * TP + p) * lds + ci;
+    float* st = stage + (r * TP + p) * lds + cl;
+    float* st2 = stage2 + (r * TP + p) * lds + cl;
     const size_t e = ((row0 + y0 + r) * w + x0 + p) * c + ci;
     alignas(16) T dv[V];
     if (scal_out) {
@@ -531,17 +558,17 @@ cbg_dgrad_kernel(const T* __restrict__ dz, const T* __restrict__ si,
     st_vec(dzp + e, dv, c - ci, vec);
   }
   __syncthreads();
-  for (int ci = threadIdx.x; ci < c; ci += THREADS) {
+  for (int cl = threadIdx.x; cl < cs && c0 + cl < c; cl += THREADS) {
     float s1 = 0.f, s2 = 0.f;
     if (scal_out) {
       for (int r = 0; r < nr; ++r)
         for (int p = 0; p < np; ++p) {
-          s1 += stage[(r * TP + p) * lds + ci];
-          s2 += stage2[(r * TP + p) * lds + ci];
+          s1 += stage[(r * TP + p) * lds + cl];
+          s2 += stage2[(r * TP + p) * lds + cl];
         }
     }
-    psp[((size_t)blk * 2) * c + ci] = s1;
-    psp[((size_t)blk * 2 + 1) * c + ci] = s2;
+    psp[((size_t)blk * 2) * c + c0 + cl] = s1;
+    psp[((size_t)blk * 2 + 1) * c + c0 + cl] = s2;
   }
 }
 
@@ -556,7 +583,8 @@ cudaError_t launch_dgrad(const T* dz, const T* si, const T* sp, const T* wmat,
   cudaError_t e = cudaFuncSetAttribute(cbg_dgrad_kernel<T, R>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
   if (e != cudaSuccess) return e;
-  cbg_dgrad_kernel<T, R><<<blocks, THREADS, L.total, st>>>(
+  const dim3 grid(blocks, (c + CHUNK - 1) / CHUNK);
+  cbg_dgrad_kernel<T, R><<<grid, THREADS, L.total, st>>>(
       dz, si, sp, wmat, scal_in, scal_out, h, w, c, o, vec, dzp, ds, xa, db_part, psp);
   return cudaGetLastError();
 }
@@ -594,9 +622,11 @@ BwdScratch bwd_layout(int bsz, int h, int w, int c, int o, int esz) {
 
 // ---------------------------------------------------------------- forward
 // A block owns R = fw_rows() image rows of one sample x one 64-pixel segment
-// and all O output channels.  Warp (pw, ow) owns pixel tile pw of each of
-// the R rows and o tiles ow, ow + 2, ...: per 16-deep step R A and up to NC
-// B fragments feed R x NC products.
+// x one slice of up to CHUNK output channels (blockIdx.y).  Warp (pw, ow)
+// owns pixel tile pw of each of the R rows and o tiles ow, ow + 2, ... of
+// the slice: per 16-deep step R A and up to NC B fragments feed R x NC
+// products.  The input channels pass through the window in chunks of up to
+// CHUNK, the accumulators carrying over.
 struct FwLayout {
   int w, total;                           // byte offset of the weights (the window is at 0); the size
   int nbuf;                               // taps of weights held: 2 (double-buffered) or 1
@@ -608,21 +638,22 @@ __host__ __device__ inline int fw_bytes(int win, int tap, int stage, int nbuf) {
   return win + nbuf * tap > stage ? win + nbuf * tap : stage;
 }
 
-// Shared memory of the forward kernel: the window [R + 2][WIN][C16 + 8]
+// Shared memory of the forward kernel: the window [R + 2][WIN][CK + 8]
 // (a pixel stride of 16 bytes more than the channels: ldmatrix reads its 8
-// rows from 8 distinct bank groups), then the weights [nbuf][C16][O16 + 8].
-// After the products the f32 staging [R * TP][O16 + 4], then the column
+// rows from 8 distinct bank groups), then the weights [nbuf][CK][OS + 8]
+// (CK: the c chunk, OS: the o slice, each min(16-rounded width, CHUNK)).
+// After the products the f32 staging [R * TP][OS + 4], then the column
 // sums' partials (<= 16 KB), reuse both.  Two taps of weights are held
 // (the next copied under the current one's products) when that keeps two
 // blocks an SM, so that one block's loads and BN+GELU run under the other's
-// products: 76 KB at 64 channels; else one tap (107 KB at 128 channels,
-// still two blocks an SM).
+// products: 76 KB at 64 channels; else one tap (107 KB at 128 and 256
+// channels, still two blocks an SM).
 template <typename T, int R>
 __host__ __device__ inline FwLayout fw_layout(int c, int o) {
-  const int c16 = r16(c), o16 = r16(o), sz = (int)sizeof(T);
-  const int win = ((R + 2) * WIN * (c16 + 8) * sz + 127) / 128 * 128;
-  const int tap = c16 * (o16 + 8) * sz;
-  const int stage = R * TP * (o16 + 4) * 4;
+  const int ck = chunk16(c), os = chunk16(o), sz = (int)sizeof(T);
+  const int win = ((R + 2) * WIN * (ck + 8) * sz + 127) / 128 * 128;
+  const int tap = ck * (os + 8) * sz;
+  const int stage = R * TP * (os + 4) * 4;
   FwLayout L;
   L.w = win;
   L.nbuf = fw_bytes(win, tap, stage, 2) <= SMEM_HALF ? 2 : 1;
@@ -630,7 +661,7 @@ __host__ __device__ inline FwLayout fw_layout(int c, int o) {
   return L;
 }
 
-// Rows per forward block: 4 when C <= 64 (bf16), else 2; 1 in f32.
+// Rows per forward block: 4 when C <= 64 (bf16), else 2 (128 and 256); 1 in f32.
 inline int fw_rows(int c, int esz) { return esz == 4 ? 1 : (r16(c) <= 64 ? 4 : 2); }
 
 // A 16x16 f32 tile of bf16 products by mma.sync m16n8k16, its operands
@@ -715,7 +746,7 @@ __device__ __forceinline__ void fw_step(FwAcc<T> (&acc)[R][NC], const T* a, int 
 }
 
 // Two blocks an SM cap a thread at 128 registers, enough for the path's
-// R x NC = 8 tiles a warp (64 -> 64 and 128 -> 128 channels).
+// R x NC = 8 tiles a warp (64 -> 64, and a 128-wide slice at 128 and 256).
 template <typename T, int R, int NC>
 __global__ void __launch_bounds__(THREADS, 2)
 cbg_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wmat,
@@ -724,118 +755,123 @@ cbg_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wmat,
   constexpr int V = 16 / sizeof(T);
   extern __shared__ __align__(128) unsigned char smem[];
   const FwLayout L = fw_layout<T, R>(c, o);
-  const int c16 = r16(c), o16 = r16(o), ldw = c16 + 8, ldo = o16 + 8, lds = o16 + 4;
+  const int ck = chunk16(c), os = chunk16(o), ldw = ck + 8, ldo = os + 8, lds = os + 4;
   T* win = (T*)smem;
   T* s_w = (T*)(smem + L.w);
   float* stage = (float*)smem;                 // [R * TP][lds], after the products
-  const int tap_elems = c16 * ldo;
+  const int tap_elems = ck * ldo;
   const int segs = (w + TP - 1) / TP, grps = (h + R - 1) / R;
   const int blk = blockIdx.x, tid = threadIdx.x;
   const int seg = blk % segs, grp = (blk / segs) % grps, b = blk / (segs * grps);
   const int x0 = seg * TP, y0 = grp * R;
   const int np = w - x0 < TP ? w - x0 : TP, nr = h - y0 < R ? h - y0 : R;
+  const int o0 = blockIdx.y * CHUNK;           // this block's slice of o
   const size_t row0 = (size_t)b * h;
   const T zero = from_f<T>(0.f);
 
-  auto load_tap = [&](int tap, T* dst) {
-    const int chunks = o16 / V;
-    for (int i = threadIdx.x; i < c16 * chunks; i += THREADS) {
+  // weights of one tap for the c chunk from c0 and the slice's o
+  auto load_tap = [&](int tap, int c0, T* dst) {
+    const int chunks = os / V;
+    for (int i = threadIdx.x; i < ck * chunks; i += THREADS) {
       const int ci = i / chunks, oi = (i % chunks) * V;
-      const bool ok = ci < c && oi < o;
-      const T* src = ok ? wmat + ((size_t)tap * c + ci) * o + oi : wmat;
+      const bool ok = c0 + ci < c && o0 + oi < o;
+      const T* src = ok ? wmat + ((size_t)tap * c + c0 + ci) * o + o0 + oi : wmat;
       T* d = dst + ci * ldo + oi;
       if (vec) {
         cp_async16(d, src, ok);
       } else {
 #pragma unroll
-        for (int q = 0; q < V; ++q) d[q] = ok && oi + q < o ? src[q] : zero;
+        for (int q = 0; q < V; ++q) d[q] = ok && o0 + oi + q < o ? src[q] : zero;
       }
     }
   };
 
-  // the raw window, zero outside the image and the channels; then the
-  // weights, whose copy may still run under the BN+GELU pass
-  const int cch = c16 / V, nwin = (R + 2) * WIN * cch;
-  for (int i = tid; i < nwin; i += THREADS) {
-    const int k = i % cch, j = (i / cch) % WIN, r = i / (cch * WIN);
-    const int yy = y0 + r - 1, xx = x0 + j - 1, ci = k * V;
-    const bool ok = yy >= 0 && yy < h && xx >= 0 && xx < w && ci < c;
-    const T* src = ok ? x + ((row0 + yy) * w + xx) * c + ci : x;
-    T* dst = win + (r * WIN + j) * ldw + ci;
-    if (vec) {
-      cp_async16(dst, src, ok);
-    } else {
-#pragma unroll
-      for (int q = 0; q < V; ++q) dst[q] = ok && ci + q < c ? src[q] : zero;
-    }
-  }
-  cp_async_commit();
-  load_tap(0, s_w);
-  cp_async_commit();
-  cp_async_wait<1>();
-  __syncthreads();
-
-  // u = gelu(bn(x)) in place on the window's pixels inside the image, once
-  // per element.  A thread keeps to one chunk of V channels and holds their
-  // BN scalars in registers (zero beyond C, so that u stays 0 there).
-  if (scal) {
-    const int used = THREADS / cch * cch;
-    if (tid < used) {
-      const int ci = tid % cch * V;
-      float sc[4][V];
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-#pragma unroll
-        for (int q = 0; q < V; ++q) sc[k][q] = ci + q < c ? scal[k * c + ci + q] : 0.f;
-      for (int i = tid; i < nwin; i += used) {
-        const int j = (i / cch) % WIN, r = i / (cch * WIN);
-        const int yy = y0 + r - 1, xx = x0 + j - 1;
-        if (yy < 0 || yy >= h || xx < 0 || xx >= w) continue;
-        uint4* p = reinterpret_cast<uint4*>(win + (r * WIN + j) * ldw + ci);
-        alignas(16) T v[V];
-        *reinterpret_cast<uint4*>(v) = *p;
-#pragma unroll
-        for (int q = 0; q < V; ++q)
-          v[q] = from_f<T>(gelu((to_f(v[q]) - sc[S_MEAN][q]) * sc[S_ISTD][q] * sc[S_GAMMA][q]
-                                + sc[S_BETA][q]));
-        *p = *reinterpret_cast<const uint4*>(v);
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // s[p][o] = Σ_tap Σ_c win[r + ky][p + kx][c] · W[ky][kx][c][o]
-  const int warp = tid / 32, pw = warp % 4, ow = warp / 4, ot_n = o16 / 16;
+  const int warp = tid / 32, pw = warp % 4, ow = warp / 4, ot_n = os / 16;
   FwAcc<T> acc[R][NC];
 #pragma unroll
   for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int j = 0; j < NC; ++j) acc[r][j].zero();
-  for (int tap = 0; tap < 9; ++tap) {
-    const T* wt = s_w;
-    if (L.nbuf == 2) {
-      if (tap + 1 < 9) {
-        load_tap(tap + 1, s_w + ((tap + 1) & 1) * tap_elems);
-        cp_async_commit();
-        cp_async_wait<1>();
+
+  const int cch = ck / V, nwin = (R + 2) * WIN * cch;
+  for (int c0 = 0; c0 < c; c0 += CHUNK) {
+    // (the previous chunk's products ended with a barrier) the raw window of
+    // this chunk, zero outside the image and the channels; then the weights,
+    // whose copy may still run under the BN+GELU pass
+    for (int i = tid; i < nwin; i += THREADS) {
+      const int k = i % cch, j = (i / cch) % WIN, r = i / (cch * WIN);
+      const int yy = y0 + r - 1, xx = x0 + j - 1, ci = c0 + k * V;
+      const bool ok = yy >= 0 && yy < h && xx >= 0 && xx < w && ci < c;
+      const T* src = ok ? x + ((row0 + yy) * w + xx) * c + ci : x;
+      T* dst = win + (r * WIN + j) * ldw + k * V;
+      if (vec) {
+        cp_async16(dst, src, ok);
       } else {
+#pragma unroll
+        for (int q = 0; q < V; ++q) dst[q] = ok && ci + q < c ? src[q] : zero;
+      }
+    }
+    cp_async_commit();
+    load_tap(0, c0, s_w);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    // u = gelu(bn(x)) in place on the window's pixels inside the image, once
+    // per element.  A thread keeps to one chunk of V channels and holds their
+    // BN scalars in registers (zero beyond C, so that u stays 0 there).
+    if (scal) {
+      const int used = THREADS / cch * cch;
+      if (tid < used) {
+        const int ci = c0 + tid % cch * V;
+        float sc[4][V];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+#pragma unroll
+          for (int q = 0; q < V; ++q) sc[k][q] = ci + q < c ? scal[k * c + ci + q] : 0.f;
+        for (int i = tid; i < nwin; i += used) {
+          const int j = (i / cch) % WIN, r = i / (cch * WIN);
+          const int yy = y0 + r - 1, xx = x0 + j - 1;
+          if (yy < 0 || yy >= h || xx < 0 || xx >= w) continue;
+          uint4* p = reinterpret_cast<uint4*>(win + (r * WIN + j) * ldw + (ci - c0));
+          alignas(16) T v[V];
+          *reinterpret_cast<uint4*>(v) = *p;
+#pragma unroll
+          for (int q = 0; q < V; ++q)
+            v[q] = from_f<T>(gelu((to_f(v[q]) - sc[S_MEAN][q]) * sc[S_ISTD][q] * sc[S_GAMMA][q]
+                                  + sc[S_BETA][q]));
+          *p = *reinterpret_cast<const uint4*>(v);
+        }
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+
+    // s[p][o] += Σ_tap Σ_c win[r + ky][p + kx][c] · W[ky][kx][c][o]
+    for (int tap = 0; tap < 9; ++tap) {
+      const T* wt = s_w;
+      if (L.nbuf == 2) {
+        if (tap + 1 < 9) {
+          load_tap(tap + 1, c0, s_w + ((tap + 1) & 1) * tap_elems);
+          cp_async_commit();
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        wt += (tap & 1) * tap_elems;
+      } else if (tap > 0) {
+        load_tap(tap, c0, s_w);
+        cp_async_commit();
         cp_async_wait<0>();
       }
-      wt += (tap & 1) * tap_elems;
-    } else if (tap > 0) {
-      load_tap(tap, s_w);
-      cp_async_commit();
-      cp_async_wait<0>();
+      __syncthreads();
+      const int ky = tap / 3, kx = tap % 3;
+      const T* a0 = win + (ky * WIN + pw * 16 + kx) * ldw;
+      for (int kk = 0; kk < ck / 16; ++kk)
+        fw_step<T, R, NC>(acc, a0 + kk * 16, ldw, wt + kk * 16 * ldo, ldo, ow, ot_n);
+      __syncthreads();
     }
-    __syncthreads();
-    const int ky = tap / 3, kx = tap % 3;
-    const T* a0 = win + (ky * WIN + pw * 16 + kx) * ldw;
-    for (int kk = 0; kk < c16 / 16; ++kk)
-      fw_step<T, R, NC>(acc, a0 + kk * 16, ldw, wt + kk * 16 * ldo, ldo, ow, ot_n);
-    __syncthreads();
   }
-  __syncthreads();
 #pragma unroll
   for (int r = 0; r < R; ++r)
 #pragma unroll
@@ -847,16 +883,16 @@ cbg_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wmat,
   // s = acc + bias, rounded to T, 16 bytes a store.  A thread keeps to one
   // chunk of V output channels and sums the rounded s and s² over its pixels
   // (in ascending order); the threads' partials are then combined in thread
-  // order, one [2, O] row per block.
-  const int och = o16 / V, oused = THREADS / och * och, parts = oused / och;
-  const int oi = tid % och * V;
+  // order, one [2, O] row per block (this block's slice of it).
+  const int och = os / V, oused = THREADS / och * och, parts = oused / och;
+  const int oi = tid % och * V, og = o0 + oi;
   float s1[V], s2[V];
 #pragma unroll
   for (int q = 0; q < V; ++q) s1[q] = s2[q] = 0.f;
   if (tid < oused) {
     float bv[V];
 #pragma unroll
-    for (int q = 0; q < V; ++q) bv[q] = oi + q < o ? to_f(bias[oi + q]) : 0.f;
+    for (int q = 0; q < V; ++q) bv[q] = og + q < o ? to_f(bias[og + q]) : 0.f;
     for (int i = tid; i < nr * np * och; i += oused) {
       const int pp = i / och, p = pp % np, r = pp / np;
       const float* st = stage + (r * TP + p) * lds + oi;
@@ -872,28 +908,28 @@ cbg_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wmat,
         s1[q] += u;
         s2[q] += u * u;
       }
-      if (oi < o) st_vec(s + ((row0 + y0 + r) * w + x0 + p) * o + oi, v, o - oi, vec);
+      if (og < o) st_vec(s + ((row0 + y0 + r) * w + x0 + p) * o + og, v, o - og, vec);
     }
   }
   __syncthreads();
-  float* red = stage;                          // [2][parts][O16]: Σs, then Σs²
+  float* red = stage;                          // [2][parts][OS]: Σs, then Σs²
   if (tid < oused) {
     const int part = tid / och;
 #pragma unroll
     for (int q = 0; q < V; ++q) {
-      red[part * o16 + oi + q] = s1[q];
-      red[(parts + part) * o16 + oi + q] = s2[q];
+      red[part * os + oi + q] = s1[q];
+      red[(parts + part) * os + oi + q] = s2[q];
     }
   }
   __syncthreads();
-  for (int oc = tid; oc < o; oc += THREADS) {
+  for (int oc = tid; oc < os && o0 + oc < o; oc += THREADS) {
     float t1 = 0.f, t2 = 0.f;
     for (int k = 0; k < parts; ++k) {
-      t1 += red[k * o16 + oc];
-      t2 += red[(parts + k) * o16 + oc];
+      t1 += red[k * os + oc];
+      t2 += red[(parts + k) * os + oc];
     }
-    ps[((size_t)blk * 2) * o + oc] = t1;
-    ps[((size_t)blk * 2 + 1) * o + oc] = t2;
+    ps[((size_t)blk * 2) * o + o0 + oc] = t1;
+    ps[((size_t)blk * 2 + 1) * o + o0 + oc] = t2;
   }
 }
 
@@ -906,16 +942,17 @@ cudaError_t launch_fwd(const T* x, const T* wmat, const T* bias, const float* sc
   cudaError_t e = cudaFuncSetAttribute(cbg_fwd_kernel<T, R, NC>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
   if (e != cudaSuccess) return e;
-  cbg_fwd_kernel<T, R, NC><<<blocks, THREADS, L.total, st>>>(x, wmat, bias, scal, h, w, c, o,
-                                                              vec, s, ps);
+  const dim3 grid(blocks, (o + CHUNK - 1) / CHUNK);
+  cbg_fwd_kernel<T, R, NC><<<grid, THREADS, L.total, st>>>(x, wmat, bias, scal, h, w, c, o,
+                                                            vec, s, ps);
   return cudaGetLastError();
 }
 
-// NC: o tiles per warp, 2 up to 64 output channels, else 4.
+// NC: o tiles per warp, 2 up to 64 output channels, else 4 (a slice of 128).
 template <typename T, int R>
 cudaError_t launch_fwd_nc(const T* x, const T* wmat, const T* bias, const float* scal, int bsz,
                           int h, int w, int c, int o, int vec, T* s, float* ps, cudaStream_t st) {
-  if (r16(o) <= 64) return launch_fwd<T, R, 2>(x, wmat, bias, scal, bsz, h, w, c, o, vec, s, ps, st);
+  if (chunk16(o) <= 64) return launch_fwd<T, R, 2>(x, wmat, bias, scal, bsz, h, w, c, o, vec, s, ps, st);
   return launch_fwd<T, R, 4>(x, wmat, bias, scal, bsz, h, w, c, o, vec, s, ps, st);
 }
 
@@ -1001,7 +1038,7 @@ long long cbg_bwd_scratch_bytes(int bsz, int h, int w, int c, int o, int is_bf16
 
 // x [B, H, W, C], wmat [3, 3, C, O], bias [O] in the compute dtype; scal
 // [6, C] f32 (mean, istd, gamma, beta, -, -) or null; s [B, H, W, O];
-// ps [cbg_fwd_blocks, 2, O] f32.  C, O <= 128.
+// ps [cbg_fwd_blocks, 2, O] f32.  C, O <= 256.
 int cbg_fwd(const void* x, const void* wmat, const void* bias, const void* scal, int bsz,
             int h, int w, int c, int o, void* s, void* ps, int is_bf16, void* stream) {
   if (!shapes_ok(c, o)) return (int)cudaErrorInvalidValue;
@@ -1029,3 +1066,4 @@ int cbg_bwd(const void* dz, const void* si, const void* sp, const void* wmat,
 }
 
 }  // extern "C"
+

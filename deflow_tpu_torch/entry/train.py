@@ -52,6 +52,7 @@ from deflow_tpu_torch.device import resolve_device
 from deflow_tpu_torch.entry.evaluate import _sorted_prep, run_validation
 from deflow_tpu_torch.losses import SSL_LOSS_REGISTRY
 from deflow_tpu_torch.models import build_model
+from deflow_tpu_torch.ops.chamfer import NNSpec, _dyn_cap_for
 from deflow_tpu_torch.trainer import (SSL_TRAIN_KEYS, TRAIN_KEYS, BestCheckpointKeeper,
                                       TrainState, device_prefetch, init_train_state,
                                       load_checkpoint, load_weights, make_eval_step,
@@ -60,30 +61,22 @@ from deflow_tpu_torch.utils.logger import MetricLogger
 from deflow_tpu_torch.utils.timer import StageTimer
 
 
-def _dyn_cap_for(dyn_cap: Optional[int], n: int) -> int:
-    """The compacted f-term budget of ``n`` rows (``deflow_tpu/ops/
-    chamfer.py:655`` ``_dyn_cap_for``): no compaction (``n``) by default."""
-    return n if dyn_cap is None else min(dyn_cap, n)
-
-
 class DynCapMonitor:
-    """Host-side check of every SSL batch against an explicit compacted
-    f-term budget (``dyn_cap``): points beyond it would lose their
+    """Host-side check of every SSL batch against the compacted f-term
+    budget (``NNSpec.dyn_cap``): points beyond it lose their
     dynamic-chamfer gradient, so a denser DUFO labeling than expected warns,
-    once for each new running maximum.  With no budget (the default) the
-    cap is N and the monitor never warns.
+    once for each new running maximum.
 
-    The JAX package also reads the budget from ``DEFLOW_SSL_DYNCAP``.  The
-    port's ``seflow_loss`` never compacts (``NNSpec.dyn_cap`` is not
-    ported), so that override raises here instead of warning about a budget
-    that does not exist."""
+    ``dyn_cap`` resolves as the JAX package's monitor does: the argument,
+    else a non-zero ``DEFLOW_SSL_DYNCAP``, else no budget (the cap is N and
+    the monitor never warns).  ``DEFLOW_SSL_DYNCAP=0`` therefore means no
+    override here, and no compaction in ``seflow_loss``."""
 
     def __init__(self, dyn_cap: Optional[int] = None):
-        env_cap = os.environ.get("DEFLOW_SSL_DYNCAP")
-        if dyn_cap is None and env_cap is not None and int(env_cap):
-            raise NotImplementedError(
-                f"DEFLOW_SSL_DYNCAP={env_cap}: the port's seflow_loss does not "
-                "compact the dynamic terms (NNSpec.dyn_cap is not ported); unset it")
+        if dyn_cap is None:
+            env_cap = os.environ.get("DEFLOW_SSL_DYNCAP")
+            if env_cap is not None and int(env_cap):
+                dyn_cap = int(env_cap)
         self.dyn_cap = dyn_cap
         self._warned_max = 0
         self.seen_max = 0
@@ -95,7 +88,8 @@ class DynCapMonitor:
             if dufo is None or mask is None:
                 continue
             counts = np.sum(np.asarray(mask) & (np.asarray(dufo) > 0), axis=-1)
-            cap = _dyn_cap_for(self.dyn_cap, int(np.asarray(mask).shape[-1]))
+            cap = _dyn_cap_for(NNSpec(method="grid", dyn_cap=self.dyn_cap),
+                               int(np.asarray(mask).shape[-1]))
             m = int(counts.max())
             self.seen_max = max(self.seen_max, m)
             if m > cap and m > self._warned_max:
@@ -103,16 +97,16 @@ class DynCapMonitor:
                 warnings.warn(
                     f"dufo_label{side}: up to {m} dynamic points per sample exceed "
                     f"the SSL dyn_cap budget ({cap}); the extra points lose their "
-                    "dynamic-chamfer gradient (forward loss unaffected). Raise the "
-                    "budget or re-check the DUFO label density.")
+                    "dynamic-chamfer gradient (forward loss unaffected). Raise "
+                    "NNSpec.dyn_cap / seflow_loss(dyn_cap=) or re-check the DUFO "
+                    "label density (ops.chamfer.dyn_cap_overflow_stats).")
 
 
 def check_supported(cfg) -> None:
     """Raise for what the port does not run, instead of doing something
     else: a ``num_devices`` other than the ranks the launcher started
-    (``-1``, or 0, takes them all), the dyn_cap override."""
+    (``-1``, or 0, takes them all)."""
     check_num_devices(cfg, dist.world())
-    DynCapMonitor()
 
 
 @dataclass

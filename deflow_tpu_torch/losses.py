@@ -20,6 +20,7 @@ batch, and the step sums the gradients over ranks.
 
 from __future__ import annotations
 
+import os
 import warnings
 from typing import Callable, Dict, Optional
 
@@ -101,7 +102,8 @@ def _samples_mean(terms: torch.Tensor) -> torch.Tensor:
 
 
 def seflow_loss(out: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
-                truncate: float = 2.0, chamfer_method: str = "auto") -> torch.Tensor:
+                truncate: float = 2.0, chamfer_method: str = "auto",
+                dyn_cap: Optional[int] = None) -> torch.Tensor:
     """SeFlow self-supervised loss (arXiv:2407.01702 §IV), needing no gt flow:
     the mean over samples of
       1. the truncated chamfer between pc0 warped by the total flow
@@ -118,7 +120,13 @@ def seflow_loss(out: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
     Under a process group the chamfer stays on each rank's own samples,
     with no collective inside (the JAX package's ``shard_map`` branch), and
     the sum of the sample terms is divided by the global sample count: this
-    rank's share of the mean.  ``NNSpec.dyn_cap`` is not ported."""
+    rank's share of the mean.
+
+    ``dyn_cap`` (the grid branch): the row budget of the dynamic terms'
+    backward (``NNSpec.dyn_cap``); None reads ``DEFLOW_SSL_DYNCAP``, where
+    0 means no compaction, and without it there is none.  Dynamic points
+    past the budget lose their dynamic-chamfer gradient; the loss does not
+    change."""
     net = out["flow"]
     total = out["pose_flow"] + net
     pc0, pc1 = batch["pc0"], batch["pc1"]
@@ -131,7 +139,12 @@ def seflow_loss(out: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
     use_grid = (chamfer_method == "grid"
                 or (chamfer_method == "auto" and n * m > _chamfer._AUTO_GRID_PAIRS))
     if dufo0 is not None and dufo1 is not None and use_grid:
+        env_cap = os.environ.get("DEFLOW_SSL_DYNCAP")
+        if dyn_cap is None and env_cap is not None:
+            dyn_cap = int(env_cap) or n
         spec = _chamfer._resolve_spec("grid", n, m, truncate, None)
+        if dyn_cap is not None:
+            spec = spec._replace(dyn_cap=int(dyn_cap))
         dyn0 = m0 & (dufo0 > 0)
         dyn1 = m1 & (dufo1 > 0)
         host_c1 = None

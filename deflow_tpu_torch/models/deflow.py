@@ -7,7 +7,10 @@ linear or the MMHead transformer).  With the fully sorted host prep
 record and every per-point array and output is in ascending pillar-id
 order; without it (``host_prep=None``, or no ``pc*_sorted_rec``) the points
 are binned and sorted on the device and the outputs stay in the batch's
-point order.  ``num_frames > 2`` adds ``num_frames − 2`` history frames
+point order.  ``model.embedder.scatter_mode = "max"`` (no config key, as in
+the JAX package) takes each pillar's max in place of its mean; a
+host-sorted batch then skips the sorted record and computes the centroids
+on the device over the host's ids.  ``num_frames > 2`` adds ``num_frames − 2`` history frames
 (``history``: each ``{"pc", "mask", "pose"}``), each compensated into pc1's
 frame and embedded on the device path by the same embedder; a Linear
 ``history_fuse`` maps each pillar's [pc0 | history …] features back to C
@@ -95,7 +98,15 @@ class DeFlow(nn.Module):
             tpc0 = transform_points(pc0.float(), pose)
         pose_flow = torch.where(pc0_mask[..., None], tpc0 - pc0.float(), 0.0)
 
-        if hosted:
+        if hosted and self.embedder.scatter_mode == "max":
+            # the max scatter has no sorted-record shortcut: the centroids
+            # and features run on the card over the host's ids
+            tab0, info0, _ = self.embedder.embed_points(tpc0, pc0_mask, dt,
+                                                        ids=host_prep["pc0_ids"])
+            tab1, info1, _ = self.embedder.embed_points(pc1.float(), pc1_mask, dt,
+                                                        ids=host_prep["pc1_ids"])
+            plan0 = None
+        elif hosted:
             tab0 = self.embedder(host_prep["pc0_sorted_rec"],
                                  host_prep["pc0_sorted"], dt)
             tab1 = self.embedder(host_prep["pc1_sorted_rec"],

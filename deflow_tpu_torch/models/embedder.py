@@ -15,6 +15,12 @@ Counterpart of ``deflow_tpu/models/embedder.py``, by two routes.
   segment-sum in the compute dtype and a gather back to the points, then
   the same feature net and mean scatter, both through the plan.
 
+``scatter_mode="max"`` (the JAX embedder's attribute, which no config
+sets) takes each pillar's elementwise max in place of the mean
+(``pillar_max_scatter_batched``).  It runs the device path's centroids
+and feature net on either route: without the sorted record, over the
+host's ids and their presorted plan when the batch is host-sorted.
+
 Empty pillars are exact zeros.  The count lane carries no gradient (the
 JAX package's ``stop_gradient``); the feature lanes' gradient flows back
 through the scatter's backward (a gather) into ``feature_net``.  In train
@@ -34,7 +40,8 @@ from deflow_tpu_torch import dist
 from deflow_tpu_torch.models.running_stats import update_running_
 from deflow_tpu_torch.ops.voxel import (
     TRASH_PAD, PillarInfo, ScatterPlan, VoxelConfig, compute_pillar_info,
-    make_batched_scatter_plan, pillar_centroids_batched, pillar_mean_scatter_batched,
+    make_batched_scatter_plan, make_presorted_scatter_plan, pillar_centroids_batched,
+    pillar_info_from_ids, pillar_max_scatter_batched, pillar_mean_scatter_batched,
     segment_sum_batched)
 
 
@@ -90,9 +97,13 @@ class DynamicEmbedder(nn.Module):
     points [B, N, 3] + mask (``embed_points``) → pillar table [B, P, C]
     (id order) in the compute dtype."""
 
-    def __init__(self, voxel_cfg: VoxelConfig, feat_channels: int = 32):
+    def __init__(self, voxel_cfg: VoxelConfig, feat_channels: int = 32,
+                 scatter_mode: str = "avg"):
         super().__init__()
+        if scatter_mode not in ("avg", "max"):
+            raise ValueError(f"scatter_mode {scatter_mode!r}: avg or max")
         self.voxel_cfg = voxel_cfg
+        self.scatter_mode = scatter_mode
         self.feature_net = PillarFeatureNet(feat_channels)
 
     def forward(self, sorted_rec: torch.Tensor, sorted_id: torch.Tensor,
@@ -106,15 +117,24 @@ class DynamicEmbedder(nn.Module):
         return sums[:, :p, :c] / sums[:, :p, c:].detach().clamp(min=1.0)
 
     def embed_points(self, points: torch.Tensor, mask: torch.Tensor,
-                     dtype: torch.dtype):
-        """The device path: points [B, N, 3] f32 in any order + mask →
-        (pillar table [B, P, C], PillarInfo, ScatterPlan); the plan routes
-        the decoder gather's backward too."""
+                     dtype: torch.dtype, ids: "torch.Tensor | None" = None):
+        """The device path: points [B, N, 3] f32 + mask → (pillar table
+        [B, P, C], PillarInfo, ScatterPlan); the plan routes the decoder
+        gather's backward too.  Without ``ids`` the points, in any order,
+        are binned and sorted on the device; ``ids`` are the host's pillar
+        ids of a host-sorted batch (ascending within each sample), whose
+        plan needs no sort."""
         cfg = self.voxel_cfg
-        info: PillarInfo = compute_pillar_info(points, mask, cfg)
-        plan: ScatterPlan = make_batched_scatter_plan(
-            info.pillar_id, cfg.num_pillars + TRASH_PAD)
+        if ids is None:
+            info: PillarInfo = compute_pillar_info(points, mask, cfg)
+            plan: ScatterPlan = make_batched_scatter_plan(
+                info.pillar_id, cfg.num_pillars + TRASH_PAD)
+        else:
+            info = pillar_info_from_ids(points, mask, ids, cfg)
+            plan = make_presorted_scatter_plan(ids, cfg.num_pillars + TRASH_PAD)
         cluster = pillar_centroids_batched(info, plan, dtype)
         feats9 = torch.cat([info.points, cluster, info.offsets], dim=-1)
         feats = self.feature_net(feats9, info.valid, dtype)
-        return pillar_mean_scatter_batched(feats, info, cfg, plan), info, plan
+        scatter = (pillar_max_scatter_batched if self.scatter_mode == "max"
+                   else pillar_mean_scatter_batched)
+        return scatter(feats, info, cfg, plan), info, plan

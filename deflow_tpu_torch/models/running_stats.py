@@ -39,3 +39,10 @@ def update_running_(buf: torch.Tensor, batch: torch.Tensor, momentum: float) -> 
         return
     with torch.no_grad():
         buf.mul_(1 - momentum).add_(momentum * batch)
+
+
+def remat_contexts():
+    """``context_fn`` of a remat checkpoint: the forward as it is, the
+    recompute with the BN running statistics held still (they moved once,
+    in the forward)."""
+    return contextlib.nullcontext(), frozen_running_stats()

@@ -16,27 +16,50 @@ Training (``module.train()``): BN takes the batch statistics of the siamese
 2B batch (under a process group: of every rank's, the global batch) with
 flax ``BatchNorm`` semantics (fast variance E[x²] − E[x]²
 clipped at 0; running ``ra = 0.9·ra + 0.1·batch`` with the BIASED variance).
-When :func:`~deflow_tpu_torch.ops.cbg.use_fused_cbg` allows it, each of the
-256 and 128 encoder groups (stem + three 3x3 blocks) runs as one fused
-``cbg_chain``, with the stem's BN + GELU deferred into the chain's first
+The encoder has three groups, named by their map at the 512² grid: 256
+(``encoder_step_1`` stem + three 3x3 blocks, 64 channels), 128 (step 5 +
+three blocks, 128 channels) and 64 (step 9 + one block, 256 channels).
+``DEFLOW_FUSED_CBG`` picks the chain-capable groups
+(:func:`~deflow_tpu_torch.ops.cbg.fused_groups`, the JAX package's
+policy).  In training such a group runs as one fused ``cbg_chain`` when
+:func:`~deflow_tpu_torch.ops.cbg.chain_at_batch` allows it and its map is
+a multiple of 8, with the stem's BN + GELU deferred into the chain's first
 block (``StemHeadCBG`` in the JAX package); the stems' k8/s2 convolutions
-stay ``F.conv2d``.  Parameter names do not change.
+stay ``F.conv2d``.  Otherwise it runs its modules one by one as the JAX
+package's ``CBGBlock`` twins do: the variance not clipped, no remat.
+``DEFLOW_REMAT`` (``1`` or ``conv``) recomputes each other encoder
+``ConvWithNorms`` in the backward, the JAX package's ``_remat_wrap``.
+Parameter names do not change.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from deflow_tpu_torch import dist
-from deflow_tpu_torch.models.running_stats import update_running_
-from deflow_tpu_torch.ops.cbg import cbg_chain, use_fused_cbg
+from deflow_tpu_torch.models.running_stats import remat_contexts, update_running_
+from deflow_tpu_torch.ops.cbg import GROUPS, cbg_chain, chain_at_batch, fused_groups
 
 
 def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return F.conv2d(x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype),
                     conv.stride, conv.padding)
+
+
+def remat_mode() -> str:
+    """``DEFLOW_REMAT`` (``deflow_tpu/models/unet.py`` ``_remat``): ``0``
+    (default) keeps every activation; ``1`` recomputes each encoder
+    ``ConvWithNorms`` whole (conv + BN + GELU) in the backward; ``conv``
+    keeps the conv outputs and recomputes only the BN normalise + GELU."""
+    mode = os.environ.get("DEFLOW_REMAT", "0")
+    if mode not in ("0", "1", "conv"):
+        raise ValueError(f"DEFLOW_REMAT={mode!r}: 0, 1 or conv")
+    return mode
 
 
 class ConvWithNorms(nn.Module):
@@ -51,9 +74,13 @@ class ConvWithNorms(nn.Module):
         update_running_(self.batchnorm.running_mean, mean, 0.1)
         update_running_(self.batchnorm.running_var, var, 0.1)
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        y = _conv(self.conv, x, dtype).float()
-        if not (y.shape[2] == 1 and y.shape[3] == 1):
+    def norm_act(self, y: torch.Tensor, twin: bool = False) -> torch.Tensor:
+        """BN (batch statistics in training) + GELU of the conv output ``y``
+        in f32.  ``twin``: as the JAX package's ``CBGBlock`` /
+        ``StemHeadCBG`` fallback, the variance is not clipped at 0 and a
+        1x1 map is normalised too."""
+        y = y.float()
+        if twin or not (y.shape[2] == 1 and y.shape[3] == 1):
             bn = self.batchnorm
             if self.training:
                 # [Σy, Σy², n] over the global batch (summed over ranks)
@@ -62,7 +89,9 @@ class ConvWithNorms(nn.Module):
                     [y.sum((0, 2, 3)), (y * y).sum((0, 2, 3)), n]))
                 c = y.shape[1]
                 mean = tot[:c] / tot[-1]
-                var = (tot[c:2 * c] / tot[-1] - mean * mean).clamp(min=0.0)
+                var = tot[c:2 * c] / tot[-1] - mean * mean
+                if not twin:
+                    var = var.clamp(min=0.0)
                 self.update_stats(mean, var)
             else:
                 mean, var = bn.running_mean, bn.running_var
@@ -70,6 +99,23 @@ class ConvWithNorms(nn.Module):
             mul = (torch.rsqrt(var + bn.eps) * bn.weight).view(shape)
             y = (y - mean.view(shape)) * mul + bn.bias.view(shape)
         return F.gelu(y)
+
+    def _whole(self, x: torch.Tensor, dtype: torch.dtype, twin: bool) -> torch.Tensor:
+        return self.norm_act(_conv(self.conv, x, dtype), twin)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype, twin: bool = False,
+                remat: str = "0") -> torch.Tensor:
+        """``remat`` (:func:`remat_mode`) under autograd: ``1`` checkpoints
+        the whole block, ``conv`` the BN + GELU after the conv; the
+        recompute leaves the BN running statistics alone."""
+        if remat == "1":
+            return checkpoint(self._whole, x, dtype, twin, use_reentrant=False,
+                              context_fn=remat_contexts)
+        y = _conv(self.conv, x, dtype)
+        if remat == "conv":
+            return checkpoint(self.norm_act, y, twin, use_reentrant=False,
+                              context_fn=remat_contexts)
+        return self.norm_act(y, twin)
 
     def chain_params(self, dtype: torch.dtype):
         """(wmat [3, 3, C, O], bias [O] in ``dtype``; gamma, beta f32) for
@@ -108,6 +154,8 @@ class UpsampleSkip(nn.Module):
 _ENCODER = ((64, 8, 2, 3), (64, 3, 1, 1), (64, 3, 1, 1), (64, 3, 1, 1),
             (128, 8, 2, 3), (128, 3, 1, 1), (128, 3, 1, 1), (128, 3, 1, 1),
             (256, 8, 2, 3), (256, 3, 1, 1))
+# each group's encoder steps: the stem, then its 3x3 blocks
+_GROUP_STEPS = {"256": (1, 2, 3, 4), "128": (5, 6, 7, 8), "64": (9, 10)}
 
 
 class FastFlow3DUNet(nn.Module):
@@ -125,34 +173,38 @@ class FastFlow3DUNet(nn.Module):
         self.decoder_step3 = UpsampleSkip(128, 2 * stem_cin, 64)
         self.decoder_step4 = nn.Conv2d(64, 64, 3, 1, 1)
 
-    def _chain_group(self, stem: ConvWithNorms, blocks, x: torch.Tensor,
+    def _chain_group(self, stem: ConvWithNorms, blocks, s: torch.Tensor,
                      dtype: torch.dtype) -> torch.Tensor:
-        """Stem conv (cuDNN, channels-last) + one fused chain applying the
-        stem's BN + GELU and the three 3x3 blocks."""
-        s = _conv(stem.conv, x.contiguous(memory_format=torch.channels_last),
-                  dtype).permute(0, 2, 3, 1)
+        """One fused chain over the stem's conv output ``s`` (NCHW,
+        channels-last): the stem's BN + GELU, then the group's 3x3 blocks."""
         y, means, variances = cbg_chain(
-            s, [m.chain_params(dtype) for m in blocks],
+            s.permute(0, 2, 3, 1), [m.chain_params(dtype) for m in blocks],
             (stem.batchnorm.weight, stem.batchnorm.bias), stem.batchnorm.eps)
         for m, mean, var in zip([stem, *blocks], means, variances):
             m.update_stats(mean, var)
         return y.float().permute(0, 3, 1, 2)
 
     def _encode(self, x: torch.Tensor, dtype: torch.dtype):
-        stems = use_fused_cbg(x.shape[0]) if self.training else ()
-        taps, i = [], 1
-        while i <= 10:
-            if i in stems:
-                x = self._chain_group(
-                    getattr(self, f"encoder_step_{i}"),
-                    [getattr(self, f"encoder_step_{j}") for j in (i + 1, i + 2, i + 3)],
-                    x, dtype)
-                i += 4
-            else:
-                x = getattr(self, f"encoder_step_{i}")(x, dtype)
-                i += 1
-            if i - 1 in (4, 8, 10):
-                taps.append(x)
+        """The three groups' outputs (stride 2, 4, 8 feature maps)."""
+        fused = fused_groups()
+        grad = self.training and torch.is_grad_enabled()
+        remat = remat_mode() if grad else "0"
+        taps = []
+        for tag in GROUPS:
+            mods = [getattr(self, f"encoder_step_{i}") for i in _GROUP_STEPS[tag]]
+            twin = tag in fused
+            if twin and self.training and chain_at_batch(x.shape[0]):
+                s = _conv(mods[0].conv, x.contiguous(memory_format=torch.channels_last),
+                          dtype)
+                if s.shape[2] % 8 == 0 and s.shape[3] % 8 == 0:
+                    x = self._chain_group(mods[0], mods[1:], s, dtype)
+                    taps.append(x)
+                    continue
+                x = mods[0].norm_act(s, twin=True)
+                mods = mods[1:]
+            for m in mods:
+                x = m(x, dtype, twin=twin, remat="0" if twin else remat)
+            taps.append(x)
         return taps
 
     def forward(self, img0: torch.Tensor, img1: torch.Tensor,

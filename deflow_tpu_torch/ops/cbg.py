@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import os
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -43,7 +44,7 @@ from deflow_tpu_torch.ops import _build
 
 S_MEAN, S_ISTD, S_GAMMA, S_BETA, S_A, S_B = range(6)
 N_SCAL = 6
-MAX_CHANNELS = 128          # the kernels keep all channels of a block on chip
+MAX_CHANNELS = 256          # the kernels stream channels past 128 in chunks of 128
 _SQRT1_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
 
@@ -353,16 +354,34 @@ def cbg_chain(x: torch.Tensor, params: Sequence[Tuple[torch.Tensor, ...]],
     return out[0], out[1:1 + k], out[1 + k:]
 
 
-def use_fused_cbg(rows2b: int) -> Tuple[int, ...]:
-    """The first encoder steps (stems) of the groups that run as chains in
-    training at siamese batch ``rows2b``: steps 1 and 5, the 256 and 128
-    groups at the 512² grid, when :func:`chain_at_batch` allows it (the JAX
-    package's ``auto`` policy).  The 64 group has 256 channels, beyond the
-    kernels."""
-    return (1, 5) if chain_at_batch(rows2b) else ()
+GROUPS = ("256", "128", "64")      # the encoder groups, by their map at the 512² grid
+
+
+def fused_groups() -> frozenset:
+    """The encoder groups whose modules are chain-capable
+    (``pallas_cbg.use_fused_cbg``), from ``DEFLOW_FUSED_CBG``: unset or
+    ``auto`` the 256 and 128 groups; ``0`` (or empty) none; ``1`` or
+    ``all`` the 256, 128 and 64 groups; else a comma list of those tags
+    (another tag names no group, as in the JAX package).
+    A chain-capable group that does not chain (in eval, when
+    :func:`chain_at_batch` refuses or its map is not a multiple of 8) runs
+    the JAX package's ``CBGBlock`` / ``StemHeadCBG`` fallback: plain
+    convolutions with the fast variance not clipped at 0, and no remat."""
+    v = os.environ.get("DEFLOW_FUSED_CBG", "auto").strip()
+    if v in ("0", ""):
+        return frozenset()
+    if v in ("1", "all"):
+        return frozenset(GROUPS)
+    if v == "auto":
+        return frozenset(GROUPS[:2])
+    return frozenset(x.strip() for x in v.split(","))
 
 
 def chain_at_batch(rows2b: int) -> bool:
-    """The chain runs only at siamese batch 2B <= 4, where the JAX package
-    measured it faster than plain convolutions (``pallas_cbg.py:727``)."""
-    return rows2b <= 4
+    """Whether a chain-capable group chains at siamese batch ``rows2b``
+    (``pallas_cbg.chain_at_batch``): under ``auto`` only at 2B <= 4, where
+    the JAX package measured the chain faster than plain convolutions; an
+    explicit ``DEFLOW_FUSED_CBG`` always chains."""
+    if os.environ.get("DEFLOW_FUSED_CBG", "auto").strip() == "auto":
+        return rows2b <= 4
+    return True

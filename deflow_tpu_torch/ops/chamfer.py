@@ -20,9 +20,16 @@ paths the mirror term rides the gather-free 4-lane payload
 summed g-lane is added afterwards.  Each cloud's gradient is computed only
 when autograd asks for it: in SeFlow only the warped pc0 carries one.
 
+``NNSpec.dyn_cap`` compacts the dynamic (flag-only) terms' VJP to that many
+rows a sample (the flagged rows first, in their original order): the
+own-row f-term then rides the lane segment-sum as a third segment beside
+the two mirror segments.  Past the cap, the flagged rows beyond the first
+``dyn_cap`` lose their f-term gradient; the forward never changes.
+:func:`dyn_cap_overflow_stats` and :func:`grid_overflow_stats` are the
+JAX package's telemetry for sizing it and for the XLA grid's capacity.
+
 Not carried over: the XLA grid backend (``_grid_search``, with its per-cell
-capacity), the XLA brute scan, and ``NNSpec.dyn_cap`` compaction of the
-dynamic terms' VJP (only ``dyn_cap=None`` is accepted).
+capacity) and the XLA brute scan.
 """
 
 from __future__ import annotations
@@ -51,7 +58,9 @@ class NNSpec(NamedTuple):
     ``method``: ``"brute"`` (exact) or ``"grid"`` (cell sweep over
     ``cell``-metre XY cells within ``lo``..``hi``, each query searching the
     ``(2·ring+1)²`` cells around its own; exact below ``ring·cell``).
-    ``dyn_cap`` must be None: the compacted SSL backward is not ported."""
+    ``dyn_cap``: the row budget of the SeFlow VJP's dynamic terms (None: no
+    compaction, the default; flagged rows past it lose their f-term
+    gradient)."""
 
     method: str = "brute"
     cell: float = 2.0
@@ -300,12 +309,35 @@ def _any(m: torch.Tensor) -> torch.Tensor:
     return m.any(dim=-1, keepdim=True)
 
 
+def _dyn_cap_for(spec: NNSpec, n: int) -> int:
+    """The compacted f-term budget of ``n`` rows: ``spec.dyn_cap`` (at most
+    ``n``), or ``n`` (no compaction) when it is None."""
+    return n if spec.dyn_cap is None else min(spec.dyn_cap, n)
+
+
+def _compact_idx(flag: torch.Tensor, cap: int) -> torch.Tensor:
+    """[B, N] bool → [B, cap] int64 rows: the flagged rows first, in their
+    original order, then unflagged ones (whose f-term is zero).  One sort of
+    unique keys a sample (the JAX package's ``lax.sort``)."""
+    n = flag.shape[1]
+    iota = torch.arange(n, device=flag.device).expand_as(flag)
+    keys = torch.where(flag, iota, iota + n)
+    return torch.sort(keys, dim=-1).values[:, :cap] % n
+
+
+def _rows(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``x [B, N]`` at per-sample rows ``i [B, K]``."""
+    return torch.gather(x, 1, i)
+
+
 # ----------------------------------------------------------- autograd functions
 class _SSLNN(torch.autograd.Function):
     """The fused SeFlow NN set (batched): per direction ONE sweep gives the
     all-candidates and the flag-only nearest neighbours.  ``host_c1`` (lanes,
     sid, start) replaces pc1's device sort by the host's cell prep.
-    Returns (d0a, d1a, d0f, d1f, i0a, i1a, i0f, i1f)."""
+    Returns (d0a, d1a, d0f, d1f, i0a, i1a, i0f, i1f).  The backward
+    compacts the flag-only terms to ``spec.dyn_cap`` rows when that is
+    below N (``chamfer._ssl_nn_bwd``)."""
 
     @staticmethod
     def forward(ctx, pc0, pc1, mask0, mask1, flag0, flag1, spec, host_c1):
@@ -321,6 +353,7 @@ class _SSLNN(torch.autograd.Function):
         ctx.save_for_backward(pc0, pc1, mask0, mask1, flag0, flag1,
                               i0a, i1a, i0f, i1f)
         ctx.mark_non_differentiable(i0a, i1a, i0f, i1f)
+        ctx.spec = spec
         return d0a, d1a, d0f, d1f, i0a, i1a, i0f, i1f
 
     @staticmethod
@@ -328,24 +361,40 @@ class _SSLNN(torch.autograd.Function):
         pc0, pc1, m0, m1, f0, f1, i0a, i1a, i0f, i1f = ctx.saved_tensors
         ok0a, ok1a = m0 & _any(m1), m1 & _any(m0)
         ok0f, ok1f = (m0 & f0) & _any(m1 & f1), (m1 & f1) & _any(m0 & f0)
+        cap0 = _dyn_cap_for(ctx.spec, pc0.shape[1])
+        cap1 = _dyn_cap_for(ctx.spec, pc1.shape[1])
+        s0 = s1 = None
+        if cap0 < pc0.shape[1] or cap1 < pc1.shape[1]:
+            s0, s1 = _compact_idx(m0 & f0, cap0), _compact_idx(m1 & f1, cap1)
 
         def grad(pq, qp, ga, gf, ia, if_, oka, okf, gb_a, gb_f, jb_a, jb_f,
-                 okb_a, okb_f):
-            # own-row terms of this cloud + mirror terms of the other's matches
-            w = _w_term(ga, pq, qp, ia, oka) + _w_term(gf, pq, qp, if_, okf)
-            su = _scatter_lanes(torch.cat([jb_a, jb_f], 1),
-                                torch.cat([_mirror_payload(gb_a, okb_a, qp),
-                                           _mirror_payload(gb_f, okb_f, qp)], 1),
-                                pq.shape[1])
+                 okb_a, okb_f, sq, sb):
+            # own-row terms of this cloud + mirror terms of the other's
+            # matches; compacted, the own-row f-term rides the lane sum as a
+            # third segment (its fourth lane 0) at the rows sq
+            w = _w_term(ga, pq, qp, ia, oka)
+            mirror_a = _mirror_payload(gb_a, okb_a, qp)
+            if sq is None:
+                w = w + _w_term(gf, pq, qp, if_, okf)
+                ids = torch.cat([jb_a, jb_f], 1)
+                pay = torch.cat([mirror_a, _mirror_payload(gb_f, okb_f, qp)], 1)
+            else:
+                wf = _w_term(_rows(gf, sq), _take_rows(pq, sq), qp, _rows(if_, sq),
+                             _rows(okf, sq))
+                ids = torch.cat([jb_a, sq, _rows(jb_f, sb)], 1)
+                pay = torch.cat([mirror_a, F.pad(wf, (0, 1)),
+                                 _mirror_payload(_rows(gb_f, sb), _rows(okb_f, sb),
+                                                 _take_rows(qp, sb))], 1)
+            su = _scatter_lanes(ids, pay, pq.shape[1])
             return w + su[..., :3] + pq * su[..., 3:]
 
         d_pc0 = d_pc1 = None
         if ctx.needs_input_grad[0]:
             d_pc0 = grad(pc0, pc1, g0a, g0f, i0a, i0f, ok0a, ok0f,
-                         g1a, g1f, i1a, i1f, ok1a, ok1f)
+                         g1a, g1f, i1a, i1f, ok1a, ok1f, s0, s1)
         if ctx.needs_input_grad[1]:
             d_pc1 = grad(pc1, pc0, g1a, g1f, i1a, i1f, ok1a, ok1f,
-                         g0a, g0f, i0a, i0f, ok0a, ok0f)
+                         g0a, g0f, i0a, i0f, ok0a, ok0f, s1, s0)
         return d_pc0, d_pc1, None, None, None, None, None, None
 
 
@@ -422,12 +471,11 @@ def ssl_chamfer_distances(pc0, pc1, mask0, mask1, dyn0, dyn1,
     distances; the *_dyn pair restricts both queries and candidates to the
     dynamic subsets.  Grid search (one sweep per direction), exact below
     ``ring·cell >= truncate``.  ``host_c1``: optional (lanes [B,5,N], sid
-    [B,N], start [B,K+1]) from the host's ``chamfer_cell_prep`` of pc1."""
+    [B,N], start [B,K+1]) from the host's ``chamfer_cell_prep`` of pc1.
+    ``spec.dyn_cap`` compacts the dynamic terms' backward (see
+    :class:`NNSpec`)."""
     if spec is None:
         spec = _resolve_spec("grid", pc0.shape[-2], pc1.shape[-2], truncate, None)
-    if spec.dyn_cap is not None:
-        raise NotImplementedError("NNSpec.dyn_cap compaction is not ported; "
-                                  "use dyn_cap=None")
     batched = pc0.dim() == 3
     up = (lambda x: x) if batched else (lambda x: x[None])
     m0, m1 = up(mask0), up(mask1)
@@ -474,3 +522,42 @@ def truncated_chamfer_loss(pc0, pc1, mask0, mask1, truncate: float = 2.0,
     n0 = mask0.sum().clamp(min=1)
     n1 = mask1.sum().clamp(min=1)
     return d0.clamp(max=t2).sum() / n0 + d1.clamp(max=t2).sum() / n1
+
+
+def dyn_cap_overflow_stats(flags: torch.Tensor, n: Optional[int] = None,
+                           spec: Optional[NNSpec] = None):
+    """Telemetry for ``NNSpec.dyn_cap`` (``chamfer.dyn_cap_overflow_stats``):
+    ``flags [B, N]`` bool dynamic masks (``mask & (dufo > 0)``) → (the
+    largest count a sample, the cap, the share of samples above it).  A
+    sample above the cap loses the f-term gradient of its extra dynamic
+    points; the loss itself does not change."""
+    if spec is None:
+        spec = NNSpec(method="grid")
+    cap = _dyn_cap_for(spec, n or flags.shape[-1])
+    counts = flags.sum(-1)
+    return counts.max(), cap, (counts > cap).float().mean()
+
+
+def grid_overflow_stats(pts: torch.Tensor, mask: torch.Tensor,
+                        spec: Optional[NNSpec] = None, capacity: int = 128):
+    """How much a capacity-limited grid (the JAX package's XLA fallback,
+    ``capacity`` candidates a cell, its ``NNSpec.capacity`` default 128)
+    would drop on this cloud (``chamfer.grid_overflow_stats``): (dropped
+    share of the valid points, share of cells over capacity among all
+    cells, the largest cell count).  The port's cell sweep has no
+    capacity; this measures the cloud, not a search."""
+    if spec is None:
+        spec = NNSpec(method="grid")
+    if pts.dim() == 2:
+        pts, mask = pts[None], mask[None]
+    b, n, _ = pts.shape
+    gx, gy = _grid_dims(spec)
+    cells = gx * gy
+    cx, cy = _bin2d(pts.reshape(b * n, 3), spec, gx, gy)
+    sample = torch.arange(b * n, device=pts.device) // n
+    ids = torch.where(mask.reshape(-1), sample * cells + cy * gx + cx, b * cells)
+    counts = torch.bincount(ids, minlength=b * cells + 1)[:-1]
+    over = (counts - capacity).clamp(min=0)
+    total = mask.sum().clamp(min=1)
+    return (over.sum() / total, ((counts > capacity) & (counts > 0)).float().mean(),
+            counts.max())

@@ -260,6 +260,17 @@ def make_batched_scatter_plan(pillar_id: torch.Tensor,
                        flat_ids.reshape(-1).to(torch.int32), b * num_segments, b)
 
 
+def make_presorted_scatter_plan(sorted_id: torch.Tensor,
+                                num_segments: int) -> ScatterPlan:
+    """The plan of ids that already ascend within each sample (a
+    host-sorted batch; ``voxel.make_presorted_plan``): no sort, the
+    identity order."""
+    b, n = sorted_id.shape
+    flat = make_presorted_plan(sorted_id, num_segments)
+    return ScatterPlan(torch.arange(b * n, device=sorted_id.device), flat, flat,
+                       b * num_segments, b)
+
+
 def _planned_sum(rows: torch.Tensor, order: torch.Tensor, sorted_ids: torch.Tensor,
                  num_rows: int, samples: int) -> torch.Tensor:
     """[B·N, C] rows in the points' own order, permuted into the plan's
@@ -330,6 +341,34 @@ def pillar_mean_scatter_batched(feats: torch.Tensor, info: PillarInfo,
     data = torch.cat([feats, info.valid.to(feats.dtype)[..., None]], dim=-1)
     sums = segment_sum_planned(data, plan)
     return sums[:, :p, :c] / sums[:, :p, c:].detach().clamp(min=1.0)
+
+
+def pillar_max_scatter_batched(feats: torch.Tensor, info: PillarInfo,
+                               cfg: VoxelConfig, plan: ScatterPlan) -> torch.Tensor:
+    """Per-point features [B, N, C] → id-ordered pillar table [B, P, C],
+    the elementwise max over each pillar's valid points
+    (``DynamicScatter(max)``, ``voxel.pillar_max_scatter``).  Empty
+    pillars are exact zeros: invalid points enter at −3e38 (finite in
+    bf16 too) and the pillar counts, a segment-sum through ``plan``, mask
+    the pillars without a point.  The max is ``scatter_reduce("amax")``
+    (the JAX package's is XLA's ``segment_max``, no Pallas kernel); its
+    gradient goes to the point at the maximum and, on ties, in equal
+    shares to every tied point, as ``segment_max``'s does."""
+    b, n, c = feats.shape
+    p = cfg.num_pillars
+    neg = torch.full((), -3.0e38, dtype=feats.dtype, device=feats.device)
+    masked = torch.where(info.valid[..., None], feats, neg).reshape(b * n, c)
+    seg = p + TRASH_PAD
+    rows = (info.pillar_id.long()
+            + (torch.arange(b, device=feats.device) * seg)[:, None]).reshape(-1)
+    # the base is −inf (segment_max's identity): the backward of amax
+    # counts a base element equal to the result as a tie, even with
+    # include_self=False, and no finite feature equals −inf
+    maxed = masked.new_full((b * seg, c), float("-inf")).scatter_reduce(
+        0, rows[:, None].expand(-1, c), masked, "amax", include_self=False)
+    counts = segment_sum_planned(info.valid.to(feats.dtype)[..., None], plan)
+    maxed = maxed.reshape(b, seg, c)[:, :p]
+    return torch.where(counts[:, :p] > 0, maxed, 0)
 
 
 class _Gather(torch.autograd.Function):

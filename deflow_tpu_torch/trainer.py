@@ -29,7 +29,6 @@ gradient.
 
 from __future__ import annotations
 
-import contextlib
 import os
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Sequence, Tuple
@@ -45,7 +44,7 @@ from deflow_tpu_torch.data.host_prep import (CHAMFER_CELL_KEYS, HOST_PREP_KEYS,
 from deflow_tpu_torch.device import resolve_device
 from deflow_tpu_torch.losses import SSL_LOSS_REGISTRY, get_loss
 from deflow_tpu_torch.models.decoder import dropout_generator
-from deflow_tpu_torch.models.running_stats import frozen_running_stats
+from deflow_tpu_torch.models.running_stats import remat_contexts
 
 # the loader's history frames (num_frames > 2: pch1 is the frame before
 # pc0, ...), for every depth it can emit
@@ -230,13 +229,6 @@ def init_train_state(model: torch.nn.Module, cfg, device=None) -> TrainState:
     return TrainState(model, opt.build(model.parameters()), opt.clip)
 
 
-def _remat_contexts():
-    """``context_fn`` of the remat checkpoint: the forward as it is, the
-    recompute with the BN running statistics held still (they moved once,
-    in the forward)."""
-    return contextlib.nullcontext(), frozen_running_stats()
-
-
 def make_train_step(model: torch.nn.Module, loss_name: str,
                     device=None, remat: bool = False) -> Callable:
     """``train_step(state, host_or_device_batch) -> (state, aux)`` on
@@ -278,7 +270,7 @@ def make_train_step(model: torch.nn.Module, loss_name: str,
         b = device_batch(batch, dev, keys)
         state.optimizer.zero_grad(set_to_none=True)
         out = (checkpoint(forward, b, state.step, use_reentrant=False,
-                          context_fn=_remat_contexts)
+                          context_fn=remat_contexts)
                if remat else forward(b, state.step))
         if is_ssl:
             mask = out["pc0_valid"] & b["pc0_mask"]

@@ -361,13 +361,18 @@ def test_fused_gru_autograd_launches(dev):
         assert _rel_err(a.grad, w) <= GRAD_TOL[torch.float32]
 
 
-CBG_SHAPES = [  # (B, H, W, C, O): ragged row segments, C != O, 8..128 lanes
+CBG_SHAPES = [  # (B, H, W, C, O): ragged row segments, C != O, 8..256 lanes
     (1, 5, 70, 8, 64), (2, 9, 64, 64, 64), (2, 7, 33, 128, 64),
     (1, 6, 130, 64, 128), (2, 4, 16, 128, 128), (1, 3, 8, 8, 8),
     # the backward's row groups and slabs: rows not a multiple of a group,
     # a ragged 64-pixel segment, groups of several samples; C != O at 128;
     # channels that are not whole 16-byte vectors
-    (2, 9, 130, 128, 128), (3, 5, 64, 64, 128), (2, 6, 20, 12, 20)]
+    (2, 9, 130, 128, 128), (3, 5, 64, 64, 128), (2, 6, 20, 12, 20),
+    # past 128 channels: the U-Net's 64² group (2B = 4 at 8x8), two chunks
+    # of input and two slices of output channels, one of either, a ragged
+    # last chunk, and widths that are not whole vectors
+    (4, 8, 8, 256, 256), (2, 9, 70, 256, 256), (1, 5, 20, 256, 128),
+    (1, 6, 40, 128, 256), (1, 3, 24, 200, 136), (1, 4, 20, 150, 170)]
 
 
 def _cbg_inputs(g, shape, dtype, dev, head, zero=False):
@@ -517,6 +522,35 @@ def test_cbg_chain_card_vs_cpu(dev, head, b):
         # gradient in exact arithmetic: both sides hold rounding noise only
         scale = max(p[0].grad.abs().max().item() for p in ps)
         assert all(p[1].grad.abs().max().item() <= 1e-3 * scale for p in ps)
+    for k, ref in zip(leaves[str(dev)], leaves["cpu"]):
+        assert _rel_err(k.detach().cpu(), ref.detach()) <= 1e-4
+
+
+@pytest.mark.parametrize("b", [2, 16])
+def test_cbg_chain_256_card_vs_cpu(dev, b):
+    """The 64² group's chain (the stem's BN + GELU deferred into one 256 ->
+    256 block) with its VJP in f32 at siamese batch 2B = 2b: card (kernels)
+    vs CPU (plain)."""
+    from deflow_tpu_torch.ops import cbg
+
+    g = torch.Generator().manual_seed(b)
+    x = torch.randn(2 * b, 8, 8, 256, generator=g)
+    params = [(torch.randn(3, 3, 256, 256, generator=g) * (9 * 256) ** -0.5,
+               torch.randn(256, generator=g) * 0.1,
+               1 + 0.1 * torch.randn(256, generator=g),
+               0.1 * torch.randn(256, generator=g))]
+    head_gb = (1 + 0.1 * torch.randn(256, generator=g), 0.1 * torch.randn(256, generator=g))
+    tgt = torch.randn(2 * b, 8, 8, 256, generator=g)
+    leaves = {}
+    for d in ("cpu", dev):
+        leaf = lambda t: t.detach().to(d).clone().requires_grad_()
+        xs = leaf(x)
+        ps = [tuple(leaf(t) for t in p) for p in params]
+        hs = tuple(leaf(t) for t in head_gb)
+        y, means, _ = cbg.cbg_chain(xs, ps, hs)
+        ((y - tgt.to(d)) ** 2).sum().backward()
+        leaves[str(d)] = ([y, *means, xs.grad, *[t.grad for t in hs]]
+                          + [t.grad for p in ps for t in (p[0], p[2], p[3])])
     for k, ref in zip(leaves[str(dev)], leaves["cpu"]):
         assert _rel_err(k.detach().cpu(), ref.detach()) <= 1e-4
 

@@ -552,12 +552,31 @@ def test_dyn_cap_monitor_matches_jax(monkeypatch, dyn_cap):
 
 
 def test_dyncap_env_override_raises(data_root, tmp_path, monkeypatch):
-    monkeypatch.setenv("DEFLOW_SSL_DYNCAP", "0")       # 0: no override
-    TE.DynCapMonitor()
+    """``DEFLOW_SSL_DYNCAP`` as the JAX package's monitor reads it: 0 is no
+    override, a number is the budget, an explicit argument wins; the
+    monitors then warn alike, and ``check_supported`` accepts the
+    override."""
+    from deflow_tpu.entry.train import DynCapMonitor as JaxDynCapMonitor
+
+    rng = np.random.default_rng(5)
+    hb = {"pc0_mask": np.ones((2, 400), bool), "pc1_mask": np.ones((2, 400), bool),
+          "dufo_label0": (rng.random((2, 400)) < 0.3).astype(np.int32),
+          "dufo_label1": (rng.random((2, 400)) < 0.1).astype(np.int32)}
+    for env, arg in ((None, None), ("0", None), ("64", None), ("64", 500), ("0", 64)):
+        if env is None:
+            monkeypatch.delenv("DEFLOW_SSL_DYNCAP", raising=False)
+        else:
+            monkeypatch.setenv("DEFLOW_SSL_DYNCAP", env)
+        warned = []
+        for mon in (TE.DynCapMonitor(arg), JaxDynCapMonitor(arg)):
+            with warnings.catch_warnings(record=True) as rec:
+                warnings.simplefilter("always")
+                mon.check(hb)
+            warned.append((mon.dyn_cap, len(rec), mon.seen_max))
+        assert warned[0] == warned[1], (env, arg)
+        assert warned[0][1] == (1 if (env, arg) in (("64", None), ("0", 64)) else 0)
     monkeypatch.setenv("DEFLOW_SSL_DYNCAP", "64")
-    with pytest.raises(NotImplementedError, match="DEFLOW_SSL_DYNCAP"):
-        TE.main(compose("config", _overrides(data_root, str(tmp_path))), device="cpu")
-    assert TE.DynCapMonitor(dyn_cap=64).dyn_cap == 64   # explicit: no raise
+    TE.check_supported(compose("config", _overrides(data_root, str(tmp_path))))
 
 
 @pytest.mark.parametrize("override", ["num_devices=2"])

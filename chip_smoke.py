@@ -130,8 +130,28 @@ Phases (any failure exits non-zero):
    and without host prep, and its f32 small model against the CPU; (e) the
    DUFO labeller on a synthetic 20-frame drive of 98,304 points a frame,
    the card against the CPU;
+12. the reference's ablation configurations, each path at full width with
+   its launch counts held, its median and spread of 3 steady steps after
+   a warm-up, and its peak memory: (a) the leaderboard DeFlow at the 0.1 m
+   voxel (a 1024^2 grid), eval of 4 x 98,304, and (b) its deflowLoss step at
+   2 x 98,304, each with a profiled step; (c) FastFlow3D (the linear head),
+   eval, and (d) its ff3dLoss step at lr 4e-5; (e) num_iters=2; (f)
+   zeroflowLoss under AdamW, SGD and Adam with a gradient clip; (g)
+   precision fp32, eval and step; (h) ``entry.train.fit`` of FastFlow3D
+   with ff3dLoss, one epoch validated and checkpointed; the wrappers' size
+   limits as the largest batch at each grid; then the f32 checks of the
+   card against the CPU: (a) on one sample at the 1024^2 grid itself, (c),
+   and one step each of (d), (e), (f) at the small model; then the kernels
+   at the 1024^2 grid's shapes, in phase 3's style: the embedder's
+   segment-sum into 4 x 1,048,584 rows, the decoder's gather from a [4 x
+   1,048,576, 128] table and its backward, the fused blocks at 512^2x64,
+   256^2x128 and 128^2x256; last, the drift witness: one epoch of phase
+   5b's train entry (a) and phase 5's leaderboard steps again, beside
+   their first readings;
 10. a JSON line of phase 8's numbers, one of phase 9's, one of phase 11's,
-   one JSON line of kernels, the card line, and the result line.
+   one of phase 12's, one of each phase's wall seconds (also printed as
+   each phase ends), one JSON line of kernels, the card line, and the
+   result line.
 Step times are medians of the steady steps (all but the first, which warms
 cuDNN up); the eval phase also prints their mean.
 Needs one CUDA card; exits non-zero without one.
@@ -611,9 +631,7 @@ def check_kernels(model, host_batch):
     print("fused_gru by iterations: " + ", ".join(
         f"{n}: {t:.4f} ms" for n, t in sorted(by_iters.items())))
     for name, r in results.items():
-        print(f"{name} {r.get('shape', '')}: {r['ms']:.4f} ms (bound "
-              f"{r['bound_ms']:.4f} ms by {r['bound_by']}, plain {r['plain_ms']:.4f} ms, "
-              f"library {r['library_ms']:.4f} ms)")
+        print_timing(name, r)
     return results
 
 
@@ -664,16 +682,15 @@ def check_train_kernels(model, host_batch, splits: list):
     measures after every other timing of the phase: torch.profiler leaves
     host overhead on later launches."""
     import torch
-    import torch.nn.functional as F
 
-    from deflow_tpu_torch.ops import cbg, gru, voxel
+    from deflow_tpu_torch.ops import gru, voxel
     from deflow_tpu_torch.trainer import device_batch
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
     results = {}
     cfg = model.voxel_cfg
-    p, seg = cfg.num_pillars, cfg.num_pillars + voxel.TRASH_PAD
+    seg = cfg.num_pillars + voxel.TRASH_PAD
     db = device_batch(host_batch, dev)
 
     # -- the scatter's backward (voxel._SegmentSum): a row gather of the
@@ -686,15 +703,7 @@ def check_train_kernels(model, host_batch, splits: list):
     scatter_bwd = hold_gather("(the scatter's backward)",
                               torch.randn(TRAIN_B * seg, 33, generator=g, device=dev),
                               sids, TRAIN_B * seg)
-    # -- the gather's backward (voxel._Gather): a segment-sum of the [B*N,
-    # 128] per-point cotangent, invalid slots zeroed and sent to the trash row
-    info, _ = gather_ids(db, cfg, TRAIN_B)
-    gplan = voxel.make_presorted_plan(torch.where(info.valid, info.pillar_id, p), seg)
-    check_plan("(the gather's backward)", gplan, TRAIN_B * seg, TRAIN_B)
-    cot = torch.where(info.valid.reshape(-1, 1),
-                      torch.randn(TRAIN_B * N, 128, generator=g, device=dev), 0.0)
-    gather_bwd = hold_segment_sum("(the gather's backward)", cot, gplan, TRAIN_B * seg,
-                                  TRAIN_B)
+    gather_bwd = hold_gather_bwd("", db, cfg, TRAIN_B, g)
 
     # -- GRU backward: M = B*N points, the model's weights
     iters = model.head.num_iters
@@ -733,9 +742,73 @@ def check_train_kernels(model, host_batch, splits: list):
     splits.append(("fused_gru_bwd", results["fused_gru_bwd"],
                    lambda: gru.fused_gru_bwd(*args, iters)))
 
-    # -- fused blocks at the two chain widths of the siamese batch
+    # -- fused blocks at the chain widths of the siamese batch
+    for name, pair in hold_cbg(model, g, splits).items():
+        for kname, r in pair.items():
+            if name == "256":
+                results[kname] = r
+            else:
+                results[kname][f"width_{name}"] = r
+    results["sorted_gather"] = {"as_scatter_bwd": scatter_bwd}
+    results["segment_sum"] = {"as_gather_bwd": gather_bwd, "train_embedder": embedder}
+    for name, r in results.items():
+        for rr in (r, *(r.get(k) for k in ("width_128", "width_64", "as_scatter_bwd",
+                                            "as_gather_bwd", "train_embedder"))):
+            if rr and "ms" in rr:
+                print_timing(name, rr)
+    return results
+
+
+def measure_splits(splits: list) -> None:
+    """Each backward's split by the kernels it launches (``split_ms``, under
+    torch.profiler), after every other timing of its phase; empties
+    ``splits``, whose calls hold the kernels' inputs."""
+    for name, r, fn in splits:
+        r["split_ms"] = kernel_split(fn, 10)
+        print(f"{name} {r['shape']} split by kernel: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in sorted(r["split_ms"].items())))
+    splits.clear()
+
+
+def print_timing(name: str, r: dict) -> None:
+    print(f"{name} {r.get('shape', '')}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms "
+          f"by {r['bound_by']}, plain {r['plain_ms']:.4f} ms, library "
+          f"{r['library_ms']:.4f} ms)")
+
+
+def hold_gather_bwd(what: str, db, cfg, b: int, g) -> dict:
+    """The gather's backward (voxel._Gather): a segment-sum of the [b*N,
+    128] per-point cotangent, invalid slots zeroed and sent to the trash
+    row, on the ids of the device batch ``db``."""
+    import torch
+
+    from deflow_tpu_torch.ops import voxel
+
+    p, seg = cfg.num_pillars, cfg.num_pillars + voxel.TRASH_PAD
+    info, _ = gather_ids(db, cfg, b)
+    gplan = voxel.make_presorted_plan(torch.where(info.valid, info.pillar_id, p), seg)
+    check_plan(f"(the gather's backward{what})", gplan, b * seg, b)
+    cot = torch.where(info.valid.reshape(-1, 1),
+                      torch.randn(info.valid.numel(), 128, generator=g,
+                                  device=info.valid.device), 0.0)
+    return hold_segment_sum(f"(the gather's backward{what})", cot, gplan, b * seg, b)
+
+
+def hold_cbg(model, g, splits: list) -> dict:
+    """The fused conv3x3+BN+GELU forward and backward of each encoder group
+    of ``model`` ("256", "128", "64": the maps at a half, a quarter and an
+    eighth of the grid) at the siamese batch 2 x TRAIN_B, against their plain
+    versions in f32 and bf16; returns the bf16 measurements by group, and
+    appends each backward's (name, result, call) to ``splits``."""
+    import torch
+    import torch.nn.functional as F
+
+    from deflow_tpu_torch.ops import cbg
+
+    dev = torch.device("cuda")
     net = model.backbone
     hw = model.voxel_cfg.pseudoimage_hw
+    results = {}
     for (name, step, res) in (("256", 2, hw[0] // 2), ("128", 6, hw[0] // 4),
                               ("64", 10, hw[0] // 8)):
         wm, bias, gamma, beta = (t.detach() for t in
@@ -760,9 +833,9 @@ def check_train_kernels(model, host_batch, splits: list):
             kb = cbg.cbg_block_bwd(*ba)
             rb = cbg.cbg_block_bwd_plain(*ba)
             torch.cuda.synchronize()
-            ef = _hold(f"cbg_fwd {name}^2x{c}->{o}", dt,
+            ef = _hold(f"cbg_fwd {res}^2x{c}->{o}", dt,
                        [("s", kf[0], rf[0]), ("stats", kf[1].sum(0), rf[1].sum(0))])
-            eb = _hold(f"cbg_bwd {name}^2x{c}->{o}", dt,
+            eb = _hold(f"cbg_bwd {res}^2x{c}->{o}", dt,
                        [("dz_prev", kb[0], rb[0]), ("dw", kb[1], rb[1]),
                         ("db", kb[2].sum(0), rb[2].sum(0)),
                         ("stats", kb[3].sum(0), rb[3].sum(0))])
@@ -802,19 +875,7 @@ def check_train_kernels(model, host_batch, splits: list):
                  "shape": f"{shape[0]}x{res}x{res}x{c}->{o}"}
             if kname == "cbg_bwd":
                 splits.append((kname, r, fn))
-            if name == "256":
-                results[kname] = r
-            else:
-                results[kname][f"width_{name}"] = r
-    results["sorted_gather"] = {"as_scatter_bwd": scatter_bwd}
-    results["segment_sum"] = {"as_gather_bwd": gather_bwd, "train_embedder": embedder}
-    for name, r in results.items():
-        for rr in (r, *(r.get(k) for k in ("width_128", "width_64", "as_scatter_bwd",
-                                            "as_gather_bwd", "train_embedder"))):
-            if rr and "ms" in rr:
-                print(f"{name} {rr.get('shape', '')}: {rr['ms']:.4f} ms (bound "
-                      f"{rr['bound_ms']:.4f} ms by {rr['bound_by']}, plain "
-                      f"{rr['plain_ms']:.4f} ms, library {rr['library_ms']:.4f} ms)")
+            results.setdefault(name, {})[kname] = r
     return results
 
 
@@ -1352,13 +1413,14 @@ def _delta(before: dict, after: dict) -> dict:
     return {k: after[k] - before[k] for k in after}
 
 
-def traced_fit(cfg, train, val, label: str, per_step: dict) -> tuple:
+def traced_fit(cfg, train, val, label: str, per_step: dict,
+               per_val: dict = PER_VAL_BATCH) -> tuple:
     """``entry.train.fit`` with the launches of each step and each
     validation sweep, and the host prep of each batch, recorded (the
     entry's ``make_train_step``, ``run_validation``, ``_sorted_prep`` and
     ``MetricLogger.log`` wrapped); every count set to 0 just before and read
     just after.  Exits unless every step launched ``per_step`` and every
-    sweep ENTRY_VAL_BATCHES x PER_VAL_BATCH.  Returns the fit's result
+    sweep ENTRY_VAL_BATCHES x ``per_val``.  Returns the fit's result
     (with the logged records as ``logged``, the host time of each step
     call as ``step_starts`` and each step's device ms, CUDA events around
     the step call, as ``device_ms``), the launches and the host prep ms of
@@ -1421,11 +1483,11 @@ def traced_fit(cfg, train, val, label: str, per_step: dict) -> tuple:
     res.device_ms = [a.elapsed_time(b) for a, b in events]
     res.step_starts = starts
     want_step = {k: per_step.get(k, 0) for k in launches}
-    want_val = {k: PER_VAL_BATCH.get(k, 0) * ENTRY_VAL_BATCHES for k in launches}
+    want_val = {k: per_val.get(k, 0) * ENTRY_VAL_BATCHES for k in launches}
     bad = [d for d in steps if d != want_step] + [d for d in sweeps if d != want_val]
     print(f"{label}: {len(steps)} steps, {len(sweeps)} validation sweeps; launches "
           f"{launches}; per step {want_step if steps else None}, per eval batch "
-          f"{PER_VAL_BATCH if sweeps else None}")
+          f"{per_val if sweeps else None}")
     total = {k: want_step[k] * len(steps) + want_val[k] * len(sweeps) for k in launches}
     if bad or launches != total:
         raise SystemExit(f"{label} launched {bad[:2] or launches}, want {want_step} a "
@@ -1434,12 +1496,12 @@ def traced_fit(cfg, train, val, label: str, per_step: dict) -> tuple:
 
 
 def entry_numbers(label: str, res, prep_ms: list, device_median_ms: float,
-                  steps_per_epoch: int) -> None:
+                  steps_per_epoch: int) -> float:
     """The steady period between step calls (median of the gaps within an
     epoch, the first gap of the run left out), the entry steps' device ms,
     the logged frames/s, the host prep of the run's batches and the stage
     timer, beside the device step median of the same path without remat
-    (phase 5 or 6)."""
+    (phase 5 or 6).  Returns the period in ms."""
     t = np.asarray(res.step_starts)
     gaps = [t[i + 1] - t[i] for i in range(1, len(t) - 1)
             if (i + 1) % steps_per_epoch]
@@ -1456,6 +1518,7 @@ def entry_numbers(label: str, res, prep_ms: list, device_median_ms: float,
           + f"; host prep (C++, pool of {HOST_WORKERS}) median "
           f"{float(np.median(prep_ms)):.1f} ms a batch (max {max(prep_ms):.1f}); stages "
           + ", ".join(f"{k} n={n} mean {ms:.1f} ms" for k, (n, ms) in stages.items()))
+    return period
 
 
 def _state_tensors(state) -> dict:
@@ -1674,8 +1737,8 @@ def run_train_entry(device_ms: dict, train_batch) -> dict:
                 np.isfinite(full.metrics[k]) for k in
                 ("EPE_3way_mean", "Static_EPE_mean", "Dynamic_NormEPE_mean")):
             raise SystemExit("the train entry wrote other checkpoints or non-finite metrics")
-        entry_numbers("train entry (a)", full, prep_ms, device_ms["train"],
-                      ENTRY_TRAIN_STEPS)
+        period = entry_numbers("train entry (a)", full, prep_ms, device_ms["train"],
+                               ENTRY_TRAIN_STEPS)
         resumed = [traced_fit(entry_cfg(os.path.join(tmp, f"b{i}"), resume=os.path.join(
             full.run_dir, "checkpoints", "epoch_0.ckpt")), train, val,
             f"train entry (b{i}), resumed", REMAT_PER_STEP)[0] for i in (1, 2, 3)]
@@ -1700,7 +1763,7 @@ def run_train_entry(device_ms: dict, train_batch) -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return {"launches": launches, "ssl_launches": ssl_launches, "checkpoint": ckpt,
-            "memory": mem}
+            "memory": mem, "period_ms": period}
 
 
 
@@ -2019,7 +2082,7 @@ def _category(name: str) -> str:
     return "other (elementwise, cat, permute, interpolate, optimizer)"
 
 
-def profile_step(step, launched: dict) -> None:
+def profile_step(step, launched: dict) -> dict:
     """Two more steps (``step()``, its batch already on the card) under
     torch.profiler, the second read (the profiler can miss the first
     kernels it traces); device time by kernel category and name, and the
@@ -2068,21 +2131,24 @@ def profile_step(step, launched: dict) -> None:
         if launched[name] and not by_cat.get(name):
             raise SystemExit(f"profile: the path launched {name}, but its category "
                              "shows no device time")
-    return {"wall_ms": wall_ms, "busy_ms": busy, "ops": len(spans), "by_name": by_name}
+    return {"wall_ms": wall_ms, "busy_ms": busy, "ops": len(spans), "by_name": by_name,
+            "by_category": by_cat}
 
 
 def reference_check(seed: int, model_cfg=None, hosted: bool = True,
-                    scatter_mode: str = "avg") -> float:
+                    scatter_mode: str = "avg", batch=(2, 4096, 3500)) -> float:
     """Phase 7a: f32 model on a small input, card vs CPU; max |Δ pred_flow|.
-    ``model_cfg`` overrides the leaderboard model's keys (the MMHead);
-    ``hosted=False`` evaluates the raw batch (the device binning path);
-    ``scatter_mode="max"`` gives the embedder the max scatter."""
+    ``model_cfg`` overrides the small model's keys (the MMHead; the 0.1 m
+    voxel and its 1024^2 grid); ``hosted=False`` evaluates the raw batch
+    (the device binning path); ``scatter_mode="max"`` gives the embedder the
+    max scatter; ``batch`` is (samples, slots, valid slots)."""
     from deflow_tpu_torch.models import build_model
     from deflow_tpu_torch.trainer import make_eval_step
 
-    small = dict(LEADERBOARD, voxel_size=[1.6, 1.6, 6.0],
-                 grid_feature_size=[64, 64], **(model_cfg or {}))
-    hb = make_batch(seed, b=2, n=4096, valid=3500)
+    small = {**LEADERBOARD, "voxel_size": [1.6, 1.6, 6.0],
+             "grid_feature_size": [64, 64], **(model_cfg or {})}
+    b, n, valid = batch
+    hb = make_batch(seed, b=b, n=n, valid=valid)
     if hosted:
         hb, _ = held_prep(hb, small["voxel_size"])
     outs = []
@@ -2101,7 +2167,7 @@ def _zero_grad_bias(key: str) -> bool:
 
 def train_reference_check(seed: int, loss_name: str = "deflowLoss",
                           grid: bool = False, model_cfg=None,
-                          num_frames: int = 2) -> dict:
+                          num_frames: int = 2, opt=None) -> dict:
     """Phase 7b: one f32 train step of ``loss_name`` on a small input (64^2
     grid, 2 x 4,096 slots), card vs CPU; for seflowLoss with ``grid`` the
     chamfer's pair threshold is lowered so that the small clouds take the
@@ -2120,7 +2186,9 @@ def train_reference_check(seed: int, loss_name: str = "deflowLoss",
     farthest off is printed beside it.  ``model_cfg`` overrides the
     model's keys (the MMHead, whose dropout is set to 0 on both sides: the
     card's and the CPU's generators draw other masks); ``num_frames=3``
-    adds a history frame."""
+    adds a history frame; ``opt`` overrides the optimizer keys (``lr``,
+    ``optimizer``, ``gradient_clip``; Adam at LR by default), and the
+    parameters' tolerance takes its lr."""
     from deflow_tpu_torch.models import build_model
     from deflow_tpu_torch.ops import chamfer
     from deflow_tpu_torch.trainer import init_train_state, make_train_step
@@ -2141,24 +2209,29 @@ def train_reference_check(seed: int, loss_name: str = "deflowLoss",
             if hasattr(model.head, "pts_off_transformer"):
                 for layer in model.head.pts_off_transformer.layers:
                     layer.dropout = 0.0
-            state = init_train_state(model, {"lr": LR}, device=dev)
+            state = init_train_state(model, {"lr": LR, **(opt or {})}, device=dev)
             state, aux = make_train_step(model, loss_name, device=dev)(state, hb)
             auxes.append({k: float(v) for k, v in aux.items()})
             grads.append({k: p.grad.detach().cpu() for k, p in model.named_parameters()})
             states.append({k: v.detach().cpu() for k, v in model.state_dict().items()})
     finally:
         chamfer._AUTO_GRID_PAIRS = threshold
-    ratio, worst = step_ratios(auxes, grads, states)
+    ratio, worst = step_ratios(auxes, grads, states, (opt or {}).get("lr", LR))
     print(f"  {loss_name}: the parameter farthest off is an element of {worst[0]}, "
-          f"whose CPU gradient is {worst[1]:.3e} (Adam's eps 1e-8)")
+          f"whose CPU gradient is {worst[1]:.3e} (Adam's eps 1e-8); CPU grad_norm "
+          f"{auxes[1]['grad_norm']:.6f}")
+    clip = (opt or {}).get("gradient_clip", 0.0)
+    if clip and not auxes[1]["grad_norm"] > clip:
+        raise SystemExit(f"the clip {clip} does not act on a step of norm "
+                         f"{auxes[1]['grad_norm']}")
     return ratio
 
 
-def step_ratios(auxes, grads, states):
+def step_ratios(auxes, grads, states, lr: float = LR):
     """Two runs of one f32 train step (the second the reference), each
     quantity's largest difference over its tolerance (train_reference_check's
-    tolerances), and the parameter element farthest off with its reference
-    gradient."""
+    tolerances at learning rate ``lr``), and the parameter element farthest
+    off with its reference gradient."""
     ratio = {k: abs(auxes[0][k] - auxes[1][k]) / abs(auxes[1][k]) / 1e-4
              for k in ("loss", "grad_norm")}
     ratio["grad"] = ratio["param"] = 0.0
@@ -2177,9 +2250,9 @@ def step_ratios(auxes, grads, states):
         if "running" in key:
             tol = 1e-5
         elif _zero_grad_bias(key):
-            tol = 2 * LR
+            tol = 2 * lr
         else:
-            tol = 1e-6 + LR * 1e-2
+            tol = 1e-6 + lr * 1e-2
         off = (states[0][key] - ref).abs().flatten() / tol
         if off.max().item() > ratio["param"]:
             ratio["param"] = off.max().item()
@@ -2792,6 +2865,38 @@ def dufo_frames(seed: int = 9, frames: int = DUFO_FRAMES, n: int = N) -> list:
     return out
 
 
+def run_path(label: str, per: dict, items: list, run, check, out: dict,
+             launched: dict):
+    """One path of phases 11 and 12: every launch count set to 0 and the
+    peak memory reset, ``run(item)`` for each item under CUDA events with
+    ``check`` on each output, then the counts read.  Exits unless they are
+    ``per`` an item.  Puts the device ms, the median and the spread
+    (largest minus smallest) of the steady items (all but the first) and
+    the peak memory (GiB, and the memory held before the first item) into
+    ``out[label]``, the launches into ``launched[label]``; returns the
+    checks' results."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res, ms = _timed_steps(run, items, check)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = _want(per, len(items))
+    med, spread = float(np.median(ms[1:])), float(max(ms[1:]) - min(ms[1:]))
+    print(f"{label}: device ms " + ", ".join(f"{t:.3f}" for t in ms)
+          + f"; steady median {med:.3f} ms, spread {spread:.3f} ms; peak memory "
+          f"{peak:.3f} GiB ({base:.3f} held before); launches {launches} (want {want})")
+    if launches != want:
+        raise SystemExit(f"{label} did not launch every kernel as expected")
+    out[label] = {"device_ms": ms, "median_ms": med, "spread_ms": spread,
+                  "peak_gib": peak, "held_before_gib": base}
+    launched[label] = launches
+    return res
+
+
 def run_last_surface(eval_batches, train_batches, ssl_batches) -> dict:
     """Phase 11, each path at full width with its launch counts held:
     (a) the leaderboard step under DEFLOW_FUSED_CBG=all against auto, and
@@ -2808,22 +2913,9 @@ def run_last_surface(eval_batches, train_batches, ssl_batches) -> dict:
                                           init_train_state, make_eval_step, make_train_step)
 
     out, launched = {}, {}
-    t_phase = time.perf_counter()
 
     def path(label, per, items, run, check=lambda o: o):
-        torch.cuda.synchronize()
-        reset_launches()
-        res, ms = _timed_steps(run, items, check)
-        launches = read_launches()
-        want = _want(per, len(items))
-        med = float(np.median(ms[1:]))
-        print(f"{label}: device ms " + ", ".join(f"{t:.3f}" for t in ms)
-              + f"; steady median {med:.3f} ms; launches {launches} (want {want})")
-        if launches != want:
-            raise SystemExit(f"{label} did not launch every kernel as expected")
-        out[label] = {"device_ms": ms, "median_ms": med}
-        launched[label] = launches
-        return res
+        return run_path(label, per, items, run, check, out, launched)
 
     def finite(res):
         aux = {k: float(v) for k, v in res[1].items()}
@@ -2941,8 +3033,264 @@ def run_last_surface(eval_batches, train_batches, ssl_batches) -> dict:
         raise SystemExit("the DUFO labels on the card disagree with the CPU's")
     out["(e) dufo"] = {"card_ms_per_frame": ms["card"], "cpu_ms_per_frame": ms["cpu"],
                        "share_differing": differ, "dynamic_fraction": float(card.mean())}
-    out["seconds"] = time.perf_counter() - t_phase
-    print(f"phase 11: {out['seconds']:.1f} s")
+    return out, launched
+
+
+# phase 12: the reference's ablation configurations, each at full width.
+# Steps or batches a path (one warm-up, then the steady ones); the 0.1 m
+# voxel (assets/slurm/1_train.sh:74,78: the grid follows from range / voxel,
+# 1024^2); the FastFlow3D baseline (conf/model/fastflow3d.yaml, lr 4e-5 as
+# in the reference README:68); the clip of (f) at full width and on the
+# small model (below its step's norm, so that it acts); the sample of (a)'s
+# card-against-CPU check at the 1024^2 grid (samples, slots, valid slots)
+ABLATION_STEPS = 4
+FINE_VOXEL = [0.1, 0.1, 6.0]
+FINE = dict(LEADERBOARD, voxel_size=FINE_VOXEL, grid_feature_size=[1024, 1024])
+FF3D = dict(LEADERBOARD, decoder_option="linear", num_iters=0)
+FF3D_LR = 4e-5
+CLIP, SMALL_CLIP = 0.5, 0.05
+FINE_CHECK = (1, 16384, 14336)
+# the linear head launches what the MMHead does: no GRU; under remat every
+# forward kernel twice
+LINEAR_REMAT_PER_STEP = dict(REMAT_PER_STEP, fused_gru=0, fused_gru_bwd=0)
+ABLATION_OPTS = (("adamw", {"optimizer": "adamw"}), ("sgd", {"optimizer": "sgd"}),
+                 ("adam, clip", {"optimizer": "adam", "gradient_clip": CLIP}))
+
+
+def wrapper_limits(cfg: dict) -> dict:
+    """The largest batch B that the wrappers' row limits let through at the
+    grid of ``cfg``: B*(P+8) segment-sum rows, B*P rows of the decoder's
+    128-lane gather, B*(P+8) rows of the scatter's backward (a gather of
+    33 bf16 lanes)."""
+    from deflow_tpu_torch.ops.gather import gather_max_rows
+    from deflow_tpu_torch.ops.scatter import segment_sum_max_rows
+    from deflow_tpu_torch.ops.voxel import TRASH_PAD, VoxelConfig
+
+    p = VoxelConfig(tuple(cfg["voxel_size"]), tuple(cfg["point_cloud_range"])).num_pillars
+    return {"segment_sum": segment_sum_max_rows() // (p + TRASH_PAD),
+            "sorted_gather, 128 lanes": gather_max_rows(128, 2) // p,
+            "sorted_gather, 33 lanes": gather_max_rows(33, 2) // (p + TRASH_PAD)}
+
+
+def check_fine_kernels(model, eval_batch, splits: list) -> dict:
+    """Phase 12, the kernels at the 1024^2 grid's shapes against their plain
+    versions, in the style of phase 3: the embedder's segment-sum into B x
+    (1,048,576 + 8) rows of 33 lanes; the decoder's gather from the [B x
+    1,048,576, 128] table and its backward (in f32 a table of 2^31 bytes);
+    the fused blocks at 512^2x64, 256^2x128 and 128^2x256, 2B = 4.  Returns
+    the bf16 measurements by kernel, under "grid_1024"."""
+    import torch
+
+    from deflow_tpu_torch.ops import voxel
+    from deflow_tpu_torch.trainer import device_batch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(12)
+    cfg = model.voxel_cfg
+    p, seg = cfg.num_pillars, cfg.num_pillars + voxel.TRASH_PAD
+    db = device_batch(eval_batch, dev)
+    ids = voxel.make_presorted_plan(db["pc0_sorted"], seg)
+    check_plan("(embedder, 1024^2)", ids, B * seg, B)
+    res = {"segment_sum": {"embedder": hold_segment_sum(
+        "(embedder, 1024^2)", pillar_feats(ids, B * seg, g), ids, B * seg, B)}}
+    _, gids = gather_ids(db, cfg, B)
+    res["sorted_gather"] = {"decoder": hold_gather(
+        "(decoder, 1024^2)", torch.randn(B * p, 128, generator=g, device=dev), gids, B * p)}
+    res["segment_sum"]["as_gather_bwd"] = hold_gather_bwd(", 1024^2", db, cfg, B, g)
+    for name, pair in hold_cbg(model, g, splits).items():
+        for kname, r in pair.items():
+            res.setdefault(kname, {})[f"width_{name}"] = r
+    for name, rr in res.items():
+        for r in rr.values():
+            print_timing(name, r)
+    return {name: {"grid_1024": r} for name, r in res.items()}
+
+
+def drift_witness(model, train_batches, first: dict) -> dict:
+    """Phase 12's last reading: one epoch of phase 5b's train entry (a), then
+    phase 5's leaderboard steps, again after every other phase, beside their
+    first readings ``first`` ("period_ms", "train_ms"): what the phases
+    between them, and the host, left on the 512^2 paths."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_witness_")
+    try:
+        train = entry_dataset(range(700, 700 + ENTRY_TRAIN_STEPS), TRAIN_B)
+        val = entry_dataset(range(800, 800 + ENTRY_VAL_BATCHES), B)
+        res, _, prep_ms = traced_fit(entry_cfg(os.path.join(tmp, "a"), epochs=1), train, val,
+                                     "(12) witness, train entry (a)", REMAT_PER_STEP)
+        period = entry_numbers("(12) witness, train entry (a)", res, prep_ms,
+                               first["train_ms"], ENTRY_TRAIN_STEPS)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _, step_ms, launches = run_train_path(model, train_batches, label="(12) witness, train")
+    if launches != {k: v * len(train_batches) for k, v in PER_STEP.items()}:
+        raise SystemExit(f"the witness's train path launched {launches}")
+    med = float(np.median(step_ms[1:]))
+    print(f"(12) drift witness: the train entry's period {first['period_ms']:.1f} ms in "
+          f"phase 5b, {period:.1f} ms at the end; the leaderboard step's device median "
+          f"{first['train_ms']:.3f} ms in phase 5, {med:.3f} ms at the end")
+    return {"period_ms": [first["period_ms"], period], "train_ms": [first["train_ms"], med],
+            "train_step_ms": step_ms}
+
+
+def run_ablations(eval_batches, train_batches) -> tuple:
+    """Phase 12, the reference's ablation configurations that no other phase
+    runs, each at full width with its launch counts held, its device ms
+    (median and spread of the steady steps) and peak memory: (a) the
+    leaderboard DeFlow at the 0.1 m voxel (1024^2 grid), eval; (b) its
+    deflowLoss Adam step; (c) FastFlow3D (the linear head), eval; (d) its
+    ff3dLoss Adam step at lr 4e-5; (e) num_iters=2, deflowLoss; (f)
+    zeroflowLoss under AdamW, SGD and Adam with a clip; (g) precision fp32,
+    eval and deflowLoss step; (h) ``entry.train.fit`` of FastFlow3D with
+    ff3dLoss, one epoch, validated and checkpointed.  Then the f32 checks of
+    the card against the CPU: (a) at the 1024^2 grid itself, (c) and (d),
+    (e), (f) at the small 64^2 model."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from deflow_tpu_torch.models import build_model
+    from deflow_tpu_torch.trainer import (TRAIN_KEYS, device_batch, init_train_state,
+                                          make_eval_step, make_train_step)
+
+    out, launched = {}, {}
+    for what, cfg in (("512^2", LEADERBOARD), ("1024^2", FINE)):
+        lim = wrapper_limits(cfg)
+        out[f"wrapper limits, {what}"] = lim
+        print(f"(12) the wrappers' size limits at the {what} grid, as the largest batch: "
+              + ", ".join(f"{k} {v}" for k, v in lim.items()))
+
+    def finite_eval(o):
+        if not all(torch.isfinite(v).all() for v in o.values() if v.is_floating_point()):
+            raise SystemExit("an eval gave non-finite values")
+        return None
+
+    def finite_step(res):
+        aux = {k: float(v) for k, v in res[1].items()}
+        if not all(np.isfinite(v) for v in aux.values()) or not all(
+                torch.isfinite(p.grad).all() for p in res[0].model.parameters()
+                if p.grad is not None):
+            raise SystemExit(f"a step gave non-finite values {aux}")
+        return aux
+
+    def evals(label, cfg, precision, hbs, per, profile=False):
+        model = build_model(cfg, precision=precision, seed=0)
+        step = make_eval_step(model)
+        dbs = [device_batch(hb) for hb in hbs]
+        run_path(label, per, dbs, step, finite_eval, out, launched)
+        if profile:
+            prof = profile_step(lambda: step(dbs[0]), launched[label])
+            out[label]["profile"] = {k: v for k, v in prof.items() if k != "by_name"}
+        del model, step, dbs
+        torch.cuda.empty_cache()
+
+    def trains(label, cfg, precision, hbs, loss_name, opt, per, profile=False):
+        model = build_model(cfg, precision=precision, seed=0)
+        state = init_train_state(model, {"lr": LR, "optimizer": "adam", **opt})
+        step = make_train_step(model, loss_name)
+        dbs = [device_batch(hb, keys=TRAIN_KEYS) for hb in hbs]
+        auxes = run_path(label, per, dbs, lambda db: step(state, db), finite_step,
+                         out, launched)
+        out[label]["loss"] = [a["loss"] for a in auxes]
+        out[label]["grad_norm"] = [a["grad_norm"] for a in auxes]
+        print(f"{label}: loss " + ", ".join(f"{a['loss']:.6f}" for a in auxes)
+              + "; grad_norm " + ", ".join(f"{a['grad_norm']:.6f}" for a in auxes))
+        if profile:
+            prof = profile_step(lambda: step(state, dbs[0]), launched[label])
+            out[label]["profile"] = {k: v for k, v in prof.items() if k != "by_name"}
+        del model, state, step, dbs
+        torch.cuda.empty_cache()
+
+    steps = ABLATION_STEPS
+    # (a), (b): the 0.1 m voxel, host-sorted at its grid
+    fine_eval = [held_prep(make_batch(1200 + i), FINE_VOXEL)[0] for i in range(steps)]
+    fine_train = [held_prep(make_batch(1300 + i, b=TRAIN_B), FINE_VOXEL)[0]
+                  for i in range(steps)]
+    evals("(a) 1024^2 eval", FINE, "bf16", fine_eval, PER_VAL_BATCH, profile=True)
+    trains("(b) 1024^2 train, deflowLoss", FINE, "bf16", fine_train, "deflowLoss", {},
+           PER_STEP, profile=True)
+    del fine_train
+    # (c), (d): FastFlow3D
+    evals("(c) fastflow3d eval", FF3D, "bf16", eval_batches[:steps], MMHEAD_EVAL_PER_BATCH)
+    trains("(d) fastflow3d train, ff3dLoss", FF3D, "bf16", train_batches[:steps],
+           "ff3dLoss", {"lr": FF3D_LR}, MMHEAD_PER_STEP)
+    # (e) num_iters=2; (f) zeroflowLoss under each optimizer
+    trains("(e) num_iters=2 train, deflowLoss", dict(LEADERBOARD, num_iters=2), "bf16",
+           train_batches[:steps], "deflowLoss", {}, PER_STEP)
+    for what, opt in ABLATION_OPTS:
+        trains(f"(f) zeroflowLoss, {what}", LEADERBOARD, "bf16", train_batches[:steps],
+               "zeroflowLoss", opt, PER_STEP)
+    # (g) fp32 at full width
+    evals("(g) fp32 eval", LEADERBOARD, "fp32", eval_batches[:steps], PER_VAL_BATCH)
+    trains("(g) fp32 train, deflowLoss", LEADERBOARD, "fp32", train_batches[:steps],
+           "deflowLoss", {}, PER_STEP)
+
+    # (h) the train entry of FastFlow3D
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ablation_")
+    try:
+        train = entry_dataset(range(1400, 1400 + steps), TRAIN_B)
+        val = entry_dataset(range(1500, 1500 + ENTRY_VAL_BATCHES), B)
+        torch.cuda.reset_peak_memory_stats()
+        res, launches, _ = traced_fit(
+            entry_cfg(os.path.join(tmp, "h"), model="fastflow3d", loss_fn="ff3dLoss",
+                      lr=FF3D_LR, epochs=1), train, val,
+            "(h) train entry, fastflow3d, ff3dLoss", LINEAR_REMAT_PER_STEP,
+            MMHEAD_EVAL_PER_BATCH)
+        ckpts = sorted(os.listdir(os.path.join(res.run_dir, "checkpoints")))
+        keys = ("EPE_3way_mean", "Static_EPE_mean", "Dynamic_NormEPE_mean")
+        print(f"(h) train entry: {res.state.step} steps, checkpoints {ckpts}; val "
+              + ", ".join(f"{k} {res.metrics[k]:.6f}" for k in keys)
+              + "; step device ms " + ", ".join(f"{t:.3f}" for t in res.device_ms)
+              + f"; peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+        if (res.state.step != steps or ckpts != ["best.ckpt", "epoch_0.ckpt"]
+                or not all(np.isfinite(res.metrics[k]) for k in keys)
+                or not np.isfinite(res.last_aux["loss"])):
+            raise SystemExit("the FastFlow3D train entry ran other steps, wrote other "
+                             "checkpoints or gave non-finite metrics")
+        out["(h) train entry, fastflow3d"] = {
+            "device_ms": res.device_ms, "median_ms": float(np.median(res.device_ms[1:])),
+            "spread_ms": float(max(res.device_ms[1:]) - min(res.device_ms[1:])),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "metrics": {k: res.metrics[k] for k in keys}}
+        launched["(h) train entry, fastflow3d"] = launches
+        del res
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # the f32 checks, the card against the CPU
+    err = reference_check(seed=7, model_cfg={k: FINE[k] for k in ("voxel_size",
+                                                                  "grid_feature_size")},
+                          batch=FINE_CHECK)
+    print(f"(a) reference check at the 1024^2 grid (f32, {FINE_CHECK[0]} x "
+          f"{FINE_CHECK[1]:,} slots, card vs CPU): max |d pred_flow| {err:.3e} (tol 2e-4)")
+    if not err < 2e-4:
+        raise SystemExit("card and CPU disagree at the 1024^2 grid")
+    out["(a) f32 card vs cpu, 1024^2"] = err
+    linear = {"decoder_option": "linear", "num_iters": 0}
+    err = reference_check(seed=7, model_cfg=linear)
+    print(f"(c) reference check, fastflow3d eval (f32, 64x64 grid, card vs CPU): max "
+          f"|d pred_flow| {err:.3e} (tol 2e-4)")
+    if not err < 2e-4:
+        raise SystemExit("card and CPU disagree on the FastFlow3D eval")
+    out["(c) f32 card vs cpu"] = err
+    for what, kw in (("(d) fastflow3d, ff3dLoss, lr 4e-5",
+                      {"loss_name": "ff3dLoss", "model_cfg": linear, "opt": {"lr": FF3D_LR}}),
+                     ("(e) num_iters=2, deflowLoss", {"model_cfg": {"num_iters": 2}}),
+                     *((f"(f) zeroflowLoss, {w}",
+                        {"loss_name": "zeroflowLoss",
+                         "opt": dict(o, gradient_clip=SMALL_CLIP) if "gradient_clip" in o
+                         else o}) for w, o in ABLATION_OPTS)):
+        ratio = train_reference_check(7, **kw)
+        print(f"train reference check {what} (f32, 64x64 grid, 2 x 4,096 slots, one step, "
+              "card vs CPU): largest difference over its tolerance: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in ratio.items()))
+        if not all(v <= 1.0 for v in ratio.values()):
+            raise SystemExit(f"card and CPU disagree on {what}")
+        out[f"{what}, f32 card vs cpu"] = ratio
     return out, launched
 
 
@@ -2963,6 +3311,13 @@ def main() -> int:
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
+    walls, t_lap = {}, [time.perf_counter()]
+
+    def lap(what: str) -> None:
+        now = time.perf_counter()
+        walls[what] = now - t_lap[0]
+        t_lap[0] = now
+        print(f"wall: {what} {walls[what]:.1f} s")
 
     t0 = time.perf_counter()
     logs = _build.build_all(force=True)
@@ -2978,6 +3333,7 @@ def main() -> int:
         print(f"host prep {path}: numpy {row['numpy']:.1f} ms, C++ 1 thread "
               f"{row['cxx_1_thread']:.1f} ms, C++ pool of {HOST_WORKERS} "
               f"{row['cxx_pool']:.1f} ms per batch (median of 3)")
+    lap("2 build, host prep")
 
     model = build_model(LEADERBOARD, precision="bf16", seed=0)
 
@@ -2997,6 +3353,7 @@ def main() -> int:
                        TRAIN_B, dufo=True)
     brute_batches = prep("ssl 2 x 16,384", range(400, 400 + BRUTE_STEPS), TRAIN_B,
                          n=BRUTE_N, valid=BRUTE_VALID, dufo=True)
+    lap("2 batches")
 
     kernels = check_kernels(model, batches[0])
     splits = []
@@ -3012,11 +3369,8 @@ def main() -> int:
               f"{r['points_per_occupied_row']['max']}; {r['ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_ms'] / r['ms']:.0%}), plain "
               f"{r['plain_ms']:.4f} ms, index_add_ {r['library_ms']:.4f} ms")
-    for name, r, fn in splits:
-        r["split_ms"] = kernel_split(fn, 10)
-        print(f"{name} {r['shape']} split by kernel: " + ", ".join(
-            f"{k} {v:.4f} ms" for k, v in sorted(r["split_ms"].items())))
-    del splits, fn          # the kernels' inputs: not held through the step phases
+    measure_splits(splits)
+    lap("3 kernels")
     for name, r in check_new_patterns(model, make_batch(100)).items():
         kernels[name].update(r)
     for what, args in (("", (ssl_batches[1],)), (" (skewed clouds)", (None, " (skewed)"))):
@@ -3026,6 +3380,7 @@ def main() -> int:
               f"neighbour lies below ring*cell")
         if not (worst <= 1.0 and share == 1.0):
             raise SystemExit("the sweep and the brute search disagree below the radius")
+    lap("3b, sweep against brute")
 
     no_ssl = {"segment_sum_lanes": 0, "cell_sweep": 0, "chamfer_brute": 0}
     metrics, tables, device_ms, eval_launches = run_main_path(model, batches)
@@ -3045,7 +3400,9 @@ def main() -> int:
     if not all(np.isfinite(metrics[k]) for k in ("EPE_3way_mean", "Static_EPE_mean",
                                                    "Dynamic_NormEPE_mean")):
         raise SystemExit("the 3-way or bucketed EPE is not finite")
+    lap("4 eval")
     entry_launches = run_entry_phase(model, med)
+    lap("4b eval entry")
 
     runs = {}
     for label, loss_name, bts, extra in (
@@ -3063,10 +3420,13 @@ def main() -> int:
               + f"; steady median {med:.3f} ms = {TRAIN_B / med * 1e3:.2f} pairs/s; "
               f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         runs[label] = (launches, len(bts), med)
+    lap("5-6 train, ssl")
 
     entry = run_train_entry({"train": runs["train"][2], "ssl": runs["ssl"][2]},
                             train_batches[0])
+    lap("5b train entry")
     rest = run_rest_of_model(model, batches, train_batches)
+    lap("8 rest of the model")
 
     ref_err = reference_check(seed=7)
     print(f"reference check (f32, 64x64 grid, card vs CPU): max |d pred_flow| "
@@ -3108,8 +3468,23 @@ def main() -> int:
         if not all(ratio[k] <= 1.0 for k in held):
             raise SystemExit(f"card and CPU disagree on {what}")
 
+    lap("7 reference checks")
     dp = run_data_parallel(model, train_batches)
+    lap("9 data parallelism")
     surface, surface_launches = run_last_surface(batches, train_batches, ssl_batches)
+    lap("11 last surface")
+    ablations, ablation_launches = run_ablations(batches, train_batches)
+    lap("12 ablation paths")
+    fine_model = build_model(FINE, precision="bf16", seed=0)
+    fine_batch, _ = held_prep(make_batch(1100), FINE_VOXEL)
+    for name, r in check_fine_kernels(fine_model, fine_batch, splits).items():
+        kernels[name].update(r)
+    del fine_model, fine_batch
+    measure_splits(splits)
+    lap("12 kernels at 1024^2")
+    ablations["drift witness"] = drift_witness(
+        model, train_batches, {"period_ms": entry["period_ms"], "train_ms": runs["train"][2]})
+    lap("12 drift witness")
 
     sources = {"segment_sum": ("deflow_tpu_torch/csrc/segment_sum.cu",
                                "deflow_tpu/ops/pallas_scatter.py:211"),
@@ -3152,6 +3527,7 @@ def main() -> int:
              "dp_launches_per_rank": [sum(r[run]["launches"][name] for run in DP_RUNS)
                                       for r in dp["ranks"]],
              "last_surface_launches": {k: v[name] for k, v in surface_launches.items()},
+             "ablation_launches": {k: v[name] for k, v in ablation_launches.items()},
              **kernels[name]}
             for name, (src, rep) in sources.items()]
     print(json.dumps({"rest_of_model": {
@@ -3159,6 +3535,8 @@ def main() -> int:
             else v) for k, v in rest.items()}}))
     print(json.dumps({"data_parallel": {k: v for k, v in dp.items() if k != "ranks"}}))
     print(json.dumps({"last_surface": surface}))
+    print(json.dumps({"ablations": ablations}))
+    print(json.dumps({"phase_seconds": walls}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

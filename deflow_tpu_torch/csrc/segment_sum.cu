@@ -186,13 +186,16 @@ __device__ void write_tile(Smem& sm, const T* __restrict__ feats, const int* __r
   // the tile (feats and out are 16-byte aligned)
   const bool whole_vectors = cols % G == 0;
   const int r0 = tl.r0, r1 = tl.r1, np = max(p1 - p0, 0);
-  // the tile's output bytes [o_lo, o_hi) of out, held in `tile` from the
-  // 16-byte boundary at or below o_lo
-  const unsigned o_lo = (unsigned)r0 * cols * sizeof(T), o_hi = (unsigned)r1 * cols * sizeof(T);
-  const unsigned o_base = o_lo & ~15u;
-  T* tile_out = reinterpret_cast<T*>(sm.tile + (o_lo - o_base));     // row r0's first element
+  // the tile's output bytes [o_lo, o_hi), counted from `base`, the 16-byte
+  // boundary of out at or below row r0 (a 64-bit address: the table may
+  // pass 2^31 bytes), and held in `tile` from there
+  const size_t r0_byte = (size_t)r0 * cols * sizeof(T);
+  unsigned char* base = reinterpret_cast<unsigned char*>(out) + (r0_byte & ~(size_t)15);
+  const unsigned o_lo = (unsigned)(r0_byte & 15);
+  const unsigned o_hi = o_lo + (unsigned)(r1 - r0) * cols * sizeof(T);
+  T* tile_out = reinterpret_cast<T*>(sm.tile + o_lo);               // row r0's first element
   for (int r = wt; r < r1 - r0; r += WORKERS) sm.run_begin[r] = sm.run_end[r] = 0;
-  for (unsigned v = wt; v < (o_hi - o_base + 15) / 16; v += WORKERS)
+  for (unsigned v = wt; v < (o_hi + 15) / 16; v += WORKERS)
     reinterpret_cast<uint4*>(sm.tile)[v] = make_uint4(0u, 0u, 0u, 0u);
   if (wt == 0) sm.num_runs = 0;
   workers_sync();
@@ -291,23 +294,21 @@ __device__ void write_tile(Smem& sm, const T* __restrict__ feats, const int* __r
 
   // the tile to out, 16 bytes at a time; the end vectors, which rows of
   // the neighbouring tiles share, element by element
-  for (unsigned v = wt; o_base + v * 16 < o_hi; v += WORKERS) {
-    const unsigned o = o_base + v * 16;
+  for (unsigned v = wt; v * 16 < o_hi; v += WORKERS) {
+    const unsigned o = v * 16;
     if (o >= o_lo && o + 16 <= o_hi) {
-      *reinterpret_cast<uint4*>(reinterpret_cast<unsigned char*>(out) + o) =
-          reinterpret_cast<const uint4*>(sm.tile)[v];
+      *reinterpret_cast<uint4*>(base + o) = reinterpret_cast<const uint4*>(sm.tile)[v];
     } else {
       for (unsigned e = max(o, o_lo); e < min(o + 16, o_hi); e += sizeof(T))
-        *reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(out) + e) =
-            *reinterpret_cast<const T*>(sm.tile + (e - o_base));
+        *reinterpret_cast<T*>(base + e) = *reinterpret_cast<const T*>(sm.tile + e);
     }
   }
 }
 
 // A persistent CTA takes tiles blockIdx.x, + gridDim.x, ...: the search
 // warps find the next tile's points while the workers write this one.
-// 32-bit byte offsets: the caller keeps the [S, C] and [N, C] bytes below
-// 2^31 (more registers here cost the CTAs an SM), and C at most MAX_COLS.
+// Byte offsets within a tile are 32-bit, its base and the features' rows
+// 64-bit; N and S are below 2^31 (int), C at most MAX_COLS.
 template <typename T>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 segment_sum_kernel(const T* __restrict__ feats, const int* __restrict__ ids,
@@ -348,13 +349,12 @@ int segment_sum_max_cols() { return MAX_COLS; }
 
 // feats [n, c] (f32 or bf16 per is_bf16, 16-byte aligned), ids [n] int32,
 // out [s, c] same dtype, 16-byte aligned; `samples` divides n and s; c at
-// most segment_sum_max_cols(); the [n, c] and [s, c] bytes below 2^31.
+// most segment_sum_max_cols().
 int segment_sum(const void* feats, const int* ids, int n, int c, int s, int samples,
                 void* out, int is_bf16, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int row_bytes = c * (is_bf16 ? 2 : 4);
-  if (samples < 1 || n % samples || s % samples || c < 0 || c > MAX_COLS ||
-      (long long)(n > s ? n : s) * row_bytes >= (1LL << 31))
+  if (samples < 1 || n < 0 || s < 0 || n % samples || s % samples || c < 0 || c > MAX_COLS)
     return (int)cudaErrorInvalidValue;
   if (s == 0 || c == 0) return (int)cudaGetLastError();
   // a tile's (a piece's) bytes leave room for the 16-byte vectors at its

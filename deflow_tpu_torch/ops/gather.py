@@ -33,6 +33,16 @@ def _setup(lib):
     lib.sorted_gather.argtypes = [vp, vp, i64, i64, i64, vp, ctypes.c_int, vp]
 
 
+def gather_max_rows(cols: int, element_size: int, aligned: bool = True) -> int:
+    """The most table rows (and ids) ``sorted_rows_gather`` takes for rows of
+    ``cols`` elements of ``element_size`` bytes: int32 ids name 2^31 - 1
+    rows; rows that are not whole 16-byte vectors (or a table that is not
+    16-byte aligned) take the route that indexes elements in 32 bits."""
+    if aligned and (cols * element_size) % 16 == 0:
+        return 2 ** 31 - 1
+    return (2 ** 31 - 1) // max(cols, 1)
+
+
 def sorted_rows_gather(table: torch.Tensor, ids: torch.Tensor,
                        num_rows: Optional[int] = None) -> torch.Tensor:
     """``table [R, C]`` rows at ``ids [M]`` → ``[M, C]``; ids ≥ ``num_rows``
@@ -52,9 +62,10 @@ def sorted_rows_gather(table: torch.Tensor, ids: torch.Tensor,
     if not (table.is_contiguous() and ids.is_contiguous()):
         raise ValueError("table and ids must be contiguous")
     cols = table.shape[1]
-    if max(ids.shape[0], table.shape[0]) * cols >= 2 ** 31:
+    if max(ids.shape[0], table.shape[0]) > gather_max_rows(cols, table.element_size(),
+                                                           table.data_ptr() % 16 == 0):
         raise ValueError(f"table {tuple(table.shape)} / ids {tuple(ids.shape)}: "
-                         "beyond int32 indexing")
+                         "beyond the kernel's row limit")
     lib = _build.load("sorted_gather", _setup)
     out = torch.empty(ids.shape[0], cols, dtype=table.dtype, device=table.device)
     rc = lib.sorted_gather(table.data_ptr(), ids.data_ptr(), ids.shape[0], cols,

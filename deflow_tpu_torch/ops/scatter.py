@@ -73,6 +73,12 @@ def _setup(lib):
     lib.segment_sum_max_cols.argtypes = []
 
 
+def segment_sum_max_rows() -> int:
+    """The most rows (points or segments) ``sorted_segment_sum`` takes: the
+    kernel counts them in int32."""
+    return 2 ** 31 - 1
+
+
 def sorted_segment_sum(feats: torch.Tensor, ids: torch.Tensor,
                        num_segments: int, samples: int = 1) -> torch.Tensor:
     """Segment-sum of ``feats [N, C]`` by ``ids [N]``, ascending within
@@ -95,8 +101,8 @@ def sorted_segment_sum(feats: torch.Tensor, ids: torch.Tensor,
         raise ValueError("feats and ids must be contiguous")
     if feats.data_ptr() % 16:
         raise ValueError("feats must be 16-byte aligned")
-    if max(n, num_segments) * c * feats.element_size() >= 2 ** 31:
-        raise ValueError("tables of 2 GiB or more are beyond the kernel's 32-bit offsets")
+    if max(n, num_segments) > segment_sum_max_rows():
+        raise ValueError(f"{max(n, num_segments)} rows: beyond the kernel's int32 row count")
     lib = _build.load("segment_sum", _setup)
     if c > lib.segment_sum_max_cols():
         raise ValueError(f"rows of {c} lanes beyond the kernel's "

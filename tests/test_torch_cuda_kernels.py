@@ -165,6 +165,41 @@ def test_segment_sum_refuses_bad_arguments(dev):
         scatter.sorted_segment_sum(torch.ones(6, 4096, device=dev), ids, 10)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_segment_sum_table_past_2_gib(dev, dtype):
+    """Two samples of 128 lanes whose [S, 128] table passes 2^31 bytes (in
+    f32 the gather's backward of four samples at the 1024^2 grid, 0.1 m
+    pillars, is 2^31 bytes): rows past the 2^31-th byte are written where
+    their points are and zero elsewhere, as below it."""
+    g = torch.Generator().manual_seed(31)
+    rows_2gib = 2 ** 31 // (128 * torch.empty((), dtype=dtype).element_size())
+    seg = rows_2gib * 3 // 4            # 1.5 x 2^31 bytes in all
+    ids = _plan(g, [(4000, 3500), (4000, 3900)], seg, dev)
+    feats = torch.randn(ids.shape[0], 128, generator=g).to(dev, dtype)
+    k = _held_segment_sum(feats, ids, 2 * seg, 2)
+    high = (ids >= rows_2gib) & (ids < 2 * seg)
+    assert high.sum() > 1000 and (k[ids[high].long()] != 0).any(-1).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gather_table_past_2_31_elements(dev, dtype):
+    """A [2^24 + 64, 128] table (rows of whole 16-byte vectors): ids past
+    the 2^31-th element read their rows, bit-exact."""
+    g = torch.Generator().manual_seed(32)
+    rows = 2 ** 24 + 64
+    table = torch.empty(rows, 128, dtype=dtype, device=dev)
+    table[: 2 ** 20].normal_(generator=torch.Generator(device=dev).manual_seed(1))
+    table[-2 ** 20:].normal_(generator=torch.Generator(device=dev).manual_seed(2))
+    ids = torch.cat([torch.randint(0, 2 ** 20, (500,), generator=g),
+                     torch.randint(rows - 2 ** 20, rows, (1500,), generator=g),
+                     torch.tensor([rows - 1, rows, 2 ** 30])]).sort().values
+    ids = ids.to(torch.int32).to(dev)
+    k = gather.sorted_rows_gather(table, ids, rows)
+    assert table.numel() >= 2 ** 31
+    assert torch.equal(k, gather.gather_plain(table, ids, rows))
+    assert (k[-3] != 0).any() and (k[-2:] == 0).all()
+
+
 def _gather_ids(g, rows, dev):
     """Ascending ids, then sentinels, out-of-range ids and unsorted ones."""
     return torch.cat([torch.randint(0, rows, (700,), generator=g).sort().values,

@@ -26,6 +26,7 @@ from deflow_tpu_torch.data.h5dataset import (DataLoader, HDF5Dataset, build_inde
                                              collate, pad_points, pad_ragged_batch)
 from deflow_tpu_torch.data.synthetic import make_split
 from deflow_tpu_torch.trainer import MODEL_KEYS, device_batch, device_prefetch
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 
 def assert_same(got, want, what=""):

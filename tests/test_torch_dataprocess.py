@@ -21,6 +21,7 @@ from deflow_tpu.dataprocess import process as JP
 from deflow_tpu_torch.dataprocess import process as TP
 
 from test_extract_av2 import _write_raw_log
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 
 def _frames(path):

@@ -53,6 +53,7 @@ from deflow_tpu_torch.convert import state_dict_from_flax
 import torch_dist_ranks as R
 from test_torch_modules import randomize_variables
 from test_torch_ssl_kernels import interpret_pallas  # noqa: F401 (a fixture)
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 STEPS = 3
 # name: (loss, rows a rank, keyword arguments of train_steps)

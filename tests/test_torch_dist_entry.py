@@ -40,6 +40,7 @@ from deflow_tpu_torch import dist
 from deflow_tpu_torch.data.synthetic import make_split
 
 import torch_dist_ranks as R
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 LR = 2e-4
 OVERRIDES = {"batch_size": 4, "lr": LR, "epochs": 2, "num_workers": 0,

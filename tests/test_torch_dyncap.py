@@ -23,6 +23,7 @@ from deflow_tpu_torch.ops import chamfer as TC
 
 from test_torch_ssl_kernels import (T2, _clouds, _close, _grads_close, _host_c1, _specs,
                                     _t, interpret_pallas)  # noqa: F401 (a fixture)
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 # clouds of 2 x 300 / 400 rows, about 127 flagged pc0 rows and 170 pc1 rows a
 # sample: a cap above every count, and one below

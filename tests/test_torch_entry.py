@@ -59,6 +59,7 @@ from deflow_tpu_torch.models import build_model
 from deflow_tpu_torch.trainer import make_eval_step
 
 from test_torch_modules import randomize_variables
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 TOL = 2e-4
 GOLDEN = json.loads((Path(__file__).parent / "golden" /

@@ -47,6 +47,7 @@ from test_torch_host_prep import RANGE, make_host_batch
 from test_torch_modules import GRID, VOXEL, randomize_variables
 from test_torch_train_kernels import interpret_pallas  # noqa: F401 (a fixture)
 from test_torch_train_step import LR, assert_step_matches_jax
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 
 def _t(a):

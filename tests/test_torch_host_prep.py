@@ -7,6 +7,7 @@ import pytest
 
 from deflow_tpu.data.host_prep import attach_host_prep as jax_attach
 from deflow_tpu_torch.data.host_prep import attach_host_prep
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 RANGE = [-51.2, -51.2, -3.0, 51.2, 51.2, 3.0]
 

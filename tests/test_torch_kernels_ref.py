@@ -16,6 +16,7 @@ from deflow_tpu_torch.ops.gather import sorted_rows_gather
 from deflow_tpu_torch.ops.gru import fused_gru
 from deflow_tpu_torch.ops import voxel as tv
 from deflow_tpu_torch.ops.voxel import TRASH_PAD, segment_sum_batched
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 
 @pytest.fixture

@@ -30,6 +30,7 @@ from deflow_tpu_torch.trainer import make_eval_step
 
 from test_torch_host_prep import RANGE, make_host_batch
 from test_torch_modules import VOXEL, _sub, make_pair
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 DT = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
 

@@ -57,6 +57,7 @@ from deflow_tpu_torch.ops import voxel as tv
 
 from test_torch_host_prep import RANGE
 from test_torch_modules import GRID, VOXEL, randomize_variables
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 N = 1536
 CHUNK = 512

@@ -26,6 +26,7 @@ from deflow_tpu_torch.models.deflow import DeFlow
 from deflow_tpu_torch.ops import voxel as tv
 
 from test_torch_host_prep import RANGE, make_host_batch
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 VOXEL = (3.2, 3.2, 6.0)
 GRID = (32, 32)

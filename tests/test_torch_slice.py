@@ -21,6 +21,7 @@ from deflow_tpu_torch.metrics import ThreewayEPE
 from deflow_tpu_torch.trainer import make_eval_step
 
 from test_torch_modules import make_pair
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 
 def test_eval_step_matches_jax():

@@ -31,6 +31,7 @@ from deflow_tpu_torch.ops import chamfer as TC
 from deflow_tpu_torch.ops.nn import chamfer_min, chamfer_min_plain, chamfer_min_unclamped
 from deflow_tpu_torch.ops.scatter import segment_sum_lanes, segment_sum_lanes_plain
 from deflow_tpu_torch.ops.sweep import cell_sweep, cell_sweep_plain
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 T2 = 4.0    # truncate 2 m, squared
 

@@ -29,6 +29,7 @@ from test_torch_host_prep import RANGE, make_host_batch
 from test_torch_modules import VOXEL
 from test_torch_ssl_kernels import interpret_pallas  # noqa: F401 (a fixture)
 from test_torch_train_step import assert_step_matches_jax, run_steps
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 
 def ssl_batch(seed, b=2, n=512):

@@ -1,19 +1,18 @@
-"""The port's train entry (``deflow_tpu_torch/entry/train.py``), remat,
-checkpoints and their helpers against the JAX package's, on the CPU in f32.
+"""The port's train entry (``deflow_tpu_torch/entry/train.py``) and its
+helpers against the JAX package's, on the CPU in f32: ``device_prefetch``,
+the stage timer and the metric logger, the CLI, ``main`` against JAX's
+``main``, ``fit`` over in-memory samples, the dyn_cap monitor and the
+refusals.  The remat steps are in ``test_torch_train_entry_remat.py``, the
+checkpoints and resume in ``test_torch_train_entry_resume.py``; both import
+this file's helpers.
 
-Shapes are those of ``tests/test_torch_train_step.py`` (B = 2, N = 512,
-32² grid, 4 GRU iterations) and ``tests/test_train_e2e.py`` (synthetic
-splits of 900-point frames, max_points 1,024, 64² grid, 2 GRU iterations).
+Shapes are those of ``tests/test_train_e2e.py`` (synthetic splits of
+900-point frames, max_points 1,024, 64² grid, 2 GRU iterations) and
+``tests/test_torch_train_step.py`` (B = 2, N = 512, 32² grid).  Torch runs
+on one thread (``torch_threads.one_torch_thread``).
 
 Tolerances, each with its reason:
-- the remat step against ``deflow_tpu.trainer.make_train_step(...,
-  remat=True)``: the f32 tolerances of ``test_torch_train_step.py``
-  (loss and aux 1e-5 relative; gradients 1e-4 of each parameter's largest
-  element; parameters after one Adam step 1e-6 + lr·1e-2, the zero-gradient
-  conv biases before a train-mode BN 2·lr; BN statistics 1e-5);
-- the remat step against the plain step, the resumed run against the
-  uninterrupted one, a checkpoint's round trip and ``device_prefetch``:
-  bit for bit (the same operations in the same order on the CPU);
+- ``device_prefetch``: bit for bit (a copy);
 - ``StageTimer`` and ``MetricLogger`` against the JAX classes: the same
   text and records (under one fake clock; apart from ``_ts``);
 - the port's ``main`` against JAX's ``main`` after one epoch from the same
@@ -40,10 +39,8 @@ import torch
 
 from deflow_tpu_torch import trainer as TT
 from deflow_tpu_torch.config import compose
-from deflow_tpu_torch.convert import load_weights as load_weights_file
 from deflow_tpu_torch.data.host_prep import attach_host_prep
 from deflow_tpu_torch.data.synthetic import make_split
-from deflow_tpu_torch.entry import evaluate
 from deflow_tpu_torch.entry import train as TE
 from deflow_tpu_torch.models import build_model
 from deflow_tpu_torch.utils.logger import MetricLogger
@@ -51,9 +48,9 @@ from deflow_tpu_torch.utils.timer import StageTimer
 
 from test_torch_host_prep import RANGE, make_host_batch
 from test_torch_modules import VOXEL
-from test_torch_ssl_kernels import interpret_pallas  # noqa: F401 (a fixture)
 from test_torch_ssl_step import ssl_batch
-from test_torch_train_step import LR, assert_step_matches_jax, run_steps
+from test_torch_train_step import LR
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 SMALL_MODEL = {"voxel_size": list(VOXEL), "point_cloud_range": RANGE, "num_iters": 4}
@@ -114,88 +111,6 @@ def _same_tree(x, y, path="") -> None:
             _same_tree(u, v, f"{path}/{i}")
     else:
         assert x == y, path
-
-
-# ------------------------------------------------------------------ remat
-@pytest.mark.parametrize("loss_name", ["deflowLoss", "seflowLoss"])
-def test_remat_step_matches_jax(request, loss_name):
-    hb = make_host_batch(21, 2, 512, VOXEL)
-    if loss_name == "seflowLoss":
-        request.getfixturevalue("interpret_pallas")
-        hb = ssl_batch(31)
-    assert_step_matches_jax(*run_steps(hb, loss_name, remat=True))
-
-
-def _count_wrappers(monkeypatch):
-    """Count the calls of every kernel wrapper (on the CPU each takes its
-    plain version, and the launch counters stay 0)."""
-    from deflow_tpu_torch.ops import cbg, gather, gru, nn, scatter, sweep
-
-    calls = {}
-    for mod, name in ((scatter, "sorted_segment_sum"), (gather, "sorted_rows_gather"),
-                      (gru, "fused_gru"), (gru, "fused_gru_bwd"),
-                      (cbg, "cbg_block_fwd"), (cbg, "cbg_block_bwd"),
-                      (scatter, "segment_sum_lanes"), (sweep, "cell_sweep"),
-                      (nn, "chamfer_min")):
-        fn = getattr(mod, name)
-
-        def counted(*a, _fn=fn, _name=name, **k):
-            calls[_name] = calls.get(_name, 0) + 1
-            return _fn(*a, **k)
-
-        monkeypatch.setattr(mod, name, counted)
-    return calls
-
-
-# wrapper calls per step, plain and remat.  Forward: two segment-sums (the
-# embedder, pc0 and pc1), one gather, one GRU, and at 2B <= 4 two chains of
-# three fused blocks.  Backward: each segment-sum's is a gather, the
-# gather's a segment-sum; the GRU backward, three fused-block backwards a
-# chain.  Remat runs every forward call a second time in the backward.
-PER_STEP = {"sorted_segment_sum": (3, 5), "sorted_rows_gather": (3, 4),
-            "fused_gru": (1, 2), "fused_gru_bwd": (1, 1),
-            "cbg_block_fwd": (6, 12), "cbg_block_bwd": (6, 6)}
-
-
-@pytest.mark.parametrize("loss_name,b", [("deflowLoss", 2), ("deflowLoss", 3),
-                                         ("seflowLoss", 2)],
-                         ids=["chains", "plain_unet", "seflow"])
-def test_remat_step_equals_plain_bit_for_bit(monkeypatch, loss_name, b):
-    """Two steps from the same state with and without remat: the loss, aux,
-    every gradient, every parameter after Adam, the Adam state, every BN
-    running statistic and ``num_batches_tracked`` are identical (a second
-    momentum update in the recompute would move the statistics)."""
-    calls = _count_wrappers(monkeypatch)
-    batches = [(ssl_batch(40 + s, b=b) if loss_name == "seflowLoss"
-                else make_host_batch(40 + s, b, 512, VOXEL)) for s in range(2)]
-    batches = [attach_host_prep(hb, list(VOXEL), RANGE) for hb in batches]
-    runs = []
-    for remat in (False, True):
-        state = _small_state(5)
-        step = TT.make_train_step(state.model, loss_name, device="cpu", remat=remat)
-        trace = []
-        for hb in batches:
-            calls.clear()
-            state, aux = step(state, hb)
-            trace.append((dict(aux), {k: p.grad.clone() for k, p in
-                                      state.model.named_parameters()}, dict(calls)))
-        runs.append((state, trace))
-    (plain, t_plain), (remat, t_remat) = runs
-    _same_state(plain, remat)
-    chains = 2 * b <= 4
-    for (aux_p, g_p, c_p), (aux_r, g_r, c_r) in zip(t_plain, t_remat):
-        for k in aux_p:
-            assert torch.equal(aux_p[k], aux_r[k]), k
-        for k in g_p:
-            assert torch.equal(g_p[k], g_r[k]), k
-        for name, (n_plain, n_remat) in PER_STEP.items():
-            if name.startswith("cbg") and not chains:
-                n_plain = n_remat = 0
-            assert c_p.get(name, 0) == n_plain, (name, c_p)
-            assert c_r.get(name, 0) == n_remat, (name, c_r)
-        ssl = {k: v for k, v in c_p.items() if k not in PER_STEP}
-        assert ssl == {k: v for k, v in c_r.items() if k not in PER_STEP}
-        assert bool(ssl) == (loss_name == "seflowLoss")
 
 
 # --------------------------------------------------------------- prefetch
@@ -289,140 +204,10 @@ def test_metric_logger_matches_jax(tmp_path, monkeypatch):
     assert records[0][0] == {"_config": cfg} and len(records[0]) == 4
 
 
-# ------------------------------------------------------------- checkpoints
-@pytest.mark.parametrize("mode", ["min", "max"])
-def test_best_checkpoint_keeper(tmp_path, mode):
-    """``test_train_e2e.py``'s replay of the JAX keeper: no save on a worse
-    value, an overwrite on a better one, a missing key ignored."""
-    sign = 1.0 if mode == "min" else -1.0
-    state = _small_state(0)
-    keeper = TT.BestCheckpointKeeper(str(tmp_path), "val/EPE_3way_mean", mode=mode)
-    assert keeper.key == "EPE_3way_mean"
-    p1 = keeper.update({"EPE_3way_mean": 0.5 * sign}, state, epoch=0)
-    assert p1 == str(tmp_path / "best.ckpt") and os.path.isfile(p1)
-    state2 = TT.TrainState(state.model, state.optimizer, state.clip, state.step + 1)
-    assert keeper.update({"EPE_3way_mean": 0.7 * sign}, state2, epoch=1) is None
-    restored, nxt = TT.load_checkpoint(p1, _small_state(1))
-    assert restored.step == state.step and nxt == 1
-    p2 = keeper.update({"EPE_3way_mean": 0.3 * sign}, state2, epoch=2)
-    assert p2 == p1
-    restored, nxt = TT.load_checkpoint(p1, _small_state(1))
-    assert restored.step == state2.step and nxt == 3
-    assert keeper.update({"other": 1.0}, state, epoch=3) is None
-    assert keeper.best == 0.3 * sign
-    assert sorted(os.listdir(tmp_path)) == ["best.ckpt"]
-    with pytest.raises(ValueError, match="min|max"):
-        TT.BestCheckpointKeeper(str(tmp_path), "val/x", mode="mean")
-
-
-def test_checkpoint_round_trip(tmp_path):
-    """Save after a step, load into a state from another seed: identical,
-    and one more step from each identical; the file is a reference-layout
-    checkpoint that ``convert.load_weights`` and the eval entry read."""
-    state = _small_state(1)
-    step = TT.make_train_step(state.model, "deflowLoss", device="cpu")
-    state, _ = step(state, _prepped(60))
-    path = TT.save_checkpoint(str(tmp_path / "ckpt"), state, epoch=4)
-    assert path == str(tmp_path / "ckpt" / "epoch_4.ckpt")
-    assert sorted(os.listdir(tmp_path / "ckpt")) == ["epoch_4.ckpt"]
-    raw = torch.load(path, map_location="cpu", weights_only=True)
-    assert set(raw) == {"state_dict", "optimizer_states", "global_step", "epoch"}
-    assert raw["global_step"] == 1 and raw["epoch"] == 4
-    assert set(raw["state_dict"]) == {f"model.{k}" for k in state.model.state_dict()}
-
-    other = _small_state(2)
-    assert not torch.equal(other.model.head.gru.convz.weight,
-                           state.model.head.gru.convz.weight)
-    other, nxt = TT.load_checkpoint(path, other)
-    assert nxt == 5
-    _same_state(state, other)
-    hb = _prepped(61)
-    state, aux = step(state, hb)
-    other, aux_o = TT.make_train_step(other.model, "deflowLoss", device="cpu")(other, hb)
-    assert torch.equal(aux["loss"], aux_o["loss"])
-    _same_state(state, other)
-
-    # the weights alone, by convert.load_weights, trainer.load_weights and
-    # the eval entry
-    for load in (lambda m: load_weights_file(m, path),
-                 lambda m: TT.load_weights(path, TT.init_train_state(
-                     m, {"lr": LR}, device="cpu")).model):
-        fresh = build_model(SMALL_MODEL, precision="fp32", device="cpu", seed=3)
-        want = torch.load(path, map_location="cpu", weights_only=True)["state_dict"]
-        got = load(fresh).state_dict()
-        assert all(torch.equal(got[k], want[f"model.{k}"]) for k in got)
-    eval_cfg = {"model": {"target": SMALL_MODEL}, "precision": "fp32",
-                "checkpoint": path}
-    out = evaluate.load_eval_step(eval_cfg, "cpu")(_prepped(62))
-    assert torch.isfinite(out["pred_flow"]).all()
-
-
-# ---------------------------------------------------------- entry: resume
-def test_resumed_run_keeps_its_best(tmp_path, monkeypatch):
-    """A run resumed from ``epoch_0.ckpt`` knows the best value so far, as
-    Lightning restores ``best_model_score``: a worse validation does not
-    overwrite ``best.ckpt``, a better one does.  (The JAX package's keeper
-    starts empty, so its resumed run wrote the worse epoch as the best.)"""
-    scores = iter([0.5, 0.9, 0.4])
-    monkeypatch.setattr(TE, "run_validation",
-                        lambda *a, **k: {"EPE_3way_mean": next(scores)})
-    out = str(tmp_path / "run")
-    over = ["batch_size=2", "num_workers=0", "max_points=512", "voxel_size=[3.2, 3.2, 6]",
-            "model.target.grid_feature_size=[32, 32]", "model.target.num_iters=1",
-            "precision=fp32", f"output_dir={out}", "device=cpu"]
-    fit = lambda *extra: TE.fit(compose("config", over + list(extra)), _small_samples(2),
-                                _small_samples(2))
-    best = os.path.join(os.path.dirname(_epoch_ckpt(out, 0)), "best.ckpt")
-    fit("epochs=1")
-    first = torch.load(best, weights_only=True)
-    assert first["epoch"] == 0
-    assert first["callbacks"]["BestCheckpointKeeper"]["best_model_score"] == 0.5
-    fit("epochs=2", f"resume={_epoch_ckpt(out, 0)}")
-    _same_tree(torch.load(best, weights_only=True), first)
-    saved = torch.load(_epoch_ckpt(out, 1), weights_only=True)
-    assert saved["callbacks"]["BestCheckpointKeeper"]["best_model_score"] == 0.5
-    fit("epochs=3", f"resume={_epoch_ckpt(out, 1)}")
-    last = torch.load(best, weights_only=True)
-    assert last["epoch"] == 2
-    assert last["callbacks"]["BestCheckpointKeeper"]["best_model_score"] == 0.4
-
-
-def _epoch_ckpt(out, epoch):
-    return os.path.join(out, "wandb", "deflow-local", "checkpoints", f"epoch_{epoch}.ckpt")
-
-
-def test_resume_equals_uninterrupted_run(data_root, tmp_path):
-    """``main`` for 2 epochs against ``main`` for 1 epoch and a resume for
-    the second: the same final checkpoint bit for bit (parameters, BN
-    buffers, Adam state, step) and the same metrics.  A resume that ran the
-    saved epoch again, or shuffled its epoch as epoch 0, would differ."""
-    runs = {}
-    for name, extra in (("full", {"epochs": 2}), ("first", {"epochs": 1})):
-        out = str(tmp_path / name)
-        runs[name] = (out, TE.main(compose("config", _overrides(data_root, out, **extra)),
-                                   device="cpu"))
-    out = str(tmp_path / "resumed")
-    metrics = TE.main(compose("config", _overrides(
-        data_root, out, epochs=2, resume=_epoch_ckpt(runs["first"][0], 0))), device="cpu")
-    full_out, full_metrics = runs["full"]
-    assert sorted(os.listdir(os.path.dirname(_epoch_ckpt(full_out, 0)))) == [
-        "best.ckpt", "epoch_0.ckpt", "epoch_1.ckpt"]
-    assert not os.path.exists(_epoch_ckpt(out, 0))     # epoch 0 did not run again
-    want = torch.load(_epoch_ckpt(full_out, 1), weights_only=True)
-    got = torch.load(_epoch_ckpt(out, 1), weights_only=True)
-    assert want["global_step"] == 8 and want["epoch"] == 1
-    _same_tree(got, want)
-    _same_tree(torch.load(_epoch_ckpt(runs["first"][0], 0), weights_only=True),
-               torch.load(_epoch_ckpt(full_out, 0), weights_only=True))
-    assert metrics.keys() == full_metrics.keys()
-    for k in metrics:
-        assert metrics[k] == full_metrics[k] or (np.isnan(metrics[k])
-                                                 and np.isnan(full_metrics[k])), k
-
-
 def test_train_cli_writes_checkpoints_and_needs_a_card(data_root, tmp_path):
     out = str(tmp_path / "cli")
-    env = {**os.environ, "PYTHONPATH": str(ROOT), "CUDA_VISIBLE_DEVICES": ""}
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "CUDA_VISIBLE_DEVICES": "",
+           "OMP_NUM_THREADS": "1"}
     args = [sys.executable, "-m", "deflow_tpu_torch.entry.train"] + _overrides(
         data_root, out, epochs=2, batch_size=4)
     proc = subprocess.run(args + ["device=cpu"], cwd=tmp_path, env=env,

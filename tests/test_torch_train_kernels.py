@@ -21,6 +21,7 @@ import jax.numpy as jnp
 
 from deflow_tpu_torch.ops import cbg
 from deflow_tpu_torch.ops.gru import fused_gru_bwd_plain
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 EPS = 1e-5
 

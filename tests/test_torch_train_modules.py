@@ -29,6 +29,7 @@ from deflow_tpu_torch.convert import load_reference_state_dict, state_dict_from_
 
 from test_torch_host_prep import RANGE
 from test_torch_modules import VOXEL, randomize_variables
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 
 def _t(a):

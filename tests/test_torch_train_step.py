@@ -37,35 +37,40 @@ from deflow_tpu_torch.models.deflow import DeFlow
 
 from test_torch_host_prep import RANGE, make_host_batch
 from test_torch_modules import GRID, VOXEL, randomize_variables
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 LR = 2e-4
 
 
-def _pair(hb, precision, seed=21):
+def _pair(hb, precision, seed=21, model_kw=None):
     dt = jnp.bfloat16 if precision == "bf16" else jnp.float32
+    kw = {"num_iters": 4, **(model_kw or {})}
     jm = JaxDeFlow(voxel_size=VOXEL, point_cloud_range=tuple(RANGE),
-                   grid_feature_size=GRID, num_iters=4, dtype=dt)
+                   grid_feature_size=GRID, dtype=dt, **kw)
     args = [jnp.asarray(hb[k]) for k in
             ("pc0", "pc1", "pose0", "pose1", "pc0_mask", "pc1_mask")]
     variables = randomize_variables(
         jax.eval_shape(lambda: jm.init(jax.random.key(0), *args)), seed)
     port = DeFlow(voxel_size=VOXEL, point_cloud_range=RANGE, grid_feature_size=GRID,
-                  num_iters=4, dtype=torch.bfloat16 if precision == "bf16"
-                  else torch.float32)
+                  dtype=torch.bfloat16 if precision == "bf16" else torch.float32, **kw)
     load_reference_state_dict(port, state_dict_from_flax(variables))
     jb = jax_attach(copy.deepcopy(hb), list(VOXEL), RANGE, sort=True)
     tb = attach_host_prep(copy.deepcopy(hb), list(VOXEL), RANGE)
     return jm, variables, port, jb, tb
 
 
-def run_steps(hb, loss_name="deflowLoss", precision="fp32", remat=False):
+def run_steps(hb, loss_name="deflowLoss", precision="fp32", remat=False,
+              model_kw=None, opt=None):
     """One step on each side from the host batch ``hb`` (with ``remat``,
     each side's step recomputes its forward in the backward).  Returns the
     JAX state, aux and gradients (read by a pass-through transform chained
-    before the optimizer) and the port's state and aux; the port's
-    gradients stay in each parameter's ``.grad``."""
-    jm, variables, port, jb, tb = _pair(hb, precision)
-    cfg = {"lr": LR, "optimizer": "adam"}
+    before the optimizer, so before any clip) and the port's state and aux;
+    the port's gradients (after its clip) stay in each parameter's
+    ``.grad``.  ``model_kw`` overrides the model's ``num_iters`` (4) or sets
+    its ``decoder_option``; ``opt`` the optimizer keys (``lr``,
+    ``optimizer``, ``gradient_clip``; Adam at LR by default)."""
+    jm, variables, port, jb, tb = _pair(hb, precision, model_kw=model_kw)
+    cfg = {"lr": LR, "optimizer": "adam", **(opt or {})}
     seen = {}
 
     def keep(updates, state, params=None):
@@ -73,7 +78,7 @@ def run_steps(hb, loss_name="deflowLoss", precision="fp32", remat=False):
         return updates, state
 
     tx = optax.chain(optax.GradientTransformation(lambda p: optax.EmptyState(), keep),
-                     JT.make_optimizer(type("C", (), {"lr": LR, "get": cfg.get})()))
+                     JT.make_optimizer(type("C", (), {"lr": cfg["lr"], "get": cfg.get})()))
     jstate = JT.TrainState(step=jnp.zeros((), jnp.int32), params=variables["params"],
                            batch_stats=variables["batch_stats"],
                            opt_state=tx.init(variables["params"]), tx=tx)
@@ -84,9 +89,11 @@ def run_steps(hb, loss_name="deflowLoss", precision="fp32", remat=False):
     return jstate, jaux, seen["grads"], state, aux
 
 
-def assert_step_matches_jax(jstate, jaux, jgrads, state, aux):
-    """The f32 tolerances of the module docstring: aux, parameters and BN
-    statistics after the step, and every parameter's gradient."""
+def assert_step_matches_jax(jstate, jaux, jgrads, state, aux, lr=LR, clip=0.0):
+    """The f32 tolerances of the module docstring, at learning rate ``lr``:
+    aux, parameters and BN statistics after the step, and every parameter's
+    gradient; with a ``clip`` the JAX gradients (taken before its clip) are
+    scaled by min(1, clip / grad_norm) as the port's clipped ones are."""
     assert state.step == 1
     for k in ("loss", "epe", "valid_points", "grad_norm"):
         np.testing.assert_allclose(float(aux[k]), float(jaux[k]), rtol=1e-5, err_msg=k)
@@ -103,12 +110,14 @@ def assert_step_matches_jax(jstate, jaux, jgrads, state, aux):
         if "running" in key:
             tol = 1e-5
         elif key.startswith("backbone.encoder_step_") and key.endswith("conv.bias"):
-            tol = 2 * LR
+            tol = 2 * lr
         else:
-            tol = 1e-6 + LR * 1e-2
+            tol = 1e-6 + lr * 1e-2
         np.testing.assert_allclose(g, w.numpy(), rtol=0, atol=tol, err_msg=key)
     named = dict(state.model.named_parameters())
-    want = state_dict_from_flax({"params": jax.tree.map(np.asarray, jgrads)})
+    scale = min(1.0, clip / float(jaux["grad_norm"])) if clip > 0 else 1.0
+    want = state_dict_from_flax({"params": jax.tree.map(lambda g: np.asarray(g) * scale,
+                                                        jgrads)})
     assert set(want) == set(named)
     for key, w in want.items():
         g, w = named[key].grad.numpy(), w.numpy()

@@ -27,6 +27,7 @@ from deflow_tpu_torch.models import unet as TU
 from deflow_tpu_torch.ops import cbg as TC
 
 from test_torch_modules import randomize_variables
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 HW = 64
 POLICIES = ["0", "auto", "all", "64", "128,64"]

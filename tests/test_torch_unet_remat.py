@@ -16,6 +16,7 @@ from deflow_tpu_torch.models import unet as TU
 from test_torch_unet_policy import (_hold, _jax_grad_fn, _jax_step, _jax_variables,
                                     _port_chain_spy, _port_step,
                                     interpret_cbg)  # noqa: F401 (a fixture)
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 
 def test_unet_train_at_2b_above_4_matches_jax(interpret_cbg, monkeypatch):

@@ -16,8 +16,13 @@ Phases (any failure exits non-zero):
    time, a library call's (or call sequence's) time, and the bound (the GRU
    backward and the fused conv3x3+BN+GELU backward also split by the
    kernels they launch; the fused blocks at 256^2x64, 128^2x128 and
-   64^2x256 at 2B = 4); first, every plan fed to a segment-sum is checked
-   to ascend within each sample, sentinels last; the segment-sum also bit
+   64^2x256 at 2B = 4); the f32 routes of the GRU forward (at 4 x and 2 x
+   98,304), the GRU backward and both fused blocks timed as well, against
+   the f32 bound (67 TFLOP/s, f32 bytes) and their library sequences in
+   f32 (cuBLAS sgemm, cuDNN, TF32 off), under each result's "f32" key (the
+   GRU forward's train shape under "f32_train"; the GRU backward's f32
+   route also split by kernel); first, every plan fed to a segment-sum is
+   checked to ascend within each sample, sentinels last; the segment-sum also bit
    for bit on integer features, at the train path's embedder shape and on
    the skewed clouds' pillar ids (points per occupied pillar); the
    segment-sum and the row gather also as each
@@ -137,8 +142,9 @@ Phases (any failure exits non-zero):
    2 x 98,304, each with a profiled step; (c) FastFlow3D (the linear head),
    eval, and (d) its ff3dLoss step at lr 4e-5; (e) num_iters=2; (f)
    zeroflowLoss under AdamW, SGD and Adam with a gradient clip; (g)
-   precision fp32, eval and step; (h) ``entry.train.fit`` of FastFlow3D
-   with ff3dLoss, one epoch validated and checkpointed; the wrappers' size
+   precision fp32, eval and step, each with a profiled step; (h)
+   ``entry.train.fit`` of FastFlow3D with ff3dLoss, one epoch validated and
+   checkpointed; the wrappers' size
    limits as the largest batch at each grid; then the f32 checks of the
    card against the CPU: (a) on one sample at the 1024^2 grid itself, (c),
    and one step each of (d), (e), (f) at the small model; then the kernels
@@ -410,10 +416,11 @@ def kernel_split(fn, reps: int) -> dict:
     return out
 
 
-def gru_loop_bf16(h0, x, wzr, bzr, wq, bq, iters: int):
-    """The GRU loop as a PyTorch call sequence with bf16 operands to every
-    matmul (cuBLAS, f32 accumulation) and an f32 state: the library
-    yardstick of the fused GRU and, under autograd, of its backward."""
+def gru_loop(h0, x, wzr, bzr, wq, bq, iters: int):
+    """The GRU loop as a PyTorch call sequence with operands in h0's dtype
+    to every matmul (cuBLAS, f32 accumulation; f32 operands in true f32,
+    TF32 off) and an f32 state: the library yardstick of the fused GRU and,
+    under autograd, of its backward."""
     import torch
 
     hd = h0.shape[1]
@@ -560,7 +567,8 @@ def gather_ids(db, cfg, b: int):
 
 def check_kernels(model, host_batch):
     """Phase 3: every kernel against its plain version at the eval path's
-    shapes; returns the bf16 (main path) measurements per kernel."""
+    shapes; returns the bf16 (main path) measurements per kernel, the fused
+    GRU's f32 route's under its "f32" key."""
     import torch
 
     from deflow_tpu_torch.ops import gru, voxel
@@ -590,12 +598,13 @@ def check_kernels(model, host_batch):
     h32 = torch.randn(B * N, 128, generator=g, device=dev) * 0.5
     x32 = torch.randn(B * N, 64, generator=g, device=dev) * 0.5
     w32 = [w.detach().float().contiguous() for w in model.head.gru.merged_weights()]
+    errs = {}
     for dt in (torch.float32, torch.bfloat16):
         args = [h32.to(dt), x32.to(dt)] + [w.to(dt).contiguous() for w in w32]
         k = gru.fused_gru(*args, iters)
         ref = gru.fused_gru_plain(*args, iters)
         torch.cuda.synchronize()
-        err = (k.float() - ref.float()).abs().max().item()
+        err = errs[dt] = (k.float() - ref.float()).abs().max().item()
         # f32: summation order over K = 192, four times.  bf16: the state is
         # f32 on both sides; an intermediate bf16 operand may round the other
         # way, and the output rounds once (<= 2 bf16 ulps).
@@ -614,7 +623,7 @@ def check_kernels(model, host_batch):
 
     def library_fwd():
         with torch.no_grad():
-            return gru_loop_bf16(*args, iters)
+            return gru_loop(*args, iters)
 
     results["fused_gru"] = {
         "max_abs_err": err,
@@ -632,7 +641,37 @@ def check_kernels(model, host_batch):
         f"{n}: {t:.4f} ms" for n, t in sorted(by_iters.items())))
     for name, r in results.items():
         print_timing(name, r)
+    results["fused_gru"]["f32"] = gru_f32_timing(errs[torch.float32], h32, x32, w32, iters)
+    print_timing("fused_gru f32", results["fused_gru"]["f32"])
     return results
+
+
+def gru_f32_timing(err, h32, x32, w32: list, iters: int) -> dict:
+    """The fused GRU's f32 route at [M, 128] + [M, 64]: its f32 row (``err``
+    None: held against its plain version here first)."""
+    import torch
+
+    from deflow_tpu_torch.ops import gru
+
+    m, xdim, hd = h32.shape[0], x32.shape[1], h32.shape[1]
+    args = [h32, x32] + w32
+    if err is None:
+        k, ref = gru.fused_gru(*args, iters), gru.fused_gru_plain(*args, iters)
+        err = (k - ref).abs().max().item()
+        print(f"fused_gru f32 at {m} points: max_abs_err {err:.3e} (tol rtol 1e-05 atol 1e-4)")
+        if not torch.allclose(k, ref, rtol=1e-5, atol=1e-4):
+            raise SystemExit("fused_gru disagrees with its plain version")
+
+    def library():
+        with torch.no_grad():
+            return gru_loop(*args, iters)
+
+    return f32_timing(
+        err, lambda: gru.fused_gru(*args, iters), lambda: gru.fused_gru_plain(*args, iters),
+        library, 4 * m * (hd + xdim + hd) + 4 * (hd + xdim) * 3 * hd + 4 * 3 * hd,
+        2.0 * m * (3 * hd) * (xdim + hd * iters),
+        "call sequence: the GRU loop in f32 (cuBLAS sgemm, TF32 off), no autograd",
+        f"{m}x{hd}+{xdim}, {iters} iterations")
 
 
 def _rel_err(k, ref) -> float:
@@ -676,7 +715,8 @@ def check_train_kernels(model, host_batch, splits: list):
     Returns the bf16 measurements: the backward uses of the segment-sum and
     the gather under "as_gather_bwd" / "as_scatter_bwd", the fused blocks'
     256^2 width first, the 128^2 and 64^2 widths under "width_128" and
-    "width_64".  Appends to
+    "width_64"; the f32 routes' under "f32" (the GRU forward's at this
+    shape under "f32_train").  Appends to
     ``splits`` (name, result, call) for the GRU backward and each fused
     block backward, whose split by kernel (``split_ms``) the caller
     measures after every other timing of the phase: torch.profiler leaves
@@ -712,18 +752,19 @@ def check_train_kernels(model, host_batch, splits: list):
     x32 = torch.randn(m, xdim, generator=g, device=dev) * 0.5
     g32 = torch.randn(m, hd, generator=g, device=dev)
     w32 = [w.detach().float().contiguous() for w in model.head.gru.merged_weights()]
+    errs = {}
     for dt in (torch.float32, torch.bfloat16):
         args = [h32.to(dt), x32.to(dt)] + [w.to(dt).contiguous() for w in w32] + [g32.to(dt)]
         k = gru.fused_gru_bwd(*args, iters)
         ref = gru.fused_gru_bwd_plain(*args, iters)
         torch.cuda.synchronize()
-        err = _hold("fused_gru_bwd", dt, zip(("dh0", "dx", "dw_zr", "db_zr", "dw_q", "db_q"),
-                                            k, ref))
+        err = errs[dt] = _hold("fused_gru_bwd", dt, zip(
+            ("dh0", "dx", "dw_zr", "db_zr", "dw_q", "db_q"), k, ref))
 
     def library_bf16():
         # the forward recomputed and its VJP through torch autograd
         leaves = [a.detach().requires_grad_() for a in args[:6]]
-        return torch.autograd.grad(gru_loop_bf16(*leaves, iters), leaves, args[6])
+        return torch.autograd.grad(gru_loop(*leaves, iters), leaves, args[6])
 
     # three products (the forward recomputed, dh and dW), each with x·W_x
     # once and the h products every iteration
@@ -741,6 +782,23 @@ def check_train_kernels(model, host_batch, splits: list):
     }
     splits.append(("fused_gru_bwd", results["fused_gru_bwd"],
                    lambda: gru.fused_gru_bwd(*args, iters)))
+    a32 = [h32, x32] + w32 + [g32]
+
+    def library_f32():
+        leaves = [a.detach().requires_grad_() for a in a32[:6]]
+        return torch.autograd.grad(gru_loop(*leaves, iters), leaves, a32[6])
+
+    r32 = results["fused_gru_bwd"]["f32"] = f32_timing(
+        errs[torch.float32], lambda: gru.fused_gru_bwd(*a32, iters),
+        lambda: gru.fused_gru_bwd_plain(*a32, iters), library_f32,
+        4 * m * (hd + xdim + hd) * 2 + 4 * (hd + xdim) * 3 * hd * 2, flops,
+        "call sequence: torch autograd of the GRU loop in f32 (cuBLAS sgemm, TF32 off)",
+        results["fused_gru_bwd"]["shape"])
+    splits.append(("fused_gru_bwd f32", r32, lambda: gru.fused_gru_bwd(*a32, iters)))
+    # the forward's f32 route at the train path's shape
+    fwd32 = gru_f32_timing(None, h32, x32, w32, iters)
+    print_timing("fused_gru f32", fwd32)
+    print_timing("fused_gru_bwd f32", r32)
 
     # -- fused blocks at the chain widths of the siamese batch
     for name, pair in hold_cbg(model, g, splits).items():
@@ -749,6 +807,7 @@ def check_train_kernels(model, host_batch, splits: list):
                 results[kname] = r
             else:
                 results[kname][f"width_{name}"] = r
+    results["fused_gru"] = {"f32_train": fwd32}
     results["sorted_gather"] = {"as_scatter_bwd": scatter_bwd}
     results["segment_sum"] = {"as_gather_bwd": gather_bwd, "train_embedder": embedder}
     for name, r in results.items():
@@ -768,6 +827,17 @@ def measure_splits(splits: list) -> None:
         print(f"{name} {r['shape']} split by kernel: " + ", ".join(
             f"{k} {v:.4f} ms" for k, v in sorted(r["split_ms"].items())))
     splits.clear()
+
+
+def f32_timing(err: float, fn, plain, library, nbytes: float, flops: float,
+               library_call: str, shape: str, reps: tuple = (5, 3, 3)) -> dict:
+    """An f32 route's row: its error, the kernel's, the plain version's and
+    the f32 library sequence's ms (TF32 off), and the bound at the f32
+    rate outside the tensor cores and f32 bytes."""
+    b_ms, b_by = bound(nbytes, flops, F32_FLOP_PER_S)
+    return {"max_abs_err": err, "shape": shape, "ms": cuda_ms(fn, reps[0]),
+            "plain_ms": cuda_ms(plain, reps[1]), "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": cuda_ms(library, reps[2]), "library_call": library_call}
 
 
 def print_timing(name: str, r: dict) -> None:
@@ -798,8 +868,9 @@ def hold_cbg(model, g, splits: list) -> dict:
     """The fused conv3x3+BN+GELU forward and backward of each encoder group
     of ``model`` ("256", "128", "64": the maps at a half, a quarter and an
     eighth of the grid) at the siamese batch 2 x TRAIN_B, against their plain
-    versions in f32 and bf16; returns the bf16 measurements by group, and
-    appends each backward's (name, result, call) to ``splits``."""
+    versions in f32 and bf16; returns the bf16 measurements by group, each
+    with its f32 route's under "f32", and appends each bf16 backward's
+    (name, result, call) to ``splits``."""
     import torch
     import torch.nn.functional as F
 
@@ -825,6 +896,7 @@ def hold_cbg(model, g, splits: list) -> dict:
                                 torch.rand(o, generator=g, device=dev) + 0.5, gamma, beta,
                                 0.01 * torch.randn(o, generator=g, device=dev),
                                 0.01 * torch.randn(o, generator=g, device=dev))
+        held = {}
         for dt in (torch.float32, torch.bfloat16):
             fa = (x32.to(dt), wm.to(dt).contiguous(), bias.to(dt), scal)
             kf = cbg.cbg_block_fwd(*fa)
@@ -839,24 +911,28 @@ def hold_cbg(model, g, splits: list) -> dict:
                        [("dz_prev", kb[0], rb[0]), ("dw", kb[1], rb[1]),
                         ("db", kb[2].sum(0), rb[2].sum(0)),
                         ("stats", kb[3].sum(0), rb[3].sum(0))])
+            held[dt] = (fa, ba, ef, eb)
         npix = shape[0] * res * res
         flops = 2.0 * npix * 9 * c * o
-        w_bf, b_bf = wm.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(), bias.to(torch.bfloat16)
         x_cl = fa[0].permute(0, 3, 1, 2)           # NCHW view, channels-last
+        w_by = {dt: (wm.to(dt).permute(3, 2, 0, 1).contiguous(), bias.to(dt))
+                for dt in (torch.float32, torch.bfloat16)}
 
-        def lib_fwd():
-            u = F.gelu(cbg.bn_apply(x_cl.float().permute(0, 2, 3, 1), scal)).to(torch.bfloat16)
-            s_ = F.conv2d(u.permute(0, 3, 1, 2), w_bf, b_bf, padding=1).float()
+        def lib_fwd(dt=torch.bfloat16, x_cl=x_cl):
+            w_, b_ = w_by[dt]
+            u = F.gelu(cbg.bn_apply(x_cl.float().permute(0, 2, 3, 1), scal)).to(dt)
+            s_ = F.conv2d(u.permute(0, 3, 1, 2), w_, b_, padding=1).float()
             return s_.sum((0, 2, 3)), (s_ * s_).sum((0, 2, 3))
 
-        def lib_bwd():
+        def lib_bwd(dt=torch.bfloat16, ba=ba):
+            w_ = w_by[dt][0]
             zh = (ba[1].float() - scal_in[0]) * scal_in[1]
             ds = (scal_in[2] * scal_in[1] * (ba[0].float() - scal_in[4] - zh * scal_in[5])
-                  ).to(torch.bfloat16).permute(0, 3, 1, 2)
+                  ).to(dt).permute(0, 3, 1, 2)
             zp = cbg.bn_apply(ba[2].float(), scal)
-            xa = F.gelu(zp).to(torch.bfloat16).permute(0, 3, 1, 2)
-            dx = torch.nn.grad.conv2d_input(xa.shape, w_bf, ds, padding=1)
-            dw = torch.nn.grad.conv2d_weight(xa, w_bf.shape, ds, padding=1)
+            xa = F.gelu(zp).to(dt).permute(0, 3, 1, 2)
+            dx = torch.nn.grad.conv2d_input(xa.shape, w_, ds, padding=1)
+            dw = torch.nn.grad.conv2d_weight(xa, w_.shape, ds, padding=1)
             dzp = dx.float().permute(0, 2, 3, 1) * cbg.gelu_grad(zp)
             return dzp.sum((0, 1, 2)), dw, ds.float().sum((0, 2, 3))
 
@@ -876,6 +952,24 @@ def hold_cbg(model, g, splits: list) -> dict:
             if kname == "cbg_bwd":
                 splits.append((kname, r, fn))
             results.setdefault(name, {})[kname] = r
+        # the f32 routes, against cuDNN's f32 convolutions (TF32 off)
+        fa32, ba32, ef32, eb32 = held[torch.float32]
+        x32_cl = fa32[0].permute(0, 3, 1, 2)
+        call = ("call sequence: torch BN+GELU, F.conv2d / torch.nn.grad.conv2d_* "
+                "(cuDNN, f32, TF32 off)")
+        for kname, err, fn, plain, lib, nbytes, fl in (
+                ("cbg_fwd", ef32, lambda: cbg.cbg_block_fwd(*fa32),
+                 lambda: cbg.cbg_block_fwd_plain(*fa32),
+                 lambda: lib_fwd(torch.float32, x32_cl),
+                 npix * (c + o) * 4 + 9 * c * o * 4, flops),
+                ("cbg_bwd", eb32, lambda: cbg.cbg_block_bwd(*ba32),
+                 lambda: cbg.cbg_block_bwd_plain(*ba32),
+                 lambda: lib_bwd(torch.float32, ba32),
+                 npix * (2 * o + c) * 4 + npix * c * 4 + 9 * c * o * 4, 2 * flops)):
+            r = results[name][kname]["f32"] = f32_timing(
+                err, fn, plain, lib, nbytes, fl, call, f"{shape[0]}x{res}x{res}x{c}->{o}",
+                (10, 3, 5))
+            print_timing(f"{kname} f32", r)
     return results
 
 
@@ -3223,10 +3317,11 @@ def run_ablations(eval_batches, train_batches) -> tuple:
     for what, opt in ABLATION_OPTS:
         trains(f"(f) zeroflowLoss, {what}", LEADERBOARD, "bf16", train_batches[:steps],
                "zeroflowLoss", opt, PER_STEP)
-    # (g) fp32 at full width
-    evals("(g) fp32 eval", LEADERBOARD, "fp32", eval_batches[:steps], PER_VAL_BATCH)
+    # (g) fp32 at full width, each with a profiled step (the f32 kernel routes)
+    evals("(g) fp32 eval", LEADERBOARD, "fp32", eval_batches[:steps], PER_VAL_BATCH,
+          profile=True)
     trains("(g) fp32 train, deflowLoss", LEADERBOARD, "fp32", train_batches[:steps],
-           "deflowLoss", {}, PER_STEP)
+           "deflowLoss", {}, PER_STEP, profile=True)
 
     # (h) the train entry of FastFlow3D
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ablation_")

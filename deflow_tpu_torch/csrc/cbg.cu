@@ -20,34 +20,43 @@
 // Bound on the H100: at 2B = 4, 256²x64→64, 128²x128→128 and 64²x256→256
 // each cost 19.3 GFLOP per forward (two such products per backward) against
 // 67 MB (256²), 34 MB (128²) and 17 MB (64²) of activations: operations and
-// bytes are about even at 256², operations bound the narrower maps.
+// bytes are about even at 256², operations bound the narrower maps.  In f32
+// (FFMA outside the tensor cores, 67 TFLOP/s) operations bound every shape:
+// 0.288 ms a forward, 0.577 ms a backward.
 //
-// Design.  All products are 16x16 tiles: on bf16 tensor cores (WMMA in the
-// backward, mma.sync with ldmatrix operands in the forward), FFMA on f32
-// (the parity path, not tuned).  Prologues (input BN and GELU, or the BN
-// backward for ds) run in f32 and round to the compute dtype exactly as the
-// products consume them.  No float atomics: partials are reduced in an order
-// fixed by the shape alone, so results are bit-identical from launch to
-// launch and from card to card.
+// Design.  bf16 products run on the tensor cores (WMMA in the backward,
+// mma.sync with ldmatrix operands in the forward).  f32 products run in
+// true f32 on FFMA, as the plain versions do.  The forward's f32 route
+// gives each lane an 8 x 8 outer product (8 pixels x 8 output channels),
+// fed by float2 window and float4 weight loads from shared memory: a
+// quarter of a float an FMA, what an SM's shared memory serves at the FFMA
+// rate (a 16x16 FFMA tile that reloads an operand for every FMA or two
+// is capped by its loads near a quarter of that rate).  The backward's f32
+// route keeps those 16x16 FFMA tiles (mma_tile.cuh Acc<float>): not tuned.
+// Prologues (input BN and GELU, or the BN backward for ds) run in f32 and
+// round to the compute dtype exactly as the products consume them.  No
+// float atomics: partials are reduced in an order fixed by the shape alone,
+// so results are bit-identical from launch to launch and from card to card.
 //
 // Forward: a one-row block per 64 pixels would restage 9·C·O weights for
 // every 64 pixels (~151 M element loads at both path widths) and run the
 // input's BN+GELU on each input row three times, so a block owns R image
-// rows of one sample (4 at <= 64 input channels in bf16, 2 at 128, 1 in f32)
-// x 64 pixels x one slice of up to CHUNK = 128 output channels (all O up to
-// 128; at 256 output channels a second row of blocks takes the second
-// slice).  Input channels beyond 128 stream through the window in chunks of
-// 128: the window holds one chunk at a time, and the accumulators carry
-// over the chunks.  Its window (rows y0-1 ..
+// rows of one sample (4 at <= 64 input channels, else 2) x 64 pixels x one
+// slice of up to CHUNK = 128 output channels (all O up to 128; at 256
+// output channels a second row of blocks takes the second slice; f32:
+// slices of 256 / R, so that 8 warps of 64 pixels x 32 channels cover the
+// block).  Input channels beyond 128 (f32: beyond 32) stream through the
+// window in chunks: the window holds one chunk at a time, and the
+// accumulators carry over the chunks.  Its window (rows y0-1 ..
 // y0+R, pixels x0-1 .. x0+64) and its weights arrive by 16-byte cp.async
 // copies, all in flight at once; the BN+GELU then runs in place once per
 // window element (each input row in 1.5-2 windows), from scalars a thread
 // holds in registers for its channel chunk.  Two blocks share an SM (one
 // block's loads and BN+GELU run under the other's products), holding two
-// taps of weights at 64 channels and one at 128, the next tap copied after
-// or under the current tap's products.  The epilogue adds the bias, rounds,
-// stores s 16 bytes a thread and sums Σs, Σs² with every thread, the
-// partials combined in a fixed order.
+// taps of weights at 64 channels and one at 128 (f32: two at every width),
+// the next tap copied after or under the current tap's products.  The
+// epilogue adds the bias, rounds, stores s 16 bytes a thread and sums Σs,
+// Σs² with every thread, the partials combined in a fixed order.
 //
 // Backward: dgrad, then wgrad, then an ordered reduction of the wgrad's
 // partials.  Both are bound by operand loads and integer work, not FLOPs,
@@ -632,6 +641,25 @@ struct FwLayout {
   int nbuf;                               // taps of weights held: 2 (double-buffered) or 1
 };
 
+// The f32 route gives a block an o slice of 256 / R channels (R rows as in
+// bf16), so that its 8 warps of 64 pixels x 32 output channels cover the R
+// rows x 64 pixels x slice, and streams input channels in chunks of 32,
+// small enough for two taps of weights (double-buffered) and two blocks an
+// SM; its window and weight rows are padded by one 16-byte unit (bf16:
+// ck + 8 and os + 8 elements).
+template <typename T, int R> __host__ __device__ constexpr int fw_slice() {
+  return sizeof(T) == 2 ? CHUNK : 2 * CHUNK / R;
+}
+template <typename T> __host__ __device__ constexpr int fw_pad() { return sizeof(T) == 2 ? 8 : 4; }
+__host__ __device__ inline int r32(int v) { return (v + 31) / 32 * 32; }
+template <typename T> __host__ __device__ inline int fw_ck(int c) {
+  return sizeof(T) == 2 ? chunk16(c) : (r16(c) < 32 ? r16(c) : 32);
+}
+template <typename T, int R> __host__ __device__ inline int fw_os(int o) {
+  if (sizeof(T) == 2) return chunk16(o);
+  return r32(o) < fw_slice<T, R>() ? r32(o) : fw_slice<T, R>();
+}
+
 constexpr int SMEM_HALF = 233472 / 2 - 1024;  // a block's share when two share an SM (228 KB, 1 KB reserved each)
 
 __host__ __device__ inline int fw_bytes(int win, int tap, int stage, int nbuf) {
@@ -641,7 +669,9 @@ __host__ __device__ inline int fw_bytes(int win, int tap, int stage, int nbuf) {
 // Shared memory of the forward kernel: the window [R + 2][WIN][CK + 8]
 // (a pixel stride of 16 bytes more than the channels: ldmatrix reads its 8
 // rows from 8 distinct bank groups), then the weights [nbuf][CK][OS + 8]
-// (CK: the c chunk, OS: the o slice, each min(16-rounded width, CHUNK)).
+// (CK: the c chunk, OS: the o slice, each min(16-rounded width, CHUNK);
+// f32: CK + 4, OS + 4, CK the 16-rounded width up to 32, and OS the
+// 32-rounded width up to 256 / R).
 // After the products the f32 staging [R * TP][OS + 4], then the column
 // sums' partials (<= 16 KB), reuse both.  Two taps of weights are held
 // (the next copied under the current one's products) when that keeps two
@@ -650,9 +680,9 @@ __host__ __device__ inline int fw_bytes(int win, int tap, int stage, int nbuf) {
 // channels, still two blocks an SM).
 template <typename T, int R>
 __host__ __device__ inline FwLayout fw_layout(int c, int o) {
-  const int ck = chunk16(c), os = chunk16(o), sz = (int)sizeof(T);
-  const int win = ((R + 2) * WIN * (ck + 8) * sz + 127) / 128 * 128;
-  const int tap = ck * (os + 8) * sz;
+  const int ck = fw_ck<T>(c), os = fw_os<T, R>(o), sz = (int)sizeof(T);
+  const int win = ((R + 2) * WIN * (ck + fw_pad<T>()) * sz + 127) / 128 * 128;
+  const int tap = ck * (os + fw_pad<T>()) * sz;
   const int stage = R * TP * (os + 4) * 4;
   FwLayout L;
   L.w = win;
@@ -661,8 +691,8 @@ __host__ __device__ inline FwLayout fw_layout(int c, int o) {
   return L;
 }
 
-// Rows per forward block: 4 when C <= 64 (bf16), else 2 (128 and 256); 1 in f32.
-inline int fw_rows(int c, int esz) { return esz == 4 ? 1 : (r16(c) <= 64 ? 4 : 2); }
+// Rows per forward block: 4 when C <= 64, else 2 (128 and 256).
+inline int fw_rows(int c) { return r16(c) <= 64 ? 4 : 2; }
 
 // A 16x16 f32 tile of bf16 products by mma.sync m16n8k16, its operands
 // read by ldmatrix, which needs 16-byte aligned rows only (WMMA wants
@@ -686,9 +716,6 @@ struct MmaTile {
     }
   }
 };
-
-template <typename T>
-using FwAcc = typename std::conditional<std::is_same<T, bf16>::value, MmaTile, Acc<T>>::type;
 
 // Four 8x8 bf16 matrices from shared memory; lane l gives the row address
 // of matrix l/8.  With trans, each is read transposed.
@@ -715,38 +742,57 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const unsigned (&a)[4], 
 // acc[r][j] += A_r · B_j, A_r the window at row r's pixel tile (a + r·WIN·lda,
 // row-major over c), B_j o tile ow + 2j of this tap's W[c][o] (row-major,
 // read transposed: mma's B is column-major).
-template <typename T, int R, int NC>
-__device__ __forceinline__ void fw_step(FwAcc<T> (&acc)[R][NC], const T* a, int lda,
-                                        const T* bm, int ldb, int ow, int ot_n) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    const int l = threadIdx.x & 31, row = l & 15, col = (l >> 4) * 8;
-    unsigned fa[R][4], fb[NC][4];
+template <int R, int NC>
+__device__ __forceinline__ void fw_step(MmaTile (&acc)[R][NC], const bf16* a, int lda,
+                                        const bf16* bm, int ldb, int ow, int ot_n) {
+  const int l = threadIdx.x & 31, row = l & 15, col = (l >> 4) * 8;
+  unsigned fa[R][4], fb[NC][4];
 #pragma unroll
-    for (int r = 0; r < R; ++r) ldsm4<false>(fa[r], a + (r * WIN + row) * lda + col);
+  for (int r = 0; r < R; ++r) ldsm4<false>(fa[r], a + (r * WIN + row) * lda + col);
+#pragma unroll
+  for (int j = 0; j < NC; ++j)
+    if (ow + 2 * j < ot_n) ldsm4<true>(fb[j], bm + row * ldb + (ow + 2 * j) * 16 + col);
+#pragma unroll
+  for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int j = 0; j < NC; ++j)
-      if (ow + 2 * j < ot_n) ldsm4<true>(fb[j], bm + row * ldb + (ow + 2 * j) * 16 + col);
+      if (ow + 2 * j < ot_n) {
+        mma16816(acc[r][j].d[0], fa[r], fb[j][0], fb[j][1]);
+        mma16816(acc[r][j].d[1], fa[r], fb[j][2], fb[j][3]);
+      }
+}
+
+// The f32 products of one tap and input-channel chunk (k_n channels), in
+// true f32 (FFMA): lane (lp, lc) = (l / 4, l % 4) of a warp tile (64
+// pixels x 32 output channels) accumulates 8 pixels (a + 8i·lda: lp + 8i)
+// x 8 output channels (b + 4lc and b + 16 + 4lc).  Per 2 channels, 8
+// window float2 and 4 weight float4 loads feed 128 FMAs (a quarter of a
+// float of shared memory an FMA, what the SM serves at the FFMA rate, in
+// few enough registers for two blocks an SM); the window's pixel stride
+// (an odd number of 16-byte units) puts a load's pixels in distinct banks,
+// and a weight load's 4 lanes read 64 contiguous bytes.
+__device__ __forceinline__ void fw32_step(float (&acc)[8][8], const float* a, int lda,
+                                          const float* b, int ldb, int k_n) {
+  for (int k = 0; k < k_n; k += 2) {
+    float bv[2][8];
 #pragma unroll
-    for (int r = 0; r < R; ++r)
+    for (int q = 0; q < 2; ++q) {
+      *reinterpret_cast<float4*>(bv[q]) = *reinterpret_cast<const float4*>(b + (k + q) * ldb);
+      *reinterpret_cast<float4*>(bv[q] + 4) =
+          *reinterpret_cast<const float4*>(b + (k + q) * ldb + 16);
+    }
 #pragma unroll
-      for (int j = 0; j < NC; ++j)
-        if (ow + 2 * j < ot_n) {
-          mma16816(acc[r][j].d[0], fa[r], fb[j][0], fb[j][1]);
-          mma16816(acc[r][j].d[1], fa[r], fb[j][2], fb[j][3]);
-        }
-  } else {
+    for (int i = 0; i < 8; ++i) {
+      const float2 av = *reinterpret_cast<const float2*>(a + 8 * i * lda + k);
 #pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int j = 0; j < NC; ++j)
-        if (ow + 2 * j < ot_n)
-          acc[r][j].template mma<true, true>(a + r * WIN * lda, lda,
-                                             bm + (ow + 2 * j) * 16, ldb);
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av.y, bv[1][j], fmaf(av.x, bv[0][j], acc[i][j]));
+    }
   }
 }
 
 // Two blocks an SM cap a thread at 128 registers, enough for the path's
-// R x NC = 8 tiles a warp (64 -> 64, and a 128-wide slice at 128 and 256).
+// R x NC = 8 tiles a warp (64 -> 64, and a 128-wide slice at 128 and 256)
+// and for the f32 route's 8 x 8 micro-tile.
 template <typename T, int R, int NC>
 __global__ void __launch_bounds__(THREADS, 2)
 cbg_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wmat,
@@ -755,7 +801,9 @@ cbg_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wmat,
   constexpr int V = 16 / sizeof(T);
   extern __shared__ __align__(128) unsigned char smem[];
   const FwLayout L = fw_layout<T, R>(c, o);
-  const int ck = chunk16(c), os = chunk16(o), ldw = ck + 8, ldo = os + 8, lds = os + 4;
+  constexpr bool BF = std::is_same<T, bf16>::value;
+  const int ck = fw_ck<T>(c), os = fw_os<T, R>(o), lds = os + 4;
+  const int ldw = ck + fw_pad<T>(), ldo = os + fw_pad<T>();
   T* win = (T*)smem;
   T* s_w = (T*)(smem + L.w);
   float* stage = (float*)smem;                 // [R * TP][lds], after the products
@@ -765,7 +813,7 @@ cbg_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wmat,
   const int seg = blk % segs, grp = (blk / segs) % grps, b = blk / (segs * grps);
   const int x0 = seg * TP, y0 = grp * R;
   const int np = w - x0 < TP ? w - x0 : TP, nr = h - y0 < R ? h - y0 : R;
-  const int o0 = blockIdx.y * CHUNK;           // this block's slice of o
+  const int o0 = blockIdx.y * fw_slice<T, R>();  // this block's slice of o
   const size_t row0 = (size_t)b * h;
   const T zero = from_f<T>(0.f);
 
@@ -787,14 +835,27 @@ cbg_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wmat,
   };
 
   const int warp = tid / 32, pw = warp % 4, ow = warp / 4, ot_n = os / 16;
-  FwAcc<T> acc[R][NC];
+  [[maybe_unused]] MmaTile acc[BF ? R : 1][BF ? NC : 1];  // bf16: the mma.sync tiles
+  [[maybe_unused]] float facc[BF ? 1 : 8][8];             // f32: the 8 x 8 micro-tile
+  // f32: warp (f_row, tc) = (warp % R, warp / R) owns the 64 pixels of row
+  // f_row and output channels tc·32 .. +32 of the slice
+  const int tc = warp / R, l = tid & 31;
+  [[maybe_unused]] const int f_row = warp % R, f_px = l >> 2, f_oc = tc * 32 + (l & 3) * 4;
+  [[maybe_unused]] const bool f_busy = tc * 32 < os;
+  if constexpr (BF) {
 #pragma unroll
-  for (int r = 0; r < R; ++r)
+    for (int r = 0; r < R; ++r)
 #pragma unroll
-    for (int j = 0; j < NC; ++j) acc[r][j].zero();
+      for (int j = 0; j < NC; ++j) acc[r][j].zero();
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) facc[i][j] = 0.f;
+  }
 
   const int cch = ck / V, nwin = (R + 2) * WIN * cch;
-  for (int c0 = 0; c0 < c; c0 += CHUNK) {
+  for (int c0 = 0; c0 < c; c0 += BF ? CHUNK : ck) {
     // (the previous chunk's products ended with a barrier) the raw window of
     // this chunk, zero outside the image and the channels; then the weights,
     // whose copy may still run under the BN+GELU pass
@@ -866,18 +927,31 @@ cbg_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wmat,
       }
       __syncthreads();
       const int ky = tap / 3, kx = tap % 3;
-      const T* a0 = win + (ky * WIN + pw * 16 + kx) * ldw;
-      for (int kk = 0; kk < ck / 16; ++kk)
-        fw_step<T, R, NC>(acc, a0 + kk * 16, ldw, wt + kk * 16 * ldo, ldo, ow, ot_n);
+      if constexpr (BF) {
+        const T* a0 = win + (ky * WIN + pw * 16 + kx) * ldw;
+        for (int kk = 0; kk < ck / 16; ++kk)
+          fw_step<R, NC>(acc, a0 + kk * 16, ldw, wt + kk * 16 * ldo, ldo, ow, ot_n);
+      } else if (f_busy) {
+        fw32_step(facc, win + ((f_row + ky) * WIN + f_px + kx) * ldw, ldw, wt + f_oc, ldo, ck);
+      }
       __syncthreads();
     }
   }
+  if constexpr (BF) {
 #pragma unroll
-  for (int r = 0; r < R; ++r)
+    for (int r = 0; r < R; ++r)
 #pragma unroll
-    for (int j = 0; j < NC; ++j)
-      if (ow + 2 * j < ot_n)
-        acc[r][j].store(stage + (r * TP + pw * 16) * lds + (ow + 2 * j) * 16, lds);
+      for (int j = 0; j < NC; ++j)
+        if (ow + 2 * j < ot_n)
+          acc[r][j].store(stage + (r * TP + pw * 16) * lds + (ow + 2 * j) * 16, lds);
+  } else if (f_busy) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<float4*>(stage + (f_row * TP + f_px + 8 * i) * lds + f_oc + 16 * hh) =
+            *reinterpret_cast<const float4*>(&facc[i][4 * hh]);
+  }
   __syncthreads();
 
   // s = acc + bias, rounded to T, 16 bytes a store.  A thread keeps to one
@@ -942,18 +1016,23 @@ cudaError_t launch_fwd(const T* x, const T* wmat, const T* bias, const float* sc
   cudaError_t e = cudaFuncSetAttribute(cbg_fwd_kernel<T, R, NC>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
   if (e != cudaSuccess) return e;
-  const dim3 grid(blocks, (o + CHUNK - 1) / CHUNK);
+  const dim3 grid(blocks, (o + fw_slice<T, R>() - 1) / fw_slice<T, R>());
   cbg_fwd_kernel<T, R, NC><<<grid, THREADS, L.total, st>>>(x, wmat, bias, scal, h, w, c, o,
                                                             vec, s, ps);
   return cudaGetLastError();
 }
 
-// NC: o tiles per warp, 2 up to 64 output channels, else 4 (a slice of 128).
+// NC: o tiles per warp (bf16), 2 up to 64 output channels, else 4 (a slice
+// of 128); f32 takes its micro-tile instead.
 template <typename T, int R>
 cudaError_t launch_fwd_nc(const T* x, const T* wmat, const T* bias, const float* scal, int bsz,
                           int h, int w, int c, int o, int vec, T* s, float* ps, cudaStream_t st) {
-  if (chunk16(o) <= 64) return launch_fwd<T, R, 2>(x, wmat, bias, scal, bsz, h, w, c, o, vec, s, ps, st);
-  return launch_fwd<T, R, 4>(x, wmat, bias, scal, bsz, h, w, c, o, vec, s, ps, st);
+  if constexpr (sizeof(T) == 4) {
+    return launch_fwd<T, R, 2>(x, wmat, bias, scal, bsz, h, w, c, o, vec, s, ps, st);
+  } else {
+    if (chunk16(o) <= 64) return launch_fwd<T, R, 2>(x, wmat, bias, scal, bsz, h, w, c, o, vec, s, ps, st);
+    return launch_fwd<T, R, 4>(x, wmat, bias, scal, bsz, h, w, c, o, vec, s, ps, st);
+  }
 }
 
 template <typename T>
@@ -964,9 +1043,7 @@ int fwd(const void* x, const void* wmat, const void* bias, const float* scal, in
   const int vec = c % V == 0 && o % V == 0 && al(x) && al(wmat) && al(s);
   const T *xt = (const T*)x, *wt = (const T*)wmat, *bt = (const T*)bias;
   cudaError_t e;
-  if constexpr (sizeof(T) == 4) {
-    e = launch_fwd_nc<T, 1>(xt, wt, bt, scal, bsz, h, w, c, o, vec, (T*)s, ps, st);
-  } else if (fw_rows(c, 2) == 4) {
+  if (fw_rows(c) == 4) {
     e = launch_fwd_nc<T, 4>(xt, wt, bt, scal, bsz, h, w, c, o, vec, (T*)s, ps, st);
   } else {
     e = launch_fwd_nc<T, 2>(xt, wt, bt, scal, bsz, h, w, c, o, vec, (T*)s, ps, st);
@@ -1020,9 +1097,10 @@ extern "C" {
 
 const char* error_string(int e) { return cudaGetErrorString((cudaError_t)e); }
 
-// Row groups x segments (= partial-sum rows) of one forward call.
+// Row groups x segments (= partial-sum rows) of one forward call (the same
+// for both compute types).
 int cbg_fwd_blocks(int bsz, int h, int w, int c, int is_bf16) {
-  const int r = fw_rows(c, is_bf16 ? 2 : 4);
+  const int r = fw_rows(c);
   return bsz * ((h + r - 1) / r) * ((w + TP - 1) / TP);
 }
 

@@ -35,9 +35,12 @@
 //    the other of two buffers under this tile's iterations.
 // A tile's buffer is its [h | x] operand: after the last iteration its first
 // H columns hold bf16(h), the output rounded once, written out 16 bytes a
-// store.  f32 inputs (parity runs) take a plain FFMA kernel: one thread per
-// hidden column, 16 points per block, weights read through the cache.  The
-// Pallas 128-lane padding of x is TPU-only and is not carried.
+// store.  f32 inputs take a plain FFMA kernel: one thread per hidden
+// column, 16 points per block, weights read through the cache, x·W_x
+// recomputed every iteration; about 18 operand loads for every 32 FMAs cap
+// it near half the FFMA rate (not tuned; it runs ahead of the f32 cuBLAS
+// loop, PERF.md).  The Pallas 128-lane padding of x is TPU-only and is not
+// carried.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -52,9 +52,24 @@
 //     in order.
 // Every partial is sized from the shape alone (the wave is a constant, not
 // the card's SM count), and no float atomics are used: the gradients are
-// bit-identical from launch to launch and from card to card.  The f32 path
-// (parity runs) runs the same kernels with an FFMA stand-in for mma.sync in
-// the same fragment layout, its weights read through the cache.
+// bit-identical from launch to launch and from card to card.
+//
+// The f32 route computes in true f32 (FFMA), as the plain version does, and
+// is bound by operations: 3.89 ms at M = 196,608 at 67 TFLOP/s (FFMA
+// outside the tensor cores).  Its f32 weights (288 KB) fit no block's
+// shared memory, and a lane that reloads both operands for every one or
+// two FMAs is capped by shared-memory loads.  So it has its own main
+// kernel, gru_bwd_f32_kernel: register-blocked micro-tiles (a lane's 4
+// points x 8 columns for z|r, 4 x 4 for q and the W^T products, 8 to 11
+// FMAs a 16-byte load), the weights streamed from L2 through two stages of
+// 16-byte cp.async copies (the next product's first stage under the
+// current one's last; W's h rows transposed once a launch by gru_wt_f32
+// for the W^T products), x·W_x + b once a tile as the gate products'
+// starting values, and dx once a tile from the iterations' summed gate
+// gradients (W_x is the same in every iteration).  Its forward recompute,
+// per-iteration h scratch, dW operands and fixed-wave partials are the bf16
+// route's; the dW kernel gives each lane a 12 x 8 micro-tile (96 FMAs per
+// five 16-byte loads).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,7 +84,6 @@ namespace {
 using gru_tile::cp_async16;
 using gru_tile::cp_async_commit;
 using gru_tile::cp_async_wait;
-using gru_tile::fma16816;
 using gru_tile::ld2;
 using gru_tile::ldsm4;
 using gru_tile::mma16816;
@@ -116,54 +130,44 @@ __device__ __forceinline__ float sigmoid_f32(float v) { return 1.f / (1.f + expf
 __host__ __device__ inline size_t align256(size_t v) { return (v + 255) & ~(size_t)255; }
 
 // ------------------------------------------------------- main kernel
-template <typename T>
 __host__ __device__ inline size_t main_smem_bytes(int k) {
   const size_t lda = k + PAD;
-  const size_t w = sizeof(T) == 2 ? (size_t)k * (LDZR + LDQ) : 0;
-  return (w + TM * (2 * lda + LDQ + LDZR)) * sizeof(T);
+  return ((size_t)k * (LDZR + LDQ) + TM * (2 * lda + LDQ + LDZR)) * sizeof(bf16);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
-gru_bwd_kernel(const T* __restrict__ h0, const T* __restrict__ x,
-               const T* __restrict__ w_zr, const T* __restrict__ b_zr,
-               const T* __restrict__ w_q, const T* __restrict__ b_q,
-               const T* __restrict__ g, int m, int xdim, int iters,
-               T* __restrict__ dh0, T* __restrict__ dx_out, float* __restrict__ hsave,
-               T* __restrict__ sp_h, T* __restrict__ sp_u, T* __restrict__ sp_dszr,
-               T* __restrict__ sp_dsq, float* __restrict__ db_part) {
-  constexpr int V = 16 / (int)sizeof(T);           // elements a 16-byte chunk
+gru_bwd_kernel(const bf16* __restrict__ h0, const bf16* __restrict__ x,
+               const bf16* __restrict__ w_zr, const bf16* __restrict__ b_zr,
+               const bf16* __restrict__ w_q, const bf16* __restrict__ b_q,
+               const bf16* __restrict__ g, int m, int xdim, int iters,
+               bf16* __restrict__ dh0, bf16* __restrict__ dx_out, float* __restrict__ hsave,
+               bf16* __restrict__ sp_h, bf16* __restrict__ sp_u, bf16* __restrict__ sp_dszr,
+               bf16* __restrict__ sp_dsq, float* __restrict__ db_part) {
+  constexpr int V = 16 / (int)sizeof(bf16);        // elements a 16-byte chunk
   extern __shared__ __align__(128) unsigned char smem[];
   const int K = H + xdim, LDA = K + PAD, KS = K / 16;
   const int tid = threadIdx.x, warp = tid >> 5, l = tid & 31;
   const int gr = l >> 2, c2 = (l & 3) * 2, cw = 16 * warp;
-  T* s = reinterpret_cast<T*>(smem);
-  const T* wzr = w_zr;
-  const T* wq = w_q;
-  int ldzr = 2 * H, ldq = H;
-  if constexpr (sizeof(T) == 2) {
-    T* s_wzr = s;
-    T* s_wq = s_wzr + K * LDZR;
-    s = s_wq + K * LDQ;
-    for (int i = tid; i < K * (2 * H / V); i += THREADS) {
-      const int r = i / (2 * H / V), c = i % (2 * H / V) * V;
-      *reinterpret_cast<uint4*>(s_wzr + r * LDZR + c) =
-          *reinterpret_cast<const uint4*>(w_zr + r * 2 * H + c);
-    }
-    for (int i = tid; i < K * (H / V); i += THREADS) {
-      const int r = i / (H / V), c = i % (H / V) * V;
-      *reinterpret_cast<uint4*>(s_wq + r * LDQ + c) =
-          *reinterpret_cast<const uint4*>(w_q + r * H + c);
-    }
-    wzr = s_wzr;
-    wq = s_wq;
-    ldzr = LDZR;
-    ldq = LDQ;
+  bf16* s_wzr = reinterpret_cast<bf16*>(smem);
+  bf16* s_wq = s_wzr + K * LDZR;
+  bf16* s = s_wq + K * LDQ;
+  for (int i = tid; i < K * (2 * H / V); i += THREADS) {
+    const int r = i / (2 * H / V), c = i % (2 * H / V) * V;
+    *reinterpret_cast<uint4*>(s_wzr + r * LDZR + c) =
+        *reinterpret_cast<const uint4*>(w_zr + r * 2 * H + c);
   }
-  T* s_hx = s;                             // [TM][LDA]   [bf16(h) | x]
-  T* s_u = s_hx + TM * LDA;                // [TM][LDA]   [bf16(r*h) | x]
-  T* s_dsq = s_u + TM * LDA;               // [TM][LDQ]
-  T* s_dszr = s_dsq + TM * LDQ;            // [TM][LDZR]  [ds_z | ds_r]
+  for (int i = tid; i < K * (H / V); i += THREADS) {
+    const int r = i / (H / V), c = i % (H / V) * V;
+    *reinterpret_cast<uint4*>(s_wq + r * LDQ + c) =
+        *reinterpret_cast<const uint4*>(w_q + r * H + c);
+  }
+  const bf16* wzr = s_wzr;
+  const bf16* wq = s_wq;
+  constexpr int ldzr = LDZR, ldq = LDQ;
+  bf16* s_hx = s;                          // [TM][LDA]   [bf16(h) | x]
+  bf16* s_u = s_hx + TM * LDA;             // [TM][LDA]   [bf16(r*h) | x]
+  bf16* s_dsq = s_u + TM * LDA;            // [TM][LDQ]
+  bf16* s_dszr = s_dsq + TM * LDQ;         // [TM][LDZR]  [ds_z | ds_r]
 
   // This lane's columns of a warp tile: cw + 8h + c2 + (e & 1), rows
   // 16·rt + gr + 8·(e >> 1), for h in {0, 1}, e in 0..3.
@@ -186,8 +190,8 @@ gru_bwd_kernel(const T* __restrict__ h0, const T* __restrict__ x,
   float hs[RT][2][4], dh[RT][2][4], z[RT][2][4], r[RT][2][4], q[RT][2][4], hn[RT][2][4];
   float dx[RT][4];
 
-  // v (this warp's columns) into a shared tile at column offset coff, as T
-  auto put = [&](T* dst, int ld, const float (&v)[RT][2][4], int coff) {
+  // v (this warp's columns) into a shared tile at column offset coff, as bf16
+  auto put = [&](bf16* dst, int ld, const float (&v)[RT][2][4], int coff) {
 #pragma unroll
     for (int rt = 0; rt < RT; ++rt)
 #pragma unroll
@@ -200,7 +204,7 @@ gru_bwd_kernel(const T* __restrict__ h0, const T* __restrict__ x,
   // z, r = sigmoid([h | x] W_zr + b_zr) from s_hx; bf16(r * h) into s_u
   auto gates_zr = [&]() {
     float acc[RT][2][2][4] = {}, none[RT][4];
-    warp_mma<T, 2, true>(acc, none, false, s_hx, LDA, wzr, ldzr, KS, nzr, 0);
+    warp_mma<bf16, 2, true>(acc, none, false, s_hx, LDA, wzr, ldzr, KS, nzr, 0);
     float rh[RT][2][4];
 #pragma unroll
     for (int rt = 0; rt < RT; ++rt)
@@ -217,7 +221,7 @@ gru_bwd_kernel(const T* __restrict__ h0, const T* __restrict__ x,
   // q = tanh([r*h | x] W_q + b_q) from s_u
   auto gate_q = [&]() {
     float acc[RT][1][2][4] = {}, none[RT][4];
-    warp_mma<T, 1, true>(acc, none, false, s_u, LDA, wq, ldq, KS, nw, 0);
+    warp_mma<bf16, 1, true>(acc, none, false, s_u, LDA, wq, ldq, KS, nw, 0);
 #pragma unroll
     for (int rt = 0; rt < RT; ++rt)
 #pragma unroll
@@ -305,8 +309,8 @@ gru_bwd_kernel(const T* __restrict__ h0, const T* __restrict__ x,
       const long long base = (long long)it * m + row0;
       gates_zr();
       __syncthreads();                     // s_u complete
-      spill<T, H, TM, THREADS>(sp_h, s_hx, LDA, base, nrows);
-      spill<T, H, TM, THREADS>(sp_u, s_u, LDA, base, nrows);
+      spill<bf16, H, TM, THREADS>(sp_h, s_hx, LDA, base, nrows);
+      spill<bf16, H, TM, THREADS>(sp_u, s_u, LDA, base, nrows);
       gate_q();
       {
         float dsz[RT][2][4], dsq[RT][2][4];
@@ -327,11 +331,11 @@ gru_bwd_kernel(const T* __restrict__ h0, const T* __restrict__ x,
         put(s_dsq, LDQ, dsq, cw);
       }
       __syncthreads();                     // ds_q, ds_z complete
-      spill<T, H, TM, THREADS>(sp_dsq, s_dsq, LDQ, base, nrows);
+      spill<bf16, H, TM, THREADS>(sp_dsq, s_dsq, LDQ, base, nrows);
       {
         // du = ds_q W_q^T: h columns (ds_r, dh) and x columns (dx)
         float acc[RT][1][2][4] = {}, acc8[RT][4] = {};
-        warp_mma<T, 1, false>(acc, acc8, x8, s_dsq, LDQ, wq, ldq, H / 16, nw, H + 8 * warp);
+        warp_mma<bf16, 1, false>(acc, acc8, x8, s_dsq, LDQ, wq, ldq, H / 16, nw, H + 8 * warp);
         float dsr[RT][2][4];
 #pragma unroll
         for (int rt = 0; rt < RT; ++rt) {
@@ -350,12 +354,12 @@ gru_bwd_kernel(const T* __restrict__ h0, const T* __restrict__ x,
         put(s_dszr, LDZR, dsr, H + cw);
       }
       __syncthreads();                     // ds_zr complete
-      spill<T, 2 * H, TM, THREADS>(sp_dszr, s_dszr, LDZR, base, nrows);
+      spill<bf16, 2 * H, TM, THREADS>(sp_dszr, s_dszr, LDZR, base, nrows);
       {
         // dhx = ds_zr W_zr^T
         float acc[RT][1][2][4] = {}, acc8[RT][4] = {};
-        warp_mma<T, 1, false>(acc, acc8, x8, s_dszr, LDZR, wzr, ldzr, 2 * H / 16, nw,
-                                  H + 8 * warp);
+        warp_mma<bf16, 1, false>(acc, acc8, x8, s_dszr, LDZR, wzr, ldzr, 2 * H / 16, nw,
+                                 H + 8 * warp);
 #pragma unroll
         for (int rt = 0; rt < RT; ++rt) {
 #pragma unroll
@@ -414,6 +418,370 @@ gru_bwd_kernel(const T* __restrict__ h0, const T* __restrict__ x,
   put_db(dbq, 2 * H);
 }
 
+// ------------------------------------------------------- f32 main kernel
+// The f32 route of the main kernel: a tile of F_TM = 32 points; thread (rg,
+// cg) owns rows rg + 8i (i < 4) and hidden columns 4cg .. 4cg + 4 of h, dh,
+// z, r and q, in registers.  Every product is C[32, N] += A[32, K] ·
+// B[K, N] with A a shared tile (row stride 4 mod 32 floats: the 4 rows a
+// warp's load reads fall in distinct banks) and B a weight matrix streamed
+// from device memory (held in L2) in stages of F_WST floats (32 rows of
+// 2H, 64 of H) by 16-byte cp.async into two stage buffers; the next
+// product's first stage is copied under the current product's last.  The
+// thread's 4 rows x 4 (q, W^T) or 8 (z|r) columns are fed per 4-deep step
+// by 4 A float4 loads and 4 or 8 B float4 loads: 8 or 11 FMAs a load.
+constexpr int F_TM = 32;
+constexpr int F_LDX = XMAX + 4;          // shared row strides (floats), 4 mod 32
+constexpr int F_LDH = H + 4;
+constexpr int F_LDZR = 2 * H + 4;
+constexpr int F_LDS = 3 * H + 4;
+constexpr int F_WST = 32 * 2 * H;        // one weight stage (floats)
+
+// rows [0, rows) x columns [0, cols) of a row-major matrix of row stride ld
+struct WSrc {
+  const float* p;
+  int ld, rows, cols;
+};
+
+constexpr size_t f32_smem_bytes() {
+  return ((size_t)F_TM * (F_LDX + 3 * F_LDH + F_LDZR + F_LDS) + 2 * F_WST) * sizeof(float);
+}
+
+// Stage ch (F_WST / b.cols rows; b.cols is H or 2H) of b into dst, 16 bytes
+// a copy, rows past b.rows zero.
+__device__ __forceinline__ void f32_fetch(const WSrc& b, int ch, float* dst) {
+  const int sh = b.cols == 2 * H ? 6 : 5, kc = F_WST / b.cols, k0 = ch * kc;
+  const int c = (threadIdx.x & ((1 << sh) - 1)) * 4;
+#pragma unroll
+  for (int i = threadIdx.x; i < F_WST / 4; i += THREADS) {
+    const int r = i >> sh;
+    const bool ok = k0 + r < b.rows;
+    cp_async16(dst + r * b.cols + c, ok ? b.p + (size_t)(k0 + r) * b.ld + c : b.p, ok);
+  }
+  cp_async_commit();
+}
+
+// acc[i][4g + j] += Σ_k A[rg + 8i][k] · B[k][g·H + c4 + j] over k < b.rows.
+// Stage 0 of b is in (or on its way to) stage buffer cur; the copy of nxt's
+// stage 0 (null: none) starts under b's last stage.  One barrier a stage,
+// before its products: it publishes the A tile and the landed stage, and
+// frees the other buffer for the next copy.  A thread may return while
+// others still read A, so the callers write a shared tile only after a
+// product that reads another one (the next barrier orders the rest).
+template <int NG>
+__device__ __forceinline__ void f32_mm(float (&acc)[4][4 * NG], const float* sa, int lda,
+                                       const WSrc& b, const WSrc* nxt, float* wst, int& cur,
+                                       int rg, int c4) {
+  const int kc = F_WST / b.cols, nch = (b.rows + kc - 1) / kc;
+  for (int ch = 0; ch < nch; ++ch) {
+    cp_async_wait<0>();
+    __syncthreads();                       // stage ch landed; the A tile is complete
+    if (ch + 1 < nch)
+      f32_fetch(b, ch + 1, wst + (cur ^ 1) * F_WST);
+    else if (nxt)
+      f32_fetch(*nxt, 0, wst + (cur ^ 1) * F_WST);
+    const float* st = wst + cur * F_WST + c4;
+    const float* a = sa + rg * lda + ch * kc;
+    const int kn = b.rows - ch * kc < kc ? b.rows - ch * kc : kc;
+#pragma unroll 2
+    for (int k = 0; k < kn; k += 4) {
+      float av[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        *reinterpret_cast<float4*>(av[i]) = *reinterpret_cast<const float4*>(a + 8 * i * lda + k);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float bv[NG][4];
+#pragma unroll
+        for (int g = 0; g < NG; ++g)
+          *reinterpret_cast<float4*>(bv[g]) =
+              *reinterpret_cast<const float4*>(st + (k + q) * b.cols + g * H);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int g = 0; g < NG; ++g)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              acc[i][4 * g + j] = fmaf(av[i][q], bv[g][j], acc[i][4 * g + j]);
+      }
+    }
+    cur ^= 1;
+  }
+}
+
+// The weights transposed for the backward's products through W^T, each
+// [3H][H]: wt_h[k][n] = [W_zr | W_q][n][k] (n < H: the h rows), wt_x[k][n]
+// = [W_zr | W_q][H + n][k] for n < xdim, zero beyond (the x rows).
+__global__ void gru_wt_f32(const float* __restrict__ w_zr, const float* __restrict__ w_q,
+                           int xdim, float* __restrict__ wt_h, float* __restrict__ wt_x) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < 3 * H * H; i += gridDim.x * blockDim.x) {
+    const int k = i / H, n = i % H;
+    const auto w = [&](int row) { return k < 2 * H ? w_zr[row * 2 * H + k] : w_q[row * H + k - 2 * H]; };
+    wt_h[i] = w(n);
+    wt_x[i] = n < xdim ? w(H + n) : 0.f;
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+gru_bwd_f32_kernel(const float* __restrict__ h0, const float* __restrict__ x,
+                   const float* __restrict__ w_zr, const float* __restrict__ b_zr,
+                   const float* __restrict__ w_q, const float* __restrict__ b_q,
+                   const float* __restrict__ wt_h, const float* __restrict__ wt_x,
+                   const float* __restrict__ g, int m, int xdim, int iters,
+                   float* __restrict__ dh0, float* __restrict__ dx_out,
+                   float* __restrict__ hsave, float* __restrict__ sp_h,
+                   float* __restrict__ sp_u, float* __restrict__ sp_dszr,
+                   float* __restrict__ sp_dsq, float* __restrict__ db_part) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* s_x = reinterpret_cast<float*>(smem);   // [TM][F_LDX]  x
+  float* s_h = s_x + F_TM * F_LDX;               // [TM][F_LDH]  h
+  float* s_u = s_h + F_TM * F_LDH;               // [TM][F_LDH]  r*h
+  float* s_dsq = s_u + F_TM * F_LDH;             // [TM][F_LDH]  ds_q
+  float* s_dszr = s_dsq + F_TM * F_LDH;          // [TM][F_LDZR] [ds_z | ds_r]
+  float* s_sum = s_dszr + F_TM * F_LDZR;         // [TM][F_LDS]  Σ over iterations of [ds_z | ds_r | ds_q]
+  float* wst = s_sum + F_TM * F_LDS;             // 2 weight stages of F_WST floats
+  const int tid = threadIdx.x, warp = tid >> 5, l = tid & 31;
+  const int rg = 4 * (warp & 1) + (l >> 3), cg = 8 * (warp >> 1) + (l & 7), c4 = 4 * cg;
+  const WSrc zrx{w_zr + H * 2 * H, 2 * H, xdim, 2 * H}, qx{w_q + H * H, H, xdim, H};
+  const WSrc zrh{w_zr, 2 * H, H, 2 * H}, qh{w_q, H, H, H};
+  const WSrc wtzr{wt_h, H, 2 * H, H}, wtq{wt_h + 2 * H * H, H, H, H}, wtx{wt_x, H, 3 * H, H};
+  float dbz[4] = {}, dbr[4] = {}, dbq[4] = {};
+  const int slots = iters > 1 ? iters - 1 : 0;
+  float4* hslots = reinterpret_cast<float4*>(hsave) + (size_t)blockIdx.x * slots * 4 * THREADS;
+  auto slot = [&](int it, int i) { return hslots + ((size_t)it * 4 + i) * THREADS + tid; };
+  int cur = 0;
+
+  // v (this thread's 4 x 4) into a shared tile at column offset coff
+  auto put = [&](float* dst, int ld, const float (&v)[4][4], int coff) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<float4*>(dst + (rg + 8 * i) * ld + coff + c4) =
+          *reinterpret_cast<const float4*>(v[i]);
+  };
+  // v's rows below nrows to device memory [row base + r][ld] at column coff
+  auto spill = [&](float* dst, int ld, const float (&v)[4][4], long long base, int coff,
+                   int nrows) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (rg + 8 * i < nrows)
+        *reinterpret_cast<float4*>(dst + (base + rg + 8 * i) * ld + coff + c4) =
+            *reinterpret_cast<const float4*>(v[i]);
+  };
+  auto add_sum = [&](const float (&v)[4][4], int coff) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float4* p = reinterpret_cast<float4*>(s_sum + (rg + 8 * i) * F_LDS + coff + c4);
+      const float4 a = *p;
+      *p = make_float4(a.x + v[i][0], a.y + v[i][1], a.z + v[i][2], a.w + v[i][3]);
+    }
+  };
+
+  const int tiles = (m + F_TM - 1) / F_TM;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int row0 = t * F_TM;
+    const int nrows = m - row0 < F_TM ? m - row0 : F_TM;
+    f32_fetch(zrx, 0, wst + cur * F_WST);
+    // x (zero past m) into s_x; this thread's h0 and g; Σds = 0
+    const int xc = xdim / 4;
+    for (int i = tid; i < F_TM * xc; i += THREADS) {
+      const int rr = i / xc, c = (i - rr * xc) * 4;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (rr < nrows) v = *reinterpret_cast<const float4*>(x + (size_t)(row0 + rr) * xdim + c);
+      *reinterpret_cast<float4*>(s_x + rr * F_LDX + c) = v;
+    }
+    float hs[4][4], dh[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int rr = rg + 8 * i;
+      float4 hv = make_float4(0.f, 0.f, 0.f, 0.f), gv = hv;
+      if (rr < nrows) {
+        const size_t o = (size_t)(row0 + rr) * H + c4;
+        hv = *reinterpret_cast<const float4*>(h0 + o);
+        gv = *reinterpret_cast<const float4*>(g + o);
+      }
+      *reinterpret_cast<float4*>(hs[i]) = hv;
+      *reinterpret_cast<float4*>(dh[i]) = gv;
+#pragma unroll
+      for (int part = 0; part < 3; ++part)
+        *reinterpret_cast<float4*>(s_sum + rr * F_LDS + part * H + c4) =
+            make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    put(s_h, F_LDH, hs, 0);
+
+    // x·W_x + b once a tile: the starting values of every gate product
+    float xzr[4][8] = {}, xq[4][4] = {};
+    f32_mm<2>(xzr, s_x, F_LDX, zrx, &qx, wst, cur, rg, c4);
+    f32_mm<1>(xq, s_x, F_LDX, qx, iters > 0 ? &zrh : &wtx, wst, cur, rg, c4);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float bz = b_zr[c4 + j], br = b_zr[H + c4 + j], bq = b_q[c4 + j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        xzr[i][j] += bz;
+        xzr[i][4 + j] += br;
+        xq[i][j] += bq;
+      }
+    }
+
+    float z[4][4], r[4][4], q[4][4], rh[4][4];
+    // z, r = sigmoid(h W_h,zr + x W_x,zr + b_zr); r*h into s_u
+    auto gate_zr = [&]() {
+      float acc[4][8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = xzr[i][j];
+      f32_mm<2>(acc, s_h, F_LDH, zrh, &qh, wst, cur, rg, c4);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          z[i][j] = sigmoid_f32(acc[i][j]);
+          r[i][j] = sigmoid_f32(acc[i][4 + j]);
+          rh[i][j] = r[i][j] * hs[i][j];
+        }
+      put(s_u, F_LDH, rh, 0);
+    };
+    // q = tanh((r*h) W_h,q + x W_x,q + b_q)
+    auto gate_q = [&](const WSrc* nxt) {
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = xq[i][j];
+      f32_mm<1>(acc, s_u, F_LDH, qh, nxt, wst, cur, rg, c4);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) q[i][j] = tanhf(acc[i][j]);
+    };
+
+    // ---- forward over iters - 1 iterations, keeping each input state
+    for (int it = 0; it + 1 < iters; ++it) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) *slot(it, i) = *reinterpret_cast<const float4*>(hs[i]);
+      gate_zr();
+      gate_q(&zrh);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) hs[i][j] = (1.f - z[i][j]) * hs[i][j] + z[i][j] * q[i][j];
+      put(s_h, F_LDH, hs, 0);
+    }
+
+    // ---- backward, iterations in reverse; hs is this iteration's input
+    for (int it = iters - 1; it >= 0; --it) {
+      float hn[4][4];
+      if (it > 0) {                        // the next input state, under this iteration
+#pragma unroll
+        for (int i = 0; i < 4; ++i) *reinterpret_cast<float4*>(hn[i]) = *slot(it - 1, i);
+      }
+      const long long base = (long long)it * m + row0;
+      gate_zr();
+      spill(sp_h, H, hs, base, 0, nrows);
+      spill(sp_u, H, rh, base, 0, nrows);
+      gate_q(&wtq);
+      {
+        float dsz[4][4], dsq[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float zv = z[i][j], qv = q[i][j], d = dh[i][j];
+            dsz[i][j] = d * (qv - hs[i][j]) * zv * (1.f - zv);
+            dsq[i][j] = d * zv * (1.f - qv * qv);
+            dh[i][j] = d * (1.f - zv);
+            dbz[j] += dsz[i][j];
+            dbq[j] += dsq[i][j];
+          }
+        put(s_dsq, F_LDH, dsq, 0);
+        put(s_dszr, F_LDZR, dsz, 0);
+        add_sum(dsz, 0);
+        add_sum(dsq, 2 * H);
+        spill(sp_dsq, H, dsq, base, 0, nrows);
+        spill(sp_dszr, 2 * H, dsz, base, 0, nrows);
+      }
+      {
+        // drh = ds_q W_h,q^T
+        float acc[4][4] = {}, dsr[4][4];
+        f32_mm<1>(acc, s_dsq, F_LDH, wtq, &wtzr, wst, cur, rg, c4);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float drh = acc[i][j], rv = r[i][j];
+            dh[i][j] += drh * rv;
+            dsr[i][j] = drh * hs[i][j] * rv * (1.f - rv);
+            dbr[j] += dsr[i][j];
+          }
+        put(s_dszr, F_LDZR, dsr, H);
+        add_sum(dsr, H);
+        spill(sp_dszr, 2 * H, dsr, base, H, nrows);
+      }
+      {
+        // dh += ds_zr W_h,zr^T
+        float acc[4][4] = {};
+        f32_mm<1>(acc, s_dszr, F_LDZR, wtzr, it > 0 ? &zrh : &wtx, wst, cur, rg, c4);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) dh[i][j] += acc[i][j];
+      }
+      if (it > 0) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) hs[i][j] = hn[i][j];
+        put(s_h, F_LDH, hs, 0);
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (rg + 8 * i < nrows)
+        *reinterpret_cast<float4*>(dh0 + (size_t)(row0 + rg + 8 * i) * H + c4) =
+            *reinterpret_cast<const float4*>(dh[i]);
+    {
+      // dx = Σ_it ds · W_x^T = Σds [32, 3H] · wt_x, once a tile (its columns
+      // past xdim are zero and not stored)
+      float acc[4][4] = {};
+      f32_mm<1>(acc, s_sum, F_LDS, wtx, nullptr, wst, cur, rg, c4);
+      if (c4 < xdim) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (rg + 8 * i < nrows)
+            *reinterpret_cast<float4*>(dx_out + (size_t)(row0 + rg + 8 * i) * xdim + c4) =
+                *reinterpret_cast<const float4*>(acc[i]);
+      }
+    }
+    __syncthreads();                       // s_x and Σds read before the next tile
+  }
+
+  // db: a column's 8 row groups summed in a fixed order (lanes l ^ 8, l ^ 16
+  // by shuffles, then the warp pair), one row of partials a block
+  float v[12];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    v[j] = dbz[j];
+    v[4 + j] = dbr[j];
+    v[8 + j] = dbq[j];
+  }
+#pragma unroll
+  for (int e = 0; e < 12; ++e) {
+    v[e] += __shfl_xor_sync(0xffffffffu, v[e], 8);
+    v[e] += __shfl_xor_sync(0xffffffffu, v[e], 16);
+  }
+  float* red = s_dsq;                      // [2][32 column groups][12]
+  if (l < 8) {
+#pragma unroll
+    for (int e = 0; e < 12; ++e) red[((warp & 1) * 32 + cg) * 12 + e] = v[e];
+  }
+  __syncthreads();
+  for (int e = tid; e < 3 * H; e += THREADS) {
+    const int part = e / H, col = e % H, k = (col / 4) * 12 + part * 4 + col % 4;
+    db_part[(size_t)blockIdx.x * 3 * H + e] = red[k] + red[32 * 12 + k];
+  }
+}
+
 // ------------------------------------------------------- dW product
 // dW[k][n] = Σ_rows A[row][k] · B[row][n] for one slice of rows and 128
 // output columns cb: cb 0, 1 the two halves of dW_zr (A = [h | x], B =
@@ -442,13 +810,32 @@ __device__ __forceinline__ void dw_step(float (&acc)[3][8][4], const T* sa, cons
           mma16816(acc[i][2 * j + 1], fa[i], fb[j][2], fb[j][3]);
         }
   } else {
+    // f32: thread (kg, ng) = (t / 16, t % 16) owns dW rows 64i + 4kg + kk
+    // (i < 3, kk < 4) x columns 64nh + 4ng + e (nh < 2, e < 4) of the block,
+    // as acc[i][2kk + nh][e]; per stage row 3 + 2 float4 loads feed 96 FMAs
+    // (rows past K are computed from the stage's padding and not stored).
+    const int kg = threadIdx.x >> 4, ng = threadIdx.x & 15;
+#pragma unroll 2
+    for (int rr = 0; rr < 16; ++rr) {
+      float av[3][4], bv[2][4];
 #pragma unroll
-    for (int i = 0; i < 3; ++i)
-      if (3 * wm + i < ks)
+      for (int i = 0; i < 3; ++i)
+        *reinterpret_cast<float4*>(av[i]) =
+            *reinterpret_cast<const float4*>(sa + rr * DW_LDA + 64 * i + 4 * kg);
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          fma16816<true, true>(acc[i][j], sa + (3 * wm + i) * 16, DW_LDA, sb + wn * 64 + j * 8,
-                               DW_LDB);
+      for (int nh = 0; nh < 2; ++nh)
+        *reinterpret_cast<float4*>(bv[nh]) =
+            *reinterpret_cast<const float4*>(sb + rr * DW_LDB + 64 * nh + 4 * ng);
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int nh = 0; nh < 2; ++nh)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[i][2 * kk + nh][e] = fmaf(av[i][kk], bv[nh][e], acc[i][2 * kk + nh][e]);
+    }
   }
 }
 
@@ -517,24 +904,38 @@ gru_bwd_dw_kernel(const T* __restrict__ sp_h, const T* __restrict__ sp_u,
   float* part = cb < 2 ? part_zr + (size_t)slice * K * 2 * H + cb * DW_N
                        : part_q + (size_t)slice * K * H;
   const int ldp = cb < 2 ? 2 * H : H;
-  const int gr = l >> 2, c2 = (l & 3) * 2;
+  if constexpr (std::is_same<T, bf16>::value) {
+    const int gr = l >> 2, c2 = (l & 3) * 2;
 #pragma unroll
-  for (int i = 0; i < 3; ++i)
-    if (3 * wm + i < KS)
+    for (int i = 0; i < 3; ++i)
+      if (3 * wm + i < KS)
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 2; ++e)
-          *reinterpret_cast<float2*>(part + (size_t)((3 * wm + i) * 16 + gr + 8 * e) * ldp +
-                                     wn * 64 + j * 8 + c2) =
-              make_float2(acc[i][j][2 * e], acc[i][j][2 * e + 1]);
+          for (int e = 0; e < 2; ++e)
+            *reinterpret_cast<float2*>(part + (size_t)((3 * wm + i) * 16 + gr + 8 * e) * ldp +
+                                       wn * 64 + j * 8 + c2) =
+                make_float2(acc[i][j][2 * e], acc[i][j][2 * e + 1]);
+  } else {
+    const int kg = tid >> 4, ng = tid & 15;
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        if (64 * i + 4 * kg + kk < K)
+#pragma unroll
+          for (int nh = 0; nh < 2; ++nh)
+            *reinterpret_cast<float4*>(part + (size_t)(64 * i + 4 * kg + kk) * ldp + 64 * nh +
+                                       4 * ng) =
+                *reinterpret_cast<const float4*>(acc[i][2 * kk + nh]);
+  }
 }
 
 // ------------------------------------------------------- host side
 // Scratch layout (each piece 256-byte aligned) and the launch shapes, all
 // from (m, xdim, iters) alone.
 struct Scratch {
-  size_t hsave, sp_h, sp_u, sp_dszr, sp_dsq, db_part, part_zr, part_q, total;
+  size_t hsave, sp_h, sp_u, sp_dszr, sp_dsq, db_part, part_zr, part_q, wt, total;
   int grid, slices;
 };
 
@@ -557,6 +958,7 @@ Scratch scratch_layout(int m, int xdim, int iters) {
   s.db_part = o; o += align256((size_t)s.grid * 3 * H * 4);
   s.part_zr = o; o += align256((size_t)s.slices * k * 2 * H * 4);
   s.part_q = o;  o += align256((size_t)s.slices * k * H * 4);
+  s.wt = o;      o += sizeof(T) == 4 ? align256((size_t)2 * 3 * H * H * 4) : 0;
   s.total = o;
   return s;
 }
@@ -577,18 +979,32 @@ int run(const void* h0, const void* x, const void* w_zr, const void* b_zr,
   T* sp_dszr = (T*)(s + sc.sp_dszr);
   T* sp_dsq = (T*)(s + sc.sp_dsq);
   cudaError_t e;
-  if (m > 0) {
-    const size_t smem = main_smem_bytes<T>(k);
-    e = cudaFuncSetAttribute(gru_bwd_kernel<T>,
+  if (m == 0) {
+    if ((e = cudaMemsetAsync(db_part, 0, 3 * H * 4, st)) != cudaSuccess) return (int)e;
+  } else if constexpr (sizeof(T) == 4) {
+    float* wt = (float*)(s + sc.wt);
+    gru_wt_f32<<<48, 256, 0, st>>>((const float*)w_zr, (const float*)w_q, xdim, wt,
+                                   wt + 3 * H * H);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    e = cudaFuncSetAttribute(gru_bwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)f32_smem_bytes());
+    if (e != cudaSuccess) return (int)e;
+    gru_bwd_f32_kernel<<<sc.grid, THREADS, f32_smem_bytes(), st>>>(
+        (const float*)h0, (const float*)x, (const float*)w_zr, (const float*)b_zr,
+        (const float*)w_q, (const float*)b_q, wt, wt + 3 * H * H, (const float*)g, m, xdim,
+        iters, (float*)dh0, (float*)dx, (float*)(s + sc.hsave), (float*)sp_h, (float*)sp_u,
+        (float*)sp_dszr, (float*)sp_dsq, db_part);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  } else {
+    const size_t smem = main_smem_bytes(k);
+    e = cudaFuncSetAttribute(gru_bwd_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    gru_bwd_kernel<T><<<sc.grid, THREADS, smem, st>>>(
+    gru_bwd_kernel<<<sc.grid, THREADS, smem, st>>>(
         (const T*)h0, (const T*)x, (const T*)w_zr, (const T*)b_zr, (const T*)w_q,
         (const T*)b_q, (const T*)g, m, xdim, iters, (T*)dh0, (T*)dx,
         (float*)(s + sc.hsave), sp_h, sp_u, sp_dszr, sp_dsq, db_part);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  } else if ((e = cudaMemsetAsync(db_part, 0, 3 * H * 4, st)) != cudaSuccess) {
-    return (int)e;
   }
   const size_t dw_smem = (size_t)DW_STAGES * dw_stage<T>() * sizeof(T);
   e = cudaFuncSetAttribute(gru_bwd_dw_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,

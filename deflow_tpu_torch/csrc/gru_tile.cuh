@@ -1,6 +1,6 @@
 // Warp-level pieces shared by the GRU forward (fused_gru.cu) and backward
-// (fused_gru_bwd.cu): ldmatrix operand loads, mma.sync m16n8k16 with its
-// f32 FFMA stand-in, the RT x 16-row warp product over a shared A tile,
+// (fused_gru_bwd.cu): ldmatrix operand loads, mma.sync m16n8k16, the
+// RT x 16-row bf16 warp product over a shared A tile,
 // pair loads and stores, cp.async, and the 16-byte copy of a shared tile to
 // device memory.  ldsm4 and mma16816 are copies of cbg.cu's (that file
 // stays as it is).
@@ -45,87 +45,46 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const unsigned (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The f32 stand-in for one m16n8k16 step, in mma.sync's accumulator layout:
-// A(i, k) = a[i * lda + k] (a[k * lda + i] when AT), B(k, j) = b[k * ldb + j]
-// (KN) or b[j * ldb + k].
-template <bool AT, bool KN>
-__device__ __forceinline__ void fma16816(float (&d)[4], const float* a, int lda, const float* b,
-                                         int ldb) {
-  const int l = threadIdx.x & 31, g = l >> 2, c = (l & 3) * 2;
-#pragma unroll 4
-  for (int k = 0; k < 16; ++k) {
-    const float a0 = AT ? a[k * lda + g] : a[g * lda + k];
-    const float a1 = AT ? a[k * lda + g + 8] : a[(g + 8) * lda + k];
-    const float b0 = KN ? b[k * ldb + c] : b[c * ldb + k];
-    const float b1 = KN ? b[k * ldb + c + 1] : b[(c + 1) * ldb + k];
-    d[0] = fmaf(a0, b0, d[0]);
-    d[1] = fmaf(a0, b1, d[1]);
-    d[2] = fmaf(a1, b0, d[2]);
-    d[3] = fmaf(a1, b1, d[3]);
-  }
-}
-
 // acc[rt][j] (16 x 16: rows 16·rt.., columns n0[j]..) and, when x8,
 // acc8[rt] (16 x 8 at column n8; B(k, n) = b[n * ldb + k] only) += A · B
-// over ks 16-deep steps.  A [16·RT][lda] row-major in shared memory;
-// B(k, n) = b[k * ldb + n] (KN) or b[n * ldb + k].  bf16: each A fragment
+// over ks 16-deep steps, in bf16.  A [16·RT][lda] row-major in shared
+// memory; B(k, n) = b[k * ldb + n] (KN) or b[n * ldb + k].  Each A fragment
 // serves every column tile, each B fragment every row tile.
 template <typename T, int NJ, bool KN, int RT>
 __device__ __forceinline__ void warp_mma(float (&acc)[RT][NJ][2][4], float (&acc8)[RT][4],
                                          bool x8, const T* a, int lda, const T* b, int ldb,
                                          int ks, const int (&n0)[NJ], int n8) {
+  static_assert(std::is_same<T, bf16>::value, "warp_mma: bf16 operands");
   const int l = threadIdx.x & 31;
-  if constexpr (std::is_same<T, bf16>::value) {
-    for (int kk = 0; kk < ks; ++kk) {
-      unsigned fa[RT][4];
+  for (int kk = 0; kk < ks; ++kk) {
+    unsigned fa[RT][4];
 #pragma unroll
-      for (int rt = 0; rt < RT; ++rt)
-        ldsm4<false>(fa[rt], a + (rt * 16 + (l & 15)) * lda + kk * 16 + (l >> 4) * 8);
+    for (int rt = 0; rt < RT; ++rt)
+      ldsm4<false>(fa[rt], a + (rt * 16 + (l & 15)) * lda + kk * 16 + (l >> 4) * 8);
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        unsigned fb[4];
-        if constexpr (KN)
-          ldsm4<true>(fb, b + (kk * 16 + (l & 15)) * ldb + n0[j] + (l >> 4) * 8);
-        else
-          ldsm4<false>(fb, b + (n0[j] + (l >> 4) * 8 + (l & 7)) * ldb + kk * 16 + (l >> 3 & 1) * 8);
-#pragma unroll
-        for (int rt = 0; rt < RT; ++rt) {
-          mma16816(acc[rt][j][0], fa[rt], fb[0], fb[1]);
-          mma16816(acc[rt][j][1], fa[rt], fb[2], fb[3]);
-        }
-      }
-      if (x8) {
-        unsigned fb[2];
-        ldsm2(fb, b + (n8 + (l & 7)) * ldb + kk * 16 + (l >> 3 & 1) * 8);
-#pragma unroll
-        for (int rt = 0; rt < RT; ++rt) mma16816(acc8[rt], fa[rt], fb[0], fb[1]);
-      }
-    }
-  } else {
-    for (int kk = 0; kk < ks; ++kk) {
-      const int k0 = kk * 16;
+    for (int j = 0; j < NJ; ++j) {
+      unsigned fb[4];
+      if constexpr (KN)
+        ldsm4<true>(fb, b + (kk * 16 + (l & 15)) * ldb + n0[j] + (l >> 4) * 8);
+      else
+        ldsm4<false>(fb, b + (n0[j] + (l >> 4) * 8 + (l & 7)) * ldb + kk * 16 + (l >> 3 & 1) * 8);
 #pragma unroll
       for (int rt = 0; rt < RT; ++rt) {
-        const T* ap = a + rt * 16 * lda + k0;
-#pragma unroll
-        for (int j = 0; j < NJ; ++j)
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-            fma16816<false, KN>(acc[rt][j][h], ap, lda,
-                                KN ? b + k0 * ldb + n0[j] + h * 8 : b + (n0[j] + h * 8) * ldb + k0,
-                                ldb);
-        if (x8) fma16816<false, false>(acc8[rt], ap, lda, b + n8 * ldb + k0, ldb);
+        mma16816(acc[rt][j][0], fa[rt], fb[0], fb[1]);
+        mma16816(acc[rt][j][1], fa[rt], fb[2], fb[3]);
       }
+    }
+    if (x8) {
+      unsigned fb[2];
+      ldsm2(fb, b + (n8 + (l & 7)) * ldb + kk * 16 + (l >> 3 & 1) * 8);
+#pragma unroll
+      for (int rt = 0; rt < RT; ++rt) mma16816(acc8[rt], fa[rt], fb[0], fb[1]);
     }
   }
 }
 
-__device__ __forceinline__ float2 ld2(const float* p) { return *reinterpret_cast<const float2*>(p); }
 __device__ __forceinline__ float2 ld2(const bf16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ void st2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 __device__ __forceinline__ void st2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);

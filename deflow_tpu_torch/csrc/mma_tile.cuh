@@ -2,7 +2,11 @@
 //
 //   Acc<bf16>:  tensor cores through WMMA (16x16x16 bf16, f32 accumulate);
 //   Acc<float>: plain FFMA (each lane holds row lane/2, columns
-//               (lane%2)*8 .. +8), for the f32 parity runs.
+//               (lane%2)*8 .. +8), the CBG backward's f32 route.  A lane
+//               loads one A and eight B elements for every eight FMAs, so
+//               shared-memory loads hold it near a quarter of the FFMA
+//               rate: not tuned (the CBG forward's f32 route has its own
+//               register-blocked tile in cbg.cu).
 //
 // acc.mma<A_ROW, B_ROW>(a, lda, b, ldb) adds the 16x16 product of one
 // 16-deep step: A(m, k) = a[m*lda + k] when A_ROW, a[k*lda + m] otherwise;

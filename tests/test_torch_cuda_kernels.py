@@ -381,6 +381,28 @@ def test_fused_gru_bwd_is_deterministic(dev, dtype):
         assert _rel_err(a, ref) <= GRAD_TOL[dtype], (name, _rel_err(a, ref))
 
 
+@pytest.mark.parametrize("xdim", [48, 64])
+@pytest.mark.parametrize("m,iters", [(95, 4), (32 * 133 + 5, 4), (4229, 3), (33, 1)])
+def test_fused_gru_bwd_f32_route(dev, m, xdim, iters):
+    """The f32 route (its own main kernel, the dW kernel's f32 micro-tile):
+    point counts that are not a multiple of its 32-point tile, more tiles
+    than the constant wave of blocks, input widths of three and four
+    16-wide steps; held to its plain version within the f32 gradient
+    tolerance (inside phase 3's 1e-4) and bit for bit between two
+    launches."""
+    g = torch.Generator().manual_seed(m + xdim + iters)
+    args = _gru_bwd_args(g, m, xdim, torch.float32, dev)
+    first = gru.fused_gru_bwd(*args, iters)
+    second = gru.fused_gru_bwd(*args, iters)
+    want = gru.fused_gru_bwd_plain(*args, iters)
+    torch.cuda.synchronize()
+    for name, a, b, ref in zip(("dh0", "dx", "dw_zr", "db_zr", "dw_q", "db_q"),
+                               first, second, want):
+        assert torch.equal(a, b), name
+        assert a.shape == ref.shape and torch.isfinite(a).all(), name
+        assert _rel_err(a, ref) <= GRAD_TOL[torch.float32], (name, _rel_err(a, ref))
+
+
 def test_fused_gru_autograd_launches(dev):
     g = torch.Generator().manual_seed(3)
     args = [(torch.randn(s, generator=g) * 0.1).to(dev).requires_grad_()
@@ -513,6 +535,36 @@ def test_cbg_block_bwd_is_deterministic(dev, dtype, shape):
     torch.cuda.synchronize()
     for a, b_ in zip(first, second):
         assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("head", [False, True])
+@pytest.mark.parametrize("shape", [  # (B, H, W, C, O)
+    (2, 7, 100, 64, 64), (1, 5, 70, 128, 128), (2, 3, 90, 256, 256),
+    (1, 6, 40, 64, 128), (1, 4, 20, 128, 64), (2, 5, 36, 48, 80)])
+def test_cbg_block_fwd_f32_route(dev, head, shape):
+    """The forward's f32 route (its 8 x 8 FFMA micro-tile, 4 rows a block at
+    <= 64 input channels and 2 above, input channels in chunks of 32): rows
+    not a multiple of its row group, map widths that are not a multiple of
+    64, 64, 128 and 256 channels, C != O both ways, a ragged last chunk and
+    widths that are not a multiple of 32; held to its
+    plain version within the f32 tolerances of test_cbg_block_fwd (inside
+    phase 3's 1e-4), one partial-sum row a row group, and bit for bit
+    between two launches."""
+    from deflow_tpu_torch.ops import _build, cbg
+
+    g = torch.Generator().manual_seed(sum(shape) * 7 + head)
+    b, h, w, c, _ = shape
+    x, wm, bias, scal = _cbg_inputs(g, shape, torch.float32, dev, head)
+    first = cbg.cbg_block_fwd(x, wm, bias, scal)
+    second = cbg.cbg_block_fwd(x, wm, bias, scal)
+    s_ref, ps_ref = cbg.cbg_block_fwd_plain(x, wm, bias, scal)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+    lib = _build.load("cbg", cbg._setup)
+    assert first[1].shape[0] == lib.cbg_fwd_blocks(b, h, w, c, 0)
+    assert _rel_err(first[0], s_ref) <= 1e-5
+    assert _rel_err(first[1].sum(0), ps_ref.sum(0)) <= GRAD_TOL[torch.float32]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

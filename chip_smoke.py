@@ -20,8 +20,9 @@ Phases (any failure exits non-zero):
    98,304), the GRU backward and both fused blocks timed as well, against
    the f32 bound (67 TFLOP/s, f32 bytes) and their library sequences in
    f32 (cuBLAS sgemm, cuDNN, TF32 off), under each result's "f32" key (the
-   GRU forward's train shape under "f32_train"; the GRU backward's f32
-   route also split by kernel); first, every plan fed to a segment-sum is
+   GRU forward's train shape under "f32_train"; the f32 routes of the GRU
+   backward and the fused block backward also split by kernel: main
+   kernel, dW product, reductions; dgrad, wgrad, reduction); first, every plan fed to a segment-sum is
    checked to ascend within each sample, sentinels last; the segment-sum also bit
    for bit on integer features, at the train path's embedder shape and on
    the skewed clouds' pillar ids (points per occupied pillar); the
@@ -962,7 +963,7 @@ def hold_cbg(model, g, splits: list) -> dict:
                  lambda: cbg.cbg_block_fwd_plain(*fa32),
                  lambda: lib_fwd(torch.float32, x32_cl),
                  npix * (c + o) * 4 + 9 * c * o * 4, flops),
-                ("cbg_bwd", eb32, lambda: cbg.cbg_block_bwd(*ba32),
+                ("cbg_bwd", eb32, lambda ba32=ba32: cbg.cbg_block_bwd(*ba32),
                  lambda: cbg.cbg_block_bwd_plain(*ba32),
                  lambda: lib_bwd(torch.float32, ba32),
                  npix * (2 * o + c) * 4 + npix * c * 4 + 9 * c * o * 4, 2 * flops)):
@@ -970,6 +971,8 @@ def hold_cbg(model, g, splits: list) -> dict:
                 err, fn, plain, lib, nbytes, fl, call, f"{shape[0]}x{res}x{res}x{c}->{o}",
                 (10, 3, 5))
             print_timing(f"{kname} f32", r)
+            if kname == "cbg_bwd":
+                splits.append(("cbg_bwd f32", r, fn))
     return results
 
 
@@ -2166,7 +2169,7 @@ def _category(name: str) -> str:
                       ("cbg_bwd", ("cbg_dgrad", "cbg_wgrad", "wgrad_reduce")),
                       ("segment_sum", ("segment_sum",)),
                       ("sorted_gather", ("rows_kernel", "chunk_kernel")),
-                      ("fused_gru", ("gru_fwd", "gru_f32")),
+                      ("fused_gru", ("gru_fwd",)),
                       ("conv/matmul (cuDNN, cuBLAS)",
                        ("conv", "cudnn", "xmma", "fprop", "implicit",
                         "winograd", "gemm")),

@@ -26,13 +26,17 @@
 //
 // Design.  bf16 products run on the tensor cores (WMMA in the backward,
 // mma.sync with ldmatrix operands in the forward).  f32 products run in
-// true f32 on FFMA, as the plain versions do.  The forward's f32 route
-// gives each lane an 8 x 8 outer product (8 pixels x 8 output channels),
-// fed by float2 window and float4 weight loads from shared memory: a
-// quarter of a float an FMA, what an SM's shared memory serves at the FFMA
-// rate (a 16x16 FFMA tile that reloads an operand for every FMA or two
-// is capped by its loads near a quarter of that rate).  The backward's f32
-// route keeps those 16x16 FFMA tiles (mma_tile.cuh Acc<float>): not tuned.
+// true f32 on FFMA, as the plain versions do, in kernels of their own
+// (templates and `if constexpr` arms that the bf16 instantiations do not
+// see) with register-blocked micro-tiles: a 16x16 FFMA tile that reloads
+// an operand for every FMA or two is capped by its shared-memory loads
+// near a quarter of the FFMA rate.  The forward's f32 route gives each lane
+// an 8 x 8 outer product (8 pixels x 8 output channels), fed by float2
+// window and float4 weight loads: a quarter of a float an FMA.  The
+// backward's dgrad takes the same 8 x 8 tile (8 pixels x 8 input channels,
+// float2 loads of both operands), its wgrad a 3 x 4 x 8 tile (3 taps x 4
+// input x 8 output channels) that slides along a row of pixels: 12 floats
+// for 96 FMAs (see "f32 backward" below).
 // Prologues (input BN and GELU, or the BN backward for ds) run in f32 and
 // round to the compute dtype exactly as the products consume them.  No
 // float atomics: partials are reduced in an order fixed by the shape alone,
@@ -66,7 +70,7 @@
 // dgrad block per 64 pixels restages 9·C·O weights (~151 M) and rebuilds
 // each ds row, with its BN backward, three times.  So:
 // - wgrad: a block owns one 64x64 (c, o) tile pair and a slab of work units
-//   (4 image rows of one sample x 64 pixels in bf16).  Each unit is staged
+//   (4 image rows of one sample x 64 pixels in bf16, 2 in f32).  Each unit is staged
 //   once, xa with a one-pixel halo, with 16-byte cp.async copies into two
 //   stages (the next unit's copy runs under the current unit's products);
 //   every tap is a constant offset into the stage, and the block's warps
@@ -77,7 +81,8 @@
 //   at 256), so each staged tap of weights serves 2-4x the pixels; at <= 64
 //   channels all 9 taps stay in shared memory, at 128 the next tap is copied
 //   with cp.async under the current tap's products.  Output channels beyond
-//   128 stream through the ds window in chunks of 128, as the forward's
+//   128 stream through the ds window in chunks of 128 (f32: of 32, two taps
+//   double-buffered at every width, two blocks an SM), as the forward's
 //   input channels do.  Each ds row lands in
 //   1.5-2 windows, not 3; the window's BN backward reads its scalars from
 //   shared memory and moves 16 bytes a load and store, as does the epilogue.
@@ -112,6 +117,7 @@ __device__ __forceinline__ float gelu_grad(float x) {
 }
 
 __host__ __device__ inline int r16(int v) { return (v + 15) / 16 * 16; }
+__host__ __device__ inline int r32(int v) { return (v + 31) / 32 * 32; }
 __host__ __device__ inline int r64(int v) { return (v + 63) / 64 * 64; }
 __host__ __device__ inline int chunk16(int v) { return r16(v) < CHUNK ? r16(v) : CHUNK; }
 __host__ inline size_t align256(size_t v) { return (v + 255) & ~(size_t)255; }
@@ -120,8 +126,8 @@ __host__ inline size_t align256(size_t v) { return (v + 255) & ~(size_t)255; }
 // part[slab][tap][c][o] (c, o padded to 64) = Σ over the slab's pixels of
 // xa(pixel shifted by the tap)[c] · ds(pixel)[o], zero outside the image.
 //
-// A work unit is R = wg_rows<T>() image rows of one sample (4 in bf16, 1 in
-// f32, which must fit two stages in shared memory) x one 64-pixel segment.
+// A work unit is R = wg_rows<T>() = 4 image rows of one sample (bf16; the
+// f32 route's kernel is below) x one 64-pixel segment.
 // Its stage holds xa for those rows with a one-pixel halo ((R + 2) rows x 66
 // pixels x 64 channels) and ds for the unit's own pixels (R x 64 x 64),
 // so a tap is a constant offset into shared memory.  Warp (ky, rt) owns the
@@ -134,7 +140,10 @@ constexpr int WG_THREADS = WG_WARPS * 32;
 constexpr int WG_LDX = 64 + 16;          // xa pixel stride: 32-byte aligned at every pixel (WMMA)
 constexpr int WG_LDS = 64 + 8;           // ds pixel stride
 
-template <typename T> __host__ __device__ constexpr int wg_rows() { return sizeof(T) == 2 ? 4 : 1; }
+template <typename T> __host__ __device__ constexpr int wg_rows() {
+  static_assert(sizeof(T) == 2, "wg_rows: bf16 units");
+  return 4;
+}
 
 template <typename T> __host__ __device__ constexpr int wg_stage_elems() {
   return (wg_rows<T>() + 2) * WIN * WG_LDX + wg_rows<T>() * TP * WG_LDS;
@@ -192,28 +201,22 @@ __device__ void wg_load(const T* __restrict__ xa, const T* __restrict__ ds, int 
 
 // One 16-pixel step of warp (ky, rt): acc[kx][ct] += A_kx^T · B_ct, with
 // A_kx = xa at the pixels shifted by kx (a + kx·WG_LDX) and B_ct = ds's o
-// tile ct.  bf16 loads each fragment once; f32 runs the FFMA tiles.
+// tile ct, each fragment loaded once (bf16; the f32 route has its own
+// kernel below).
 template <typename T>
 __device__ __forceinline__ void wg_step(Acc<T> (&acc)[3][4], const T* a, const T* bm) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    using namespace nvcuda::wmma;
-    fragment<matrix_a, 16, 16, 16, bf16, col_major> fa[3];
-    fragment<matrix_b, 16, 16, 16, bf16, row_major> fb[4];
+  static_assert(std::is_same<T, bf16>::value, "wg_step: bf16 operands");
+  using namespace nvcuda::wmma;
+  fragment<matrix_a, 16, 16, 16, bf16, col_major> fa[3];
+  fragment<matrix_b, 16, 16, 16, bf16, row_major> fb[4];
 #pragma unroll
-    for (int kx = 0; kx < 3; ++kx) load_matrix_sync(fa[kx], a + kx * WG_LDX, WG_LDX);
+  for (int kx = 0; kx < 3; ++kx) load_matrix_sync(fa[kx], a + kx * WG_LDX, WG_LDX);
 #pragma unroll
-    for (int ct = 0; ct < 4; ++ct) load_matrix_sync(fb[ct], bm + ct * 16, WG_LDS);
+  for (int ct = 0; ct < 4; ++ct) load_matrix_sync(fb[ct], bm + ct * 16, WG_LDS);
 #pragma unroll
-    for (int kx = 0; kx < 3; ++kx)
+  for (int kx = 0; kx < 3; ++kx)
 #pragma unroll
-      for (int ct = 0; ct < 4; ++ct) mma_sync(acc[kx][ct].f, fa[kx], fb[ct], acc[kx][ct].f);
-  } else {
-#pragma unroll
-    for (int kx = 0; kx < 3; ++kx)
-#pragma unroll
-      for (int ct = 0; ct < 4; ++ct)
-        acc[kx][ct].template mma<false, true>(a + kx * WG_LDX, WG_LDX, bm + ct * 16, WG_LDS);
-  }
+    for (int ct = 0; ct < 4; ++ct) mma_sync(acc[kx][ct].f, fa[kx], fb[ct], acc[kx][ct].f);
 }
 
 template <typename T>
@@ -330,8 +333,8 @@ __host__ __device__ inline DgLayout dg_layout(int c, int o) {
   return L;
 }
 
-// Rows per dgrad block: 4 when C <= 64 (bf16), else 2 (128 and 256); 1 in f32.
-inline int dg_rows(int c, int esz) { return esz == 4 ? 1 : (r16(c) <= 64 ? 4 : 2); }
+// Rows per dgrad block, in bf16 and in f32: 4 when C <= 64, else 2 (128 and 256).
+inline int dg_rows(int c) { return r16(c) <= 64 ? 4 : 2; }
 
 // V consecutive elements from global memory: one 16-byte load with vec,
 // else element by element (n of them, zero beyond).
@@ -362,29 +365,20 @@ __device__ __forceinline__ void st_vec(T* p, const T (&v)[V], int n, bool vec) {
 template <typename T, int R, int NC>
 __device__ __forceinline__ void dg_step(Acc<T> (&acc)[R][NC], const T* a, int lda,
                                         const T* bm, int ldb, int cw, int ct_n) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    using namespace nvcuda::wmma;
-    fragment<matrix_a, 16, 16, 16, bf16, row_major> fa[R];
-    fragment<matrix_b, 16, 16, 16, bf16, col_major> fb[NC];
+  static_assert(std::is_same<T, bf16>::value, "dg_step: bf16 operands");
+  using namespace nvcuda::wmma;
+  fragment<matrix_a, 16, 16, 16, bf16, row_major> fa[R];
+  fragment<matrix_b, 16, 16, 16, bf16, col_major> fb[NC];
 #pragma unroll
-    for (int r = 0; r < R; ++r) load_matrix_sync(fa[r], a + r * WIN * lda, lda);
+  for (int r = 0; r < R; ++r) load_matrix_sync(fa[r], a + r * WIN * lda, lda);
+#pragma unroll
+  for (int j = 0; j < NC; ++j)
+    if (cw + 2 * j < ct_n) load_matrix_sync(fb[j], bm + (cw + 2 * j) * 16 * ldb, ldb);
+#pragma unroll
+  for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int j = 0; j < NC; ++j)
-      if (cw + 2 * j < ct_n) load_matrix_sync(fb[j], bm + (cw + 2 * j) * 16 * ldb, ldb);
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int j = 0; j < NC; ++j)
-        if (cw + 2 * j < ct_n) mma_sync(acc[r][j].f, fa[r], fb[j], acc[r][j].f);
-  } else {
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int j = 0; j < NC; ++j)
-        if (cw + 2 * j < ct_n)
-          acc[r][j].template mma<true, false>(a + r * WIN * lda, lda,
-                                              bm + (cw + 2 * j) * 16 * ldb, ldb);
-  }
+      if (cw + 2 * j < ct_n) mma_sync(acc[r][j].f, fa[r], fb[j], acc[r][j].f);
 }
 
 template <typename T, int R>
@@ -598,16 +592,447 @@ cudaError_t launch_dgrad(const T* dz, const T* si, const T* sp, const T* wmat,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- f32 backward
+// The f32 route of the backward: its own dgrad and wgrad kernels in true f32
+// (FFMA), register-blocked as the forward's f32 route, so that a lane issues
+// few shared-memory loads per FMA.
+//
+// dgrad: a block owns R = dg_rows() image rows of one sample (4 at <= 64
+// input channels, else 2) x 64 pixels x a slice of 256 / R input channels
+// c (blockIdx.y; a second slice at 256).  Output channels o stream through
+// the window in chunks of 32: the BN backward fills the window with ds once
+// per element (each ds row in 1.5-2 windows) while tap 0's weights arrive
+// by cp.async, then two taps of weights double-buffer under the products,
+// and two blocks share an SM.  Warp (f_row, tc) = (warp % R, warp / R) owns
+// the 64 pixels of row f_row and c = tc·32 .. +32 of the slice; lane (lp,
+// lc) = (l / 4, l % 4) accumulates pixels lp + 8i x channels lc + 4j (i, j
+// < 8).  Per 2 output channels, 8 window float2 (the pixels) and 8 weight
+// float2 (the channels, each a row of the tap's [c][o] tile, so that the
+// tap arrives by 16-byte copies of W as it lies) feed 128 FMAs; each load's
+// lanes read distinct banks (pixel and weight row strides of 36 floats, 20
+// below 32 output channels).  The epilogue stages the sums in shared memory and runs the
+// bf16 route's element pass (dz_prev = dx·gelu'(z_prev), xa = gelu(z_prev),
+// 16 bytes a load and store) with the column sums per thread, combined in
+// thread order: every partial has a fixed order.
+//
+// On an NVIDIA H100 80GB HBM3 at 700 W, 2B = 4, at 256²x64, 128²x128 and
+// 64²x256 (chip_smoke.py): the dgrad 0.71 / 0.67 / 0.63-0.65 ms, the wgrad
+// 0.44-0.46 ms, the backward 1.11-1.19 ms, 49-52% of its 0.577 ms bound
+// (cuDNN's f32 sequence, TF32 off: 2.60-3.30 ms).  Without its products
+// (tools/kernel_variants.py) the dgrad reads 0.14-0.24 ms, the wgrad
+// 0.05-0.08 ms: the products run at about 60% and 75% of the FFMA rate.
+template <int R> __host__ __device__ constexpr int dg32_slice() { return 2 * CHUNK / R; }
+__host__ __device__ inline int dg32_ok(int o) { return r16(o) < 32 ? r16(o) : 32; }
+template <int R> __host__ __device__ inline int dg32_cs(int c) {
+  return r32(c) < dg32_slice<R>() ? r32(c) : dg32_slice<R>();
+}
+
+struct Dg32Layout {
+  int win, w, dbred;                      // byte offsets of the window, the weights, the db partials
+  int total;                              // bytes
+};
+
+// BN scalars [6][O16] and [6][C16]; the window [R + 2][WIN][OK + 4]; two
+// taps [CS][OK + 4]; the threads' db partials [THREADS][4]; after the
+// products the staging [R * TP][CS + 4], then the column sums' partials,
+// reuse the window onwards (OK: the o chunk, CS: the c slice).
+template <int R> __host__ __device__ inline Dg32Layout dg32_layout(int c, int o) {
+  const int ok = dg32_ok(o), cs = dg32_cs<R>(c);
+  const int scal = (6 * (r16(c) + r16(o)) * 4 + 127) / 128 * 128;
+  const int win = ((R + 2) * WIN * (ok + 4) * 4 + 127) / 128 * 128;
+  const int taps = 2 * cs * (ok + 4) * 4, dbred = THREADS * 4 * 4;
+  const int stage = R * TP * (cs + 4) * 4, body = win + taps + dbred;
+  Dg32Layout L;
+  L.win = scal;
+  L.w = scal + win;
+  L.dbred = L.w + taps;
+  L.total = scal + (body > stage ? body : stage);
+  return L;
+}
+
+// The f32 products of one tap and o chunk (k_n channels): acc[i][j] +=
+// Σ_k a[8i·lda + k] · b[4j·ldb + k], a the window at the lane's first pixel,
+// b the tap's weight row of its first channel.
+__device__ __forceinline__ void dg32_step(float (&acc)[8][8], const float* a, int lda,
+                                          const float* b, int ldb, int k_n) {
+  for (int k = 0; k < k_n; k += 2) {
+    float2 bv[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) bv[j] = *reinterpret_cast<const float2*>(b + 4 * j * ldb + k);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float2 av = *reinterpret_cast<const float2*>(a + 8 * i * lda + k);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av.y, bv[j].y, fmaf(av.x, bv[j].x, acc[i][j]));
+    }
+  }
+}
+
+template <int R>
+__global__ void __launch_bounds__(THREADS, 2)
+cbg_dgrad_f32_kernel(const float* __restrict__ dz, const float* __restrict__ si,
+                     const float* __restrict__ sp, const float* __restrict__ wmat,
+                     const float* __restrict__ scal_in, const float* __restrict__ scal_out,
+                     int h, int w, int c, int o, int vec, float* __restrict__ dzp,
+                     float* __restrict__ ds_out, float* __restrict__ x_out,
+                     float* __restrict__ db_part, float* __restrict__ psp) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Dg32Layout L = dg32_layout<R>(c, o);
+  const int c16 = r16(c), o16 = r16(o), ok = dg32_ok(o), cs = dg32_cs<R>(c);
+  const int ld = ok + 4, lds = cs + 4, tap_elems = cs * ld, och = ok / 4;
+  float* s_in = (float*)smem;                  // scal_in  [6][O16]
+  float* s_out = s_in + 6 * o16;               // scal_out [6][C16]
+  float* win = (float*)(smem + L.win);
+  float* s_w = (float*)(smem + L.w);
+  float* dbred = (float*)(smem + L.dbred);
+  float* stage = win;                          // [R * TP][lds], after the products
+  const int segs = (w + TP - 1) / TP, grps = (h + R - 1) / R;
+  const int blk = blockIdx.x, tid = threadIdx.x;
+  const int seg = blk % segs, grp = (blk / segs) % grps, b = blk / (segs * grps);
+  const int x0 = seg * TP, y0 = grp * R;
+  const int np = w - x0 < TP ? w - x0 : TP, nr = h - y0 < R ? h - y0 : R;
+  const int c0 = blockIdx.y * dg32_slice<R>();  // this block's slice of c
+  const bool first = blockIdx.y == 0;          // the slice that writes ds and db
+  const size_t row0 = (size_t)b * h;
+
+  // weights of one tap for the slice's c and the o chunk from o0
+  auto load_tap = [&](int tap, int o0, float* dst) {
+    for (int i = tid; i < cs * och; i += THREADS) {
+      const int ci = i / och, oi = (i % och) * 4;
+      const bool in = c0 + ci < c && o0 + oi < o;
+      const float* src = in ? wmat + ((size_t)tap * c + c0 + ci) * o + o0 + oi : wmat;
+      float* d = dst + ci * ld + oi;
+      if (vec) {
+        cp_async16(d, src, in);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) d[q] = in && o0 + oi + q < o ? src[q] : 0.f;
+      }
+    }
+  };
+
+  for (int i = tid; i < 6 * o16; i += THREADS) {
+    const int k = i / o16, oi = i % o16;
+    s_in[i] = oi < o ? scal_in[k * o + oi] : 0.f;
+  }
+  if (scal_out) {
+    for (int i = tid; i < 6 * c16; i += THREADS) {
+      const int k = i / c16, ci = i % c16;
+      s_out[i] = ci < c ? scal_out[k * c + ci] : 0.f;
+    }
+  }
+  __syncthreads();
+
+  const int warp = tid / 32, l = tid & 31, f_row = warp % R, tc = warp / R;
+  const int lp = l >> 2, lc = l & 3;
+  const bool busy = tc * 32 < cs;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  for (int o0 = 0; o0 < o; o0 += ok) {
+    // (the previous chunk's products ended with a barrier) tap 0's copy runs
+    // under the window's BN backward
+    load_tap(0, o0, s_w);
+    cp_async_commit();
+
+    // ds = γ·istd·(dz − A − ẑ·B) on the window, once per element; the centre
+    // rows are also this block's share of ds for the wgrad kernel and of
+    // db.  A thread keeps to one chunk of 4 channels (och divides THREADS).
+    alignas(16) float db4[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int i = tid; i < (R + 2) * WIN * och; i += THREADS) {
+      const int k = i % och, j = (i / och) % WIN, r = i / (och * WIN);
+      const int yy = y0 + r - 1, xx = x0 + j - 1, oi = o0 + k * 4;
+      alignas(16) float v[4] = {0.f, 0.f, 0.f, 0.f};
+      if (yy >= 0 && yy < h && xx >= 0 && xx < w && oi < o) {
+        const size_t e = ((row0 + yy) * w + xx) * o + oi;
+        alignas(16) float dv[4], sv[4];
+        ld_vec(dv, dz + e, o - oi, vec);
+        ld_vec(sv, si + e, o - oi, vec);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float* sc = s_in + oi + q;
+          const float zh = (sv[q] - sc[S_MEAN * o16]) * sc[S_ISTD * o16];
+          v[q] = sc[S_GAMMA * o16] * sc[S_ISTD * o16] *
+                 (dv[q] - sc[S_A * o16] - zh * sc[S_B * o16]);
+        }
+        if (first && r >= 1 && r <= R && j >= 1 && j <= TP) {
+          st_vec(ds_out + e, v, o - oi, vec);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) db4[q] += v[q];
+        }
+      }
+      *reinterpret_cast<float4*>(win + (r * WIN + j) * ld + k * 4) =
+          *reinterpret_cast<const float4*>(v);
+    }
+    if (first) *reinterpret_cast<float4*>(dbred + tid * 4) = *reinterpret_cast<const float4*>(db4);
+    __syncthreads();
+    if (first) {
+      // a channel's partials from the threads that kept to its chunk, in
+      // thread order
+      for (int oi = tid; oi < ok && o0 + oi < o; oi += THREADS) {
+        float s1 = 0.f;
+        for (int t = oi / 4; t < THREADS; t += och) s1 += dbred[t * 4 + oi % 4];
+        db_part[(size_t)blk * o + o0 + oi] = s1;
+      }
+    }
+
+    // dx[p][c] += Σ_tap Σ_o win[r + 2 - ky][p + 2 - kx][o] · W[ky][kx][c][o]
+    for (int tap = 0; tap < 9; ++tap) {
+      if (tap + 1 < 9) {
+        load_tap(tap + 1, o0, s_w + ((tap + 1) & 1) * tap_elems);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const int ky = tap / 3, kx = tap % 3;
+      if (busy)
+        dg32_step(acc, win + ((f_row + 2 - ky) * WIN + lp + 2 - kx) * ld, ld,
+                  s_w + (tap & 1) * tap_elems + (tc * 32 + lc) * ld, ld, ok);
+      __syncthreads();
+    }
+  }
+  if (busy) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        stage[(f_row * TP + lp + 8 * i) * lds + tc * 32 + lc + 4 * j] = acc[i][j];
+  }
+  __syncthreads();
+
+  // dz_prev = dx · gelu'(z_prev) and xa = gelu(z_prev) when the input had a
+  // BN; a thread keeps to one chunk of 4 channels and sums d and d·ẑ_prev
+  // over its pixels (in ascending order); the threads' sums are then
+  // combined in thread order
+  const int cch = cs / 4, used = THREADS / cch * cch, parts = used / cch;
+  const int cl = tid % cch * 4, ci = c0 + cl;
+  float s1[4] = {0.f, 0.f, 0.f, 0.f}, s2[4] = {0.f, 0.f, 0.f, 0.f};
+  if (tid < used && ci < c) {
+    for (int i = tid; i < nr * np * cch; i += used) {
+      const int pp = i / cch, p = pp % np, r = pp / np;
+      alignas(16) float d[4];
+      *reinterpret_cast<float4*>(d) =
+          *reinterpret_cast<const float4*>(stage + (r * TP + p) * lds + cl);
+      const size_t e = ((row0 + y0 + r) * w + x0 + p) * c + ci;
+      if (scal_out) {
+        alignas(16) float sv[4], xv[4];
+        ld_vec(sv, sp + e, c - ci, vec);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float* sc = s_out + ci + q;
+          const float zh = (sv[q] - sc[S_MEAN * c16]) * sc[S_ISTD * c16];
+          const float z = zh * sc[S_GAMMA * c16] + sc[S_BETA * c16];
+          d[q] *= gelu_grad(z);
+          xv[q] = gelu(z);
+          s1[q] += d[q];
+          s2[q] += d[q] * zh;
+        }
+        st_vec(x_out + e, xv, c - ci, vec);
+      }
+      st_vec(dzp + e, d, c - ci, vec);
+    }
+  }
+  __syncthreads();
+  float* red = stage;                          // [2][parts][CS]: Σd, then Σd·ẑ_prev
+  if (tid < used) {
+    const int part = tid / cch;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      red[part * cs + cl + q] = s1[q];
+      red[(parts + part) * cs + cl + q] = s2[q];
+    }
+  }
+  __syncthreads();
+  for (int cc = tid; cc < cs && c0 + cc < c; cc += THREADS) {
+    float t1 = 0.f, t2 = 0.f;
+    for (int k = 0; k < parts; ++k) {
+      t1 += red[k * cs + cc];
+      t2 += red[(parts + k) * cs + cc];
+    }
+    psp[((size_t)blk * 2) * c + c0 + cc] = t1;
+    psp[((size_t)blk * 2 + 1) * c + c0 + cc] = t2;
+  }
+}
+
+template <int R>
+cudaError_t launch_dgrad32(const float* dz, const float* si, const float* sp, const float* wmat,
+                           const float* scal_in, const float* scal_out, int bsz, int h, int w,
+                           int c, int o, int vec, float* dzp, float* ds, float* xa,
+                           float* db_part, float* psp, cudaStream_t st) {
+  const int blocks = bsz * ((h + R - 1) / R) * ((w + TP - 1) / TP);
+  if (blocks == 0) return cudaSuccess;
+  const Dg32Layout L = dg32_layout<R>(c, o);
+  cudaError_t e = cudaFuncSetAttribute(cbg_dgrad_f32_kernel<R>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(blocks, (c + dg32_slice<R>() - 1) / dg32_slice<R>());
+  cbg_dgrad_f32_kernel<R><<<grid, THREADS, L.total, st>>>(
+      dz, si, sp, wmat, scal_in, scal_out, h, w, c, o, vec, dzp, ds, xa, db_part, psp);
+  return cudaGetLastError();
+}
+
+// wgrad: as the bf16 kernel, a block owns one 64x64 (c, o) tile pair and a
+// slab of work units (WG32_R = 2 image rows of one sample x 64 pixels),
+// staged by cp.async into two stages (xa with its one-pixel halo: read 2
+// times, not 3), but the reduction over pixels runs on FFMA: warp (ky, wq)
+// owns kernel row ky and c = wq·16 .. +16 of the tile, and lane (cg, og) =
+// (l % 4, l / 4) the 3 taps of its row x 4 channels c x 8 channels o (96
+// accumulators).  A lane walks each row's 64 pixels in order, keeping the
+// three xa vectors its taps need in registers and sliding them by one
+// pixel: per pixel one float4 of xa and two of ds feed 96 FMAs.
+constexpr int WG32_R = 2;
+constexpr int WG32_STAGE = (WG32_R + 2) * WIN * 64 + WG32_R * TP * 64;  // floats: xa, then ds
+static_assert(TP == 64, "wg32_row walks 64 pixels");
+
+// Copy rows [y0 - 1, y0 + R] x pixels [x0 - 1, x0 + 64] of xa (channels
+// c0..+64) and rows [y0, y0 + R) x pixels [x0, x0 + 64) of ds (o0..+64) of
+// sample b into one stage (pixel stride 64 floats), zero outside the image
+// and the channels.
+__device__ void wg32_load(const float* __restrict__ xa, const float* __restrict__ ds, int h,
+                          int w, int c, int o, int c0, int o0, int b, int y0, int x0, float* sx,
+                          float* sd, bool vec) {
+  constexpr int R = WG32_R;
+  const size_t row0 = (size_t)b * h;
+  for (int i = threadIdx.x; i < (R + 2) * WIN * 16; i += WG_THREADS) {
+    const int k = i % 16, j = (i / 16) % WIN, r = i / (16 * WIN);
+    const int yy = y0 + r - 1, xx = x0 + j - 1, ci = c0 + k * 4;
+    const bool ok = yy >= 0 && yy < h && xx >= 0 && xx < w && ci < c;
+    const float* src = ok ? xa + ((row0 + yy) * w + xx) * c + ci : xa;
+    float* dst = sx + (r * WIN + j) * 64 + k * 4;
+    if (vec) {
+      cp_async16(dst, src, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dst[e] = ok && ci + e < c ? src[e] : 0.f;
+    }
+  }
+  for (int i = threadIdx.x; i < R * TP * 16; i += WG_THREADS) {
+    const int k = i % 16, j = (i / 16) % TP, r = i / (16 * TP);
+    const int yy = y0 + r, xx = x0 + j, oi = o0 + k * 4;
+    const bool ok = yy < h && xx < w && oi < o;
+    const float* src = ok ? ds + ((row0 + yy) * w + xx) * o + oi : ds;
+    float* dst = sd + (r * TP + j) * 64 + k * 4;
+    if (vec) {
+      cp_async16(dst, src, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dst[e] = ok && oi + e < o ? src[e] : 0.f;
+    }
+  }
+}
+
+// One pixel: acc[kx][i][j] += x_kx[i] · ds[j], the lane's 8 ds values at d
+// and d + 32.
+__device__ __forceinline__ void wg32_px(float (&acc)[3][4][8], const float4 x0, const float4 x1,
+                                        const float4 x2, const float* d) {
+  alignas(16) float dv[8];
+  *reinterpret_cast<float4*>(dv) = *reinterpret_cast<const float4*>(d);
+  *reinterpret_cast<float4*>(dv + 4) = *reinterpret_cast<const float4*>(d + 32);
+  const float xv[3][4] = {{x0.x, x0.y, x0.z, x0.w}, {x1.x, x1.y, x1.z, x1.w},
+                          {x2.x, x2.y, x2.z, x2.w}};
+#pragma unroll
+  for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[kx][i][j] = fmaf(xv[kx][i], dv[j], acc[kx][i][j]);
+}
+
+// One image row: xr the lane's xa at stage pixel 0 of its tap row, dr its
+// ds at pixel 0 (pixel stride 64 floats).  Pixel p takes xa pixels p, p + 1,
+// p + 2 (taps kx = 0, 1, 2), held in three registers that rotate.
+__device__ __forceinline__ void wg32_row(float (&acc)[3][4][8], const float* xr, const float* dr) {
+  const auto ld = [&](int j) { return *reinterpret_cast<const float4*>(xr + j * 64); };
+  float4 a = ld(0), b = ld(1), c = ld(2);
+  for (int p = 0; p < TP - 1; p += 3) {
+    wg32_px(acc, a, b, c, dr + p * 64);
+    a = ld(p + 3);
+    wg32_px(acc, b, c, a, dr + (p + 1) * 64);
+    b = ld(p + 4);
+    wg32_px(acc, c, a, b, dr + (p + 2) * 64);
+    c = ld(p + 5);
+  }
+  wg32_px(acc, a, b, c, dr + (TP - 1) * 64);
+}
+
+__global__ void __launch_bounds__(WG_THREADS, 1)
+cbg_wgrad_f32_kernel(const float* __restrict__ xa, const float* __restrict__ ds, int bsz, int h,
+                     int w, int c, int o, int slabs, int vec, float* __restrict__ part) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int R = WG32_R;
+  float* stage[2] = {(float*)smem, (float*)smem + WG32_STAGE};
+  const int ot_n = (o + 63) / 64, cp = r64(c), op = r64(o);
+  const int c0 = blockIdx.x / ot_n * 64, o0 = blockIdx.x % ot_n * 64;
+  const int segs = (w + TP - 1) / TP, grps = (h + R - 1) / R;
+  const long long units = (long long)bsz * grps * segs;
+  const long long u0 = units * blockIdx.y / slabs, u1 = units * (blockIdx.y + 1) / slabs;
+  const int warp = threadIdx.x / 32, l = threadIdx.x & 31, ky = warp / 4, wq = warp % 4;
+  const int cl = wq * 16 + (l & 3) * 4, ol = (l >> 2) * 4;
+  const bool busy = c0 + wq * 16 < c;      // this warp's c rows exist
+
+  auto load = [&](long long u, float* st) {
+    const int seg = (int)(u % segs);
+    const long long g = u / segs;
+    wg32_load(xa, ds, h, w, c, o, c0, o0, (int)(g / grps), (int)(g % grps) * R, seg * TP, st,
+              st + (R + 2) * WIN * 64, vec);
+    cp_async_commit();
+  };
+
+  alignas(16) float acc[3][4][8];
+#pragma unroll
+  for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[kx][i][j] = 0.f;
+  if (u0 < u1) load(u0, stage[0]);
+  for (long long u = u0; u < u1; ++u) {
+    const int cur = (int)((u - u0) & 1);
+    if (u + 1 < u1) {
+      load(u + 1, stage[cur ^ 1]);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* sx = stage[cur];
+    const float* sd = sx + (R + 2) * WIN * 64;
+    if (busy) {
+#pragma unroll 1
+      for (int r = 0; r < R; ++r)
+        wg32_row(acc, sx + (r + ky) * WIN * 64 + cl, sd + r * TP * 64 + ol);
+    }
+    __syncthreads();
+  }
+  float* out = part + (size_t)blockIdx.y * 9 * cp * op + o0 + ol;
+#pragma unroll
+  for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float* row = out + ((size_t)(ky * 3 + kx) * cp + c0 + cl + i) * op;
+      *reinterpret_cast<float4*>(row) = *reinterpret_cast<const float4*>(&acc[kx][i][0]);
+      *reinterpret_cast<float4*>(row + 32) = *reinterpret_cast<const float4*>(&acc[kx][i][4]);
+    }
+}
+
 // Slabs per (c, o) tile pair: one wave of blocks (one block per SM of an
-// H100 SXM), at most one slab per work unit.  The wave is a constant, not
-// the card's SM count, so the slabs, and the order in which wgrad_reduce
-// sums them, depend on the shape alone: dW is bit-identical on every card.
+// H100 SXM), at most one slab per work unit: bf16 rounds the wave up over
+// the tile pairs, f32 down (144 blocks at 16 tile pairs would leave 12 for
+// a second wave).  The wave is a constant, not the card's SM count, so the
+// slabs, and the order in which wgrad_reduce sums them, depend on the shape
+// alone: dW is bit-identical on every card.
 constexpr int WG_WAVE = 132;
 
-int wgrad_slabs(int bsz, int h, int w, int c, int o, int rows) {
+int wgrad_slabs(int bsz, int h, int w, int c, int o, int esz) {
+  const int rows = esz == 2 ? wg_rows<bf16>() : WG32_R;
   const int tiles = ((c + 63) / 64) * ((o + 63) / 64);
   const long long units = (long long)bsz * ((h + rows - 1) / rows) * ((w + TP - 1) / TP);
-  long long s = (WG_WAVE + tiles - 1) / tiles;
+  long long s = esz == 2 ? (WG_WAVE + tiles - 1) / tiles : WG_WAVE / tiles;
   if (s > units) s = units;
   return s < 1 ? 1 : (int)s;
 }
@@ -620,7 +1045,7 @@ struct BwdScratch {
 BwdScratch bwd_layout(int bsz, int h, int w, int c, int o, int esz) {
   BwdScratch s;
   const long long npix = (long long)bsz * h * w;
-  s.slabs = wgrad_slabs(bsz, h, w, c, o, esz == 2 ? wg_rows<bf16>() : wg_rows<float>());
+  s.slabs = wgrad_slabs(bsz, h, w, c, o, esz);
   size_t off = 0;
   s.ds = off;   off += align256((size_t)npix * o * esz);
   s.xa = off;   off += align256((size_t)npix * c * esz);
@@ -651,7 +1076,6 @@ template <typename T, int R> __host__ __device__ constexpr int fw_slice() {
   return sizeof(T) == 2 ? CHUNK : 2 * CHUNK / R;
 }
 template <typename T> __host__ __device__ constexpr int fw_pad() { return sizeof(T) == 2 ? 8 : 4; }
-__host__ __device__ inline int r32(int v) { return (v + 31) / 32 * 32; }
 template <typename T> __host__ __device__ inline int fw_ck(int c) {
   return sizeof(T) == 2 ? chunk16(c) : (r16(c) < 32 ? r16(c) : 32);
 }
@@ -1064,25 +1488,36 @@ int bwd(const void* dz, const void* si, const void* sp, const void* wmat,
   const auto al = [](const void* p) { return (size_t)p % 16 == 0; };
   const int vec = c % V == 0 && o % V == 0 && al(dz) && al(si) && al(sp) && al(wmat) &&
                   al(dzp) && al(ds) && al(xa);
+  const T *dzt = (const T*)dz, *sit = (const T*)si, *spt = (const T*)sp, *wt = (const T*)wmat;
+  const int tiles = ((c + 63) / 64) * ((o + 63) / 64);
   cudaError_t e;
   if constexpr (sizeof(T) == 4) {
-    e = launch_dgrad<T, 1>((const T*)dz, (const T*)si, (const T*)sp, (const T*)wmat, scal_in,
-                           scal_out, bsz, h, w, c, o, vec, (T*)dzp, ds, xa, db_part, psp, st);
-  } else if (dg_rows(c, 2) == 4) {
-    e = launch_dgrad<T, 4>((const T*)dz, (const T*)si, (const T*)sp, (const T*)wmat, scal_in,
-                           scal_out, bsz, h, w, c, o, vec, (T*)dzp, ds, xa, db_part, psp, st);
+    e = dg_rows(c) == 4
+            ? launch_dgrad32<4>(dzt, sit, spt, wt, scal_in, scal_out, bsz, h, w, c, o, vec,
+                                (T*)dzp, ds, xa, db_part, psp, st)
+            : launch_dgrad32<2>(dzt, sit, spt, wt, scal_in, scal_out, bsz, h, w, c, o, vec,
+                                (T*)dzp, ds, xa, db_part, psp, st);
+    if (e != cudaSuccess) return (int)e;
+    const size_t wg_smem = 2 * (size_t)WG32_STAGE * sizeof(float);
+    e = cudaFuncSetAttribute(cbg_wgrad_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)wg_smem);
+    if (e != cudaSuccess) return (int)e;
+    cbg_wgrad_f32_kernel<<<dim3(tiles, sc.slabs), WG_THREADS, wg_smem, st>>>(
+        xa, ds, bsz, h, w, c, o, sc.slabs, vec, part);
   } else {
-    e = launch_dgrad<T, 2>((const T*)dz, (const T*)si, (const T*)sp, (const T*)wmat, scal_in,
-                           scal_out, bsz, h, w, c, o, vec, (T*)dzp, ds, xa, db_part, psp, st);
+    e = dg_rows(c) == 4
+            ? launch_dgrad<T, 4>(dzt, sit, spt, wt, scal_in, scal_out, bsz, h, w, c, o, vec,
+                                 (T*)dzp, ds, xa, db_part, psp, st)
+            : launch_dgrad<T, 2>(dzt, sit, spt, wt, scal_in, scal_out, bsz, h, w, c, o, vec,
+                                 (T*)dzp, ds, xa, db_part, psp, st);
+    if (e != cudaSuccess) return (int)e;
+    const size_t wg_smem = 2 * (size_t)wg_stage_elems<T>() * sizeof(T);
+    e = cudaFuncSetAttribute(cbg_wgrad_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)wg_smem);
+    if (e != cudaSuccess) return (int)e;
+    cbg_wgrad_kernel<T><<<dim3(tiles, sc.slabs), WG_THREADS, wg_smem, st>>>(
+        xa, ds, bsz, h, w, c, o, sc.slabs, vec, part);
   }
-  if (e != cudaSuccess) return (int)e;
-  const int tiles = ((c + 63) / 64) * ((o + 63) / 64);
-  const size_t wg_smem = 2 * (size_t)wg_stage_elems<T>() * sizeof(T);
-  e = cudaFuncSetAttribute(cbg_wgrad_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)wg_smem);
-  if (e != cudaSuccess) return (int)e;
-  cbg_wgrad_kernel<T><<<dim3(tiles, sc.slabs), WG_THREADS, wg_smem, st>>>(
-      xa, ds, bsz, h, w, c, o, sc.slabs, vec, part);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   int rblocks = (9 * c * o + 255) / 256;
   wgrad_reduce<<<rblocks, 256, 0, st>>>(part, sc.slabs, c, o, dw);
@@ -1106,7 +1541,7 @@ int cbg_fwd_blocks(int bsz, int h, int w, int c, int is_bf16) {
 
 // Row groups x segments (= partial-sum rows) of one backward call.
 int cbg_bwd_blocks(int bsz, int h, int w, int c, int is_bf16) {
-  const int r = dg_rows(c, is_bf16 ? 2 : 4);
+  const int r = dg_rows(c);
   return bsz * ((h + r - 1) / r) * ((w + TP - 1) / TP);
 }
 

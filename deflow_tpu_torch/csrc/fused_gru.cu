@@ -35,12 +35,14 @@
 //    the other of two buffers under this tile's iterations.
 // A tile's buffer is its [h | x] operand: after the last iteration its first
 // H columns hold bf16(h), the output rounded once, written out 16 bytes a
-// store.  f32 inputs take a plain FFMA kernel: one thread per hidden
-// column, 16 points per block, weights read through the cache, x·W_x
-// recomputed every iteration; about 18 operand loads for every 32 FMAs cap
-// it near half the FFMA rate (not tuned; it runs ahead of the f32 cuBLAS
-// loop, PERF.md).  The Pallas 128-lane padding of x is TPU-only and is not
-// carried.
+// store.  f32 inputs take gru_fwd_f32_kernel (below): true f32 on FFMA, as
+// the plain version computes, bound by operations at 67 TFLOP/s (2.60 ms at
+// 4 x 98,304 points and 4 iterations); register-blocked 8 x 4 and 8 x 8
+// micro-tiles fed by float4 loads (11 or 16 FMAs a load) with the weights
+// streamed from L2, as fused_gru_bwd.cu's f32 route: 5.03-5.09 ms there
+// on an NVIDIA H100 80GB HBM3 at 700 W (51-52% of the bound; 2.64-2.66 ms
+// at 2 x 98,304; the f32 cuBLAS loop 14.7 / 7.6 ms; chip_smoke.py).  The Pallas 128-lane padding of x
+// is TPU-only and is not carried.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,82 +55,183 @@ using gru_tile::bf16;
 using gru_tile::cp_async16;
 using gru_tile::cp_async_commit;
 using gru_tile::cp_async_wait;
+using gru_tile::F_THREADS;
+using gru_tile::F_WST;
+using gru_tile::f32_fetch;
+using gru_tile::f32_mm;
 using gru_tile::ld2;
 using gru_tile::spill;
 using gru_tile::st2;
 using gru_tile::warp_mma;
+using gru_tile::WSrc;
 
 constexpr int H = 128;
 
 __device__ __forceinline__ float sigmoid_f32(float v) { return 1.f / (1.f + expf(-v)); }
 
-// ----------------------------------------------------------------- f32 FFMA
-constexpr int F32_ROWS = 16;
-constexpr int F32_MAX_X = 128;
+// The f32 route's gates: expf as above, the reciprocal by __fdividef (2 ulp
+// over the divisor's range [1, inf], 0 at inf) in place of IEEE division,
+// and tanh(v) = 2·sigmoid(2v) − 1 in place of tanhf and its branches
+// (absolute error below 1e-6).  On the H100 the IEEE forms read 12%
+// slower at 4 x 98,304 points (tools/kernel_variants.py), and their
+// output's largest error against the plain version was higher (7.0e-7 of
+// the largest element against 6.5e-7).
+__device__ __forceinline__ float sigmoid_rcp(float v) { return __fdividef(1.f, 1.f + expf(-v)); }
+__device__ __forceinline__ float tanh_rcp(float v) { return 2.f * sigmoid_rcp(2.f * v) - 1.f; }
 
-__global__ void __launch_bounds__(H)
-gru_f32_kernel(const float* __restrict__ h0, const float* __restrict__ x,
-               const float* __restrict__ w_zr, const float* __restrict__ b_zr,
-               const float* __restrict__ w_q, const float* __restrict__ b_q,
-               int m, int xdim, int iters, float* __restrict__ out) {
-  __shared__ float hx[F32_ROWS][H + F32_MAX_X];   // [h | x]
-  __shared__ float u[F32_ROWS][H + F32_MAX_X];    // [r*h | x]
-  const int j = threadIdx.x;                      // hidden column
-  const int k_in = H + xdim;
-  const long long row0 = (long long)blockIdx.x * F32_ROWS;
-  float h[F32_ROWS], z[F32_ROWS];
+// ----------------------------------------------------------------- f32 FFMA
+// The f32 route: the forward half of fused_gru_bwd.cu's f32 main kernel.  A
+// persistent block per SM walks tiles of 8·F32_RI points; thread (rg, cg)
+// owns rows rg + 8i (i < F32_RI) and hidden columns 4cg .. +4 of h and z in
+// registers.  Every product is gru_tile.cuh's f32_mm, the weights streamed
+// from L2 through two 32 KB cp.async stages (the next product's first
+// stage, and the next tile's, copied under the current one's last); x·W_x
+// + b is computed once a tile and kept in shared memory, where each thread
+// reads back only what it wrote, so the iterations' products run over h's
+// 128 columns only.  x arrives zero-padded to a multiple of 4 columns (any
+// xdim <= 128).  Only [h] and [r*h] change hands, so an iteration has the
+// products' barriers (one a weight stage) and no other.  On the H100
+// (tools/kernel_variants.py), 8 rows a thread (231 KB of shared memory,
+// 243 registers) read 21% faster than the backward's 4; 16 KB weight
+// stages 8% slower; 2 unrolled steps 3% slower than 4; without the weight
+// copies (a probe: wrong results) it reads 10% faster.
+constexpr int F32_RI = 8;                 // rows a thread (a tile of 8·F32_RI points)
+constexpr int F32_UNROLL = 4;             // 4-deep steps of f32_mm unrolled
+constexpr int F32_MAX_X = 128;
+constexpr int F32_LDX = F32_MAX_X + 4;    // shared row strides (floats), 4 mod 32
+constexpr int F32_LDH = H + 4;
+
+// x·W_x + b, [h], [x] then [r*h], two weight stages
+constexpr size_t F32_SMEM =
+    ((size_t)8 * F32_RI * (3 * H + F32_LDH + F32_LDX) + 2 * F_WST) * sizeof(float);
+
+__global__ void __launch_bounds__(F_THREADS, 1)
+gru_fwd_f32_kernel(const float* __restrict__ h0, const float* __restrict__ x,
+                   const float* __restrict__ w_zr, const float* __restrict__ b_zr,
+                   const float* __restrict__ w_q, const float* __restrict__ b_q,
+                   int m, int xdim, int iters, float* __restrict__ out) {
+  constexpr int RI = F32_RI, TMF = 8 * RI;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* s_xw = reinterpret_cast<float*>(smem);  // [TMF][3H]  x·W_x + b
+  float* s_h = s_xw + TMF * 3 * H;               // [TMF][F32_LDH]  h
+  float* s_u = s_h + TMF * F32_LDH;              // [TMF][F32_LDX]  x, then r*h
+  float* wst = s_u + TMF * F32_LDX;              // 2 weight stages of F_WST floats
+  const int tid = threadIdx.x, warp = tid >> 5, l = tid & 31;
+  const int rg = 4 * (warp & 1) + (l >> 3), c4 = 4 * (8 * (warp >> 1) + (l & 7));
+  const WSrc zrx{w_zr + H * 2 * H, 2 * H, xdim, 2 * H}, qx{w_q + H * H, H, xdim, H};
+  const WSrc zrh{w_zr, 2 * H, H, 2 * H}, qh{w_q, H, H, H};
+  const WSrc& first = xdim > 0 ? zrx : zrh;
+  const int tiles = (m + TMF - 1) / TMF, xr = (xdim + 3) / 4 * 4;
+  float bias[3][4];
 #pragma unroll
-  for (int r = 0; r < F32_ROWS; ++r) {
-    const long long row = row0 + r;
-    const float hv = row < m ? h0[row * H + j] : 0.f;
-    h[r] = hv;
-    hx[r][j] = hv;
-    for (int k = j; k < xdim; k += H) {
-      const float xv = row < m ? x[row * xdim + k] : 0.f;
-      hx[r][H + k] = xv;
-      u[r][H + k] = xv;
-    }
+  for (int j = 0; j < 4; ++j) {
+    bias[0][j] = b_zr[c4 + j];
+    bias[1][j] = b_zr[H + c4 + j];
+    bias[2][j] = b_q[c4 + j];
   }
-  const float bz = b_zr[j], br = b_zr[H + j], bq = b_q[j];
-  for (int it = 0; it < iters; ++it) {
-    __syncthreads();                              // hx complete
-    float sz[F32_ROWS], sr[F32_ROWS];
+  // this thread's 4 columns of x·W_x + b at row i, part g (z, r, q)
+  const auto xw = [&](int i, int g) {
+    return reinterpret_cast<float4*>(s_xw + (rg + 8 * i) * 3 * H + g * H + c4);
+  };
+  // v (this thread's RI x 4) into a shared tile
+  const auto put = [&](float* dst, int ld, const float (&v)[RI][4]) {
 #pragma unroll
-    for (int r = 0; r < F32_ROWS; ++r) sz[r] = sr[r] = 0.f;
-    for (int k = 0; k < k_in; ++k) {
-      const float wz = w_zr[k * 2 * H + j];
-      const float wr = w_zr[k * 2 * H + H + j];
+    for (int i = 0; i < RI; ++i)
+      *reinterpret_cast<float4*>(dst + (rg + 8 * i) * ld + c4) =
+          *reinterpret_cast<const float4*>(v[i]);
+  };
+  int cur = 0;
+  if (iters > 0 && (int)blockIdx.x < tiles) f32_fetch(first, 0, wst);
+
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int row0 = t * TMF;
+    const int nrows = m - row0 < TMF ? m - row0 : TMF;
+    const WSrc* tail = t + (int)gridDim.x < tiles ? &first : nullptr;
+    float hs[RI][4];
 #pragma unroll
-      for (int r = 0; r < F32_ROWS; ++r) {
-        sz[r] = fmaf(hx[r][k], wz, sz[r]);
-        sr[r] = fmaf(hx[r][k], wr, sr[r]);
+    for (int i = 0; i < RI; ++i) {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (rg + 8 * i < nrows)
+        v = *reinterpret_cast<const float4*>(h0 + (size_t)(row0 + rg + 8 * i) * H + c4);
+      *reinterpret_cast<float4*>(hs[i]) = v;
+    }
+    if (iters > 0) {
+      put(s_h, F32_LDH, hs);
+      // x (zero past xdim and m) into s_u, xr columns
+      if (xdim % 4 == 0) {
+        const int xc = xdim / 4;
+        for (int i = tid; i < TMF * xc; i += F_THREADS) {
+          const int rr = i / xc, cc = (i - rr * xc) * 4;
+          float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (rr < nrows) v = *reinterpret_cast<const float4*>(x + (size_t)(row0 + rr) * xdim + cc);
+          *reinterpret_cast<float4*>(s_u + rr * F32_LDX + cc) = v;
+        }
+      } else {
+        for (int i = tid; i < TMF * xr; i += F_THREADS) {
+          const int rr = i / xr, cc = i - rr * xr;
+          s_u[rr * F32_LDX + cc] =
+              rr < nrows && cc < xdim ? x[(size_t)(row0 + rr) * xdim + cc] : 0.f;
+        }
+      }
+      {
+        // x·W_x + b once a tile, the starting values of every gate product
+        float az[RI][8] = {}, aq[RI][4] = {};
+        if (xdim > 0) {
+          f32_mm<2, RI, F32_UNROLL>(az, s_u, F32_LDX, zrx, &qx, wst, cur, rg, c4);
+          f32_mm<1, RI, F32_UNROLL>(aq, s_u, F32_LDX, qx, &zrh, wst, cur, rg, c4);
+        }
+#pragma unroll
+        for (int i = 0; i < RI; ++i) {
+          *xw(i, 0) = make_float4(az[i][0] + bias[0][0], az[i][1] + bias[0][1],
+                                  az[i][2] + bias[0][2], az[i][3] + bias[0][3]);
+          *xw(i, 1) = make_float4(az[i][4] + bias[1][0], az[i][5] + bias[1][1],
+                                  az[i][6] + bias[1][2], az[i][7] + bias[1][3]);
+          *xw(i, 2) = make_float4(aq[i][0] + bias[2][0], aq[i][1] + bias[2][1],
+                                  aq[i][2] + bias[2][2], aq[i][3] + bias[2][3]);
+        }
+      }
+      for (int it = 0; it < iters; ++it) {
+        float z[RI][4];
+        {
+          // z, r = sigmoid(h W_h,zr + x W_x,zr + b_zr); r*h into s_u
+          float acc[RI][8], rh[RI][4];
+#pragma unroll
+          for (int i = 0; i < RI; ++i) {
+            *reinterpret_cast<float4*>(acc[i]) = *xw(i, 0);
+            *reinterpret_cast<float4*>(acc[i] + 4) = *xw(i, 1);
+          }
+          f32_mm<2, RI, F32_UNROLL>(acc, s_h, F32_LDH, zrh, &qh, wst, cur, rg, c4);
+#pragma unroll
+          for (int i = 0; i < RI; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              z[i][j] = sigmoid_rcp(acc[i][j]);
+              rh[i][j] = sigmoid_rcp(acc[i][4 + j]) * hs[i][j];
+            }
+          put(s_u, F32_LDX, rh);
+        }
+        {
+          // q = tanh((r*h) W_h,q + x W_x,q + b_q); h = (1 - z) h + z q
+          float acc[RI][4];
+#pragma unroll
+          for (int i = 0; i < RI; ++i) *reinterpret_cast<float4*>(acc[i]) = *xw(i, 2);
+          f32_mm<1, RI, F32_UNROLL>(acc, s_u, F32_LDX, qh, it + 1 < iters ? &zrh : tail, wst,
+                                    cur, rg, c4);
+#pragma unroll
+          for (int i = 0; i < RI; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              hs[i][j] = (1.f - z[i][j]) * hs[i][j] + z[i][j] * tanh_rcp(acc[i][j]);
+          put(s_h, F32_LDH, hs);
+        }
       }
     }
 #pragma unroll
-    for (int r = 0; r < F32_ROWS; ++r) {
-      z[r] = sigmoid_f32(sz[r] + bz);
-      u[r][j] = sigmoid_f32(sr[r] + br) * h[r];
-    }
-    __syncthreads();                              // u complete
-    float sq[F32_ROWS];
-#pragma unroll
-    for (int r = 0; r < F32_ROWS; ++r) sq[r] = 0.f;
-    for (int k = 0; k < k_in; ++k) {
-      const float wq = w_q[k * H + j];
-#pragma unroll
-      for (int r = 0; r < F32_ROWS; ++r) sq[r] = fmaf(u[r][k], wq, sq[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < F32_ROWS; ++r) {
-      const float q = tanhf(sq[r] + bq);
-      h[r] = (1.f - z[r]) * h[r] + z[r] * q;
-      hx[r][j] = h[r];
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < F32_ROWS; ++r) {
-    const long long row = row0 + r;
-    if (row < m) out[row * H + j] = h[r];
+    for (int i = 0; i < RI; ++i)
+      if (rg + 8 * i < nrows)
+        *reinterpret_cast<float4*>(out + (size_t)(row0 + rg + 8 * i) * H + c4) =
+            *reinterpret_cast<const float4*>(hs[i]);
+    __syncthreads();                       // this tile's products read before the next one's x, h
   }
 }
 
@@ -309,9 +412,9 @@ const char* error_string(int e) { return cudaGetErrorString((cudaError_t)e); }
 
 // h0 [m, 128], x [m, xdim], w_zr [128 + xdim, 256], b_zr [256],
 // w_q [128 + xdim, 128], b_q [128], out [m, 128]; all f32 or all bf16.
-// bf16 needs xdim % 16 == 0, xdim <= 64 (shared-memory budget) and h0, x,
-// the weights and out 16-byte aligned; f32 needs xdim <= 128.
-// grid_blocks: persistent bf16 blocks (one per SM).
+// bf16 needs xdim % 16 == 0, xdim <= 64 (shared-memory budget), f32
+// xdim <= 128; both need h0, x, the weights and out 16-byte aligned.
+// grid_blocks: persistent blocks (one per SM).
 int fused_gru(const void* h0, const void* x, const void* w_zr, const void* b_zr,
               const void* w_q, const void* b_q, int m, int xdim, int iters,
               void* out, int is_bf16, int grid_blocks, void* stream) {
@@ -319,10 +422,14 @@ int fused_gru(const void* h0, const void* x, const void* w_zr, const void* b_zr,
   if (m == 0) return (int)cudaGetLastError();
   if (!is_bf16) {
     if (xdim > F32_MAX_X) return (int)cudaErrorInvalidValue;
-    gru_f32_kernel<<<(m + F32_ROWS - 1) / F32_ROWS, H, 0, st>>>(
-        (const float*)h0, (const float*)x, (const float*)w_zr,
-        (const float*)b_zr, (const float*)w_q, (const float*)b_q, m, xdim,
-        iters, (float*)out);
+    cudaError_t e = cudaFuncSetAttribute(
+        gru_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F32_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    const int tiles = (m + 8 * F32_RI - 1) / (8 * F32_RI);
+    const int blocks = tiles < grid_blocks ? tiles : grid_blocks;
+    gru_fwd_f32_kernel<<<blocks, F_THREADS, F32_SMEM, st>>>(
+        (const float*)h0, (const float*)x, (const float*)w_zr, (const float*)b_zr,
+        (const float*)w_q, (const float*)b_q, m, xdim, iters, (float*)out);
     return (int)cudaGetLastError();
   }
   if (xdim % 16 != 0 || xdim > XMAX) return (int)cudaErrorInvalidValue;

@@ -82,6 +82,10 @@
 namespace {
 
 using gru_tile::cp_async16;
+using gru_tile::F_WST;
+using gru_tile::f32_fetch;
+using gru_tile::f32_mm;
+using gru_tile::WSrc;
 using gru_tile::cp_async_commit;
 using gru_tile::cp_async_wait;
 using gru_tile::ld2;
@@ -421,91 +425,20 @@ gru_bwd_kernel(const bf16* __restrict__ h0, const bf16* __restrict__ x,
 // ------------------------------------------------------- f32 main kernel
 // The f32 route of the main kernel: a tile of F_TM = 32 points; thread (rg,
 // cg) owns rows rg + 8i (i < 4) and hidden columns 4cg .. 4cg + 4 of h, dh,
-// z, r and q, in registers.  Every product is C[32, N] += A[32, K] ·
-// B[K, N] with A a shared tile (row stride 4 mod 32 floats: the 4 rows a
-// warp's load reads fall in distinct banks) and B a weight matrix streamed
-// from device memory (held in L2) in stages of F_WST floats (32 rows of
-// 2H, 64 of H) by 16-byte cp.async into two stage buffers; the next
-// product's first stage is copied under the current product's last.  The
-// thread's 4 rows x 4 (q, W^T) or 8 (z|r) columns are fed per 4-deep step
-// by 4 A float4 loads and 4 or 8 B float4 loads: 8 or 11 FMAs a load.
+// z, r and q, in registers.  Every product is gru_tile.cuh's f32_mm (the
+// forward's f32 kernel runs the same routine): C[32, N] += A[32, K] ·
+// B[K, N], A a shared tile and B a weight matrix streamed from L2 through
+// two cp.async stages.  The thread's 4 rows x 4 (q, W^T) or 8 (z|r)
+// columns are fed per 4-deep step by 4 A float4 loads and 4 or 8 B float4
+// loads: 8 or 11 FMAs a load.
 constexpr int F_TM = 32;
 constexpr int F_LDX = XMAX + 4;          // shared row strides (floats), 4 mod 32
 constexpr int F_LDH = H + 4;
 constexpr int F_LDZR = 2 * H + 4;
 constexpr int F_LDS = 3 * H + 4;
-constexpr int F_WST = 32 * 2 * H;        // one weight stage (floats)
-
-// rows [0, rows) x columns [0, cols) of a row-major matrix of row stride ld
-struct WSrc {
-  const float* p;
-  int ld, rows, cols;
-};
 
 constexpr size_t f32_smem_bytes() {
   return ((size_t)F_TM * (F_LDX + 3 * F_LDH + F_LDZR + F_LDS) + 2 * F_WST) * sizeof(float);
-}
-
-// Stage ch (F_WST / b.cols rows; b.cols is H or 2H) of b into dst, 16 bytes
-// a copy, rows past b.rows zero.
-__device__ __forceinline__ void f32_fetch(const WSrc& b, int ch, float* dst) {
-  const int sh = b.cols == 2 * H ? 6 : 5, kc = F_WST / b.cols, k0 = ch * kc;
-  const int c = (threadIdx.x & ((1 << sh) - 1)) * 4;
-#pragma unroll
-  for (int i = threadIdx.x; i < F_WST / 4; i += THREADS) {
-    const int r = i >> sh;
-    const bool ok = k0 + r < b.rows;
-    cp_async16(dst + r * b.cols + c, ok ? b.p + (size_t)(k0 + r) * b.ld + c : b.p, ok);
-  }
-  cp_async_commit();
-}
-
-// acc[i][4g + j] += Σ_k A[rg + 8i][k] · B[k][g·H + c4 + j] over k < b.rows.
-// Stage 0 of b is in (or on its way to) stage buffer cur; the copy of nxt's
-// stage 0 (null: none) starts under b's last stage.  One barrier a stage,
-// before its products: it publishes the A tile and the landed stage, and
-// frees the other buffer for the next copy.  A thread may return while
-// others still read A, so the callers write a shared tile only after a
-// product that reads another one (the next barrier orders the rest).
-template <int NG>
-__device__ __forceinline__ void f32_mm(float (&acc)[4][4 * NG], const float* sa, int lda,
-                                       const WSrc& b, const WSrc* nxt, float* wst, int& cur,
-                                       int rg, int c4) {
-  const int kc = F_WST / b.cols, nch = (b.rows + kc - 1) / kc;
-  for (int ch = 0; ch < nch; ++ch) {
-    cp_async_wait<0>();
-    __syncthreads();                       // stage ch landed; the A tile is complete
-    if (ch + 1 < nch)
-      f32_fetch(b, ch + 1, wst + (cur ^ 1) * F_WST);
-    else if (nxt)
-      f32_fetch(*nxt, 0, wst + (cur ^ 1) * F_WST);
-    const float* st = wst + cur * F_WST + c4;
-    const float* a = sa + rg * lda + ch * kc;
-    const int kn = b.rows - ch * kc < kc ? b.rows - ch * kc : kc;
-#pragma unroll 2
-    for (int k = 0; k < kn; k += 4) {
-      float av[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        *reinterpret_cast<float4*>(av[i]) = *reinterpret_cast<const float4*>(a + 8 * i * lda + k);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        float bv[NG][4];
-#pragma unroll
-        for (int g = 0; g < NG; ++g)
-          *reinterpret_cast<float4*>(bv[g]) =
-              *reinterpret_cast<const float4*>(st + (k + q) * b.cols + g * H);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int g = 0; g < NG; ++g)
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              acc[i][4 * g + j] = fmaf(av[i][q], bv[g][j], acc[i][4 * g + j]);
-      }
-    }
-    cur ^= 1;
-  }
 }
 
 // The weights transposed for the backward's products through W^T, each

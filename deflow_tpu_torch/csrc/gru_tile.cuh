@@ -1,7 +1,8 @@
-// Warp-level pieces shared by the GRU forward (fused_gru.cu) and backward
+// Pieces shared by the GRU forward (fused_gru.cu) and backward
 // (fused_gru_bwd.cu): ldmatrix operand loads, mma.sync m16n8k16, the
 // RT x 16-row bf16 warp product over a shared A tile,
-// pair loads and stores, cp.async, and the 16-byte copy of a shared tile to
+// pair loads and stores, cp.async, the f32 routes' FFMA product with its
+// weights streamed from L2, and the 16-byte copy of a shared tile to
 // device memory.  ldsm4 and mma16816 are copies of cbg.cu's (that file
 // stays as it is).
 //
@@ -100,6 +101,91 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// ------------------------------------------------------------- f32 products
+// The f32 (FFMA) product of the GRU forward's and backward's f32 kernels
+// (blocks of F_THREADS threads, hidden width F_H): C[8·RI, N] += A[8·RI, K]
+// · B[K, N], A a shared tile (row stride 4 mod 32 floats: the 4 rows a
+// warp's load reads fall in distinct banks) and B a weight matrix streamed
+// from device memory (held in L2) in stages of F_WST floats (32 rows of
+// 2·F_H, 64 of F_H) by 16-byte cp.async into two stage buffers; the next
+// product's first stage is copied under the current product's last.
+// Thread (rg, cg) owns rows rg + 8i (i < RI) and columns g·F_H + 4cg .. +4
+// (g < NG): per 4-deep step RI A float4 and 4·NG B float4 loads feed
+// 16·RI·NG FMAs.  UNROLL: 4-deep steps unrolled (the forward reads faster
+// at 4, the backward, at 255 registers, at 2).
+constexpr int F_H = 128;
+constexpr int F_THREADS = 256;
+constexpr int F_WST = 32 * 2 * F_H;      // one weight stage (floats)
+
+// rows [0, rows) x columns [0, cols) of a row-major matrix of row stride ld
+struct WSrc {
+  const float* p;
+  int ld, rows, cols;
+};
+
+// Stage ch (F_WST / b.cols rows; b.cols is F_H or 2·F_H) of b into dst, 16
+// bytes a copy, rows past b.rows zero.
+__device__ __forceinline__ void f32_fetch(const WSrc& b, int ch, float* dst) {
+  const int sh = b.cols == 2 * F_H ? 6 : 5, kc = F_WST / b.cols, k0 = ch * kc;
+  const int c = (threadIdx.x & ((1 << sh) - 1)) * 4;
+#pragma unroll
+  for (int i = threadIdx.x; i < F_WST / 4; i += F_THREADS) {
+    const int r = i >> sh;
+    const bool ok = k0 + r < b.rows;
+    cp_async16(dst + r * b.cols + c, ok ? b.p + (size_t)(k0 + r) * b.ld + c : b.p, ok);
+  }
+  cp_async_commit();
+}
+
+// acc[i][4g + j] += Σ_k A[rg + 8i][k] · B[k][g·F_H + c4 + j] over k < b.rows
+// (A's columns up to b.rows rounded to 4 are read: zero them).  Stage 0 of
+// b is in (or on its way to) stage buffer cur; the copy of nxt's stage 0
+// (null: none) starts under b's last stage.  One barrier a stage, before
+// its products: it publishes the A tile and the landed stage, and frees the
+// other buffer for the next copy.  A thread may return while others still
+// read A, so the callers write a shared tile only after a product that
+// reads another one (the next barrier orders the rest).
+template <int NG, int RI, int UNROLL = 2>
+__device__ __forceinline__ void f32_mm(float (&acc)[RI][4 * NG], const float* sa, int lda,
+                                       const WSrc& b, const WSrc* nxt, float* wst, int& cur,
+                                       int rg, int c4) {
+  const int kc = F_WST / b.cols, nch = (b.rows + kc - 1) / kc;
+  for (int ch = 0; ch < nch; ++ch) {
+    cp_async_wait<0>();
+    __syncthreads();                       // stage ch landed; the A tile is complete
+    if (ch + 1 < nch)
+      f32_fetch(b, ch + 1, wst + (cur ^ 1) * F_WST);
+    else if (nxt)
+      f32_fetch(*nxt, 0, wst + (cur ^ 1) * F_WST);
+    const float* st = wst + cur * F_WST + c4;
+    const float* a = sa + rg * lda + ch * kc;
+    const int kn = b.rows - ch * kc < kc ? b.rows - ch * kc : kc;
+#pragma unroll UNROLL
+    for (int k = 0; k < kn; k += 4) {
+      float av[RI][4];
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+        *reinterpret_cast<float4*>(av[i]) = *reinterpret_cast<const float4*>(a + 8 * i * lda + k);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float bv[NG][4];
+#pragma unroll
+        for (int g = 0; g < NG; ++g)
+          *reinterpret_cast<float4*>(bv[g]) =
+              *reinterpret_cast<const float4*>(st + (k + q) * b.cols + g * F_H);
+#pragma unroll
+        for (int i = 0; i < RI; ++i)
+#pragma unroll
+          for (int g = 0; g < NG; ++g)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              acc[i][4 * g + j] = fmaf(av[i][q], bv[g][j], acc[i][4 * g + j]);
+      }
+    }
+    cur ^= 1;
+  }
 }
 
 // The first nrows rows of a shared [ROWS][ld] tile, COLS columns, to

@@ -1,18 +1,15 @@
-// Warp-level 16x16 tile products, one interface for both compute types.
-//
-//   Acc<bf16>:  tensor cores through WMMA (16x16x16 bf16, f32 accumulate);
-//   Acc<float>: plain FFMA (each lane holds row lane/2, columns
-//               (lane%2)*8 .. +8), the CBG backward's f32 route.  A lane
-//               loads one A and eight B elements for every eight FMAs, so
-//               shared-memory loads hold it near a quarter of the FFMA
-//               rate: not tuned (the CBG forward's f32 route has its own
-//               register-blocked tile in cbg.cu).
+// Warp-level 16x16 tile products on the tensor cores, for the CBG
+// backward's bf16 route: Acc<bf16> runs WMMA (16x16x16 bf16, f32
+// accumulate).  The f32 routes have their own register-blocked FFMA tiles
+// (cbg.cu's forward and backward, fused_gru_bwd.cu's dW kernel, and
+// gru_tile.cuh's f32_mm); there is no FFMA Acc<float>.
 //
 // acc.mma<A_ROW, B_ROW>(a, lda, b, ldb) adds the 16x16 product of one
 // 16-deep step: A(m, k) = a[m*lda + k] when A_ROW, a[k*lda + m] otherwise;
-// B(k, n) = b[k*ldb + n] when B_ROW, b[n*ldb + k] otherwise.  For bf16 the
-// pointers must be 32-byte aligned and lda/ldb multiples of 8 (WMMA's rule);
+// B(k, n) = b[k*ldb + n] when B_ROW, b[n*ldb + k] otherwise.  The pointers
+// must be 32-byte aligned and lda/ldb multiples of 8 (WMMA's rule);
 // acc.store writes the f32 tile row-major with ldc a multiple of 4.
+// reduce_partials sums per-slice partials in a fixed order.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -51,33 +48,6 @@ template <> struct Acc<bf16> {
   }
   __device__ __forceinline__ void store(float* c, int ldc) {
     nvcuda::wmma::store_matrix_sync(c, f, ldc, nvcuda::wmma::mem_row_major);
-  }
-};
-
-template <> struct Acc<float> {
-  float v[8];
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = 0.f;
-  }
-  template <bool A_ROW, bool B_ROW>
-  __device__ __forceinline__ void mma(const float* a, int lda, const float* b, int ldb) {
-    const int lane = threadIdx.x & 31, r = lane >> 1, c0 = (lane & 1) * 8;
-#pragma unroll 4
-    for (int k = 0; k < 16; ++k) {
-      const float av = A_ROW ? a[r * lda + k] : a[k * lda + r];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float bv = B_ROW ? b[k * ldb + c0 + j] : b[(c0 + j) * ldb + k];
-        v[j] = fmaf(av, bv, v[j]);
-      }
-    }
-  }
-  __device__ __forceinline__ void store(float* c, int ldc) {
-    const int lane = threadIdx.x & 31, r = lane >> 1, c0 = (lane & 1) * 8;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) c[r * ldc + c0 + j] = v[j];
-    __syncwarp();
   }
 };
 

@@ -72,9 +72,9 @@ def fused_gru(h0, x, w_zr, b_zr, w_q, b_q, num_iters: int) -> torch.Tensor:
         raise ValueError(f"unsupported device {h0.device}")
     m, xdim = h0.shape[0], x.shape[-1]
     bf16 = h0.dtype == torch.bfloat16
-    # the bf16 kernel moves h0, x, the weights and the output 16 bytes at a
+    # both kernels move h0, x, the weights and the output 16 bytes at a
     # time; the biases are read an element at a time
-    aligned = ("h0", "x", "w_zr", "w_q") if bf16 else ("h0", "x")
+    aligned = ("h0", "x", "w_zr", "w_q")
     for name, t in (("h0", h0), ("x", x), ("w_zr", w_zr), ("b_zr", b_zr),
                     ("w_q", w_q), ("b_q", b_q)):
         if not t.is_contiguous():

@@ -261,12 +261,15 @@ def test_gather_unaligned_table(dev, dtype, c):
                                         (torch.float32, 100),
                                         (torch.bfloat16, 16),
                                         (torch.bfloat16, 64)])
-@pytest.mark.parametrize("m", [1, 31, 33, 63, 64, 65, 1000, 4229, 20000])
+@pytest.mark.parametrize("m", [1, 31, 32, 33, 63, 64, 65, 1000, 4229, 32 * 133 + 5,
+                               64 * 133 + 5, 20000])
 @pytest.mark.parametrize("iters", [0, 1, 2, 4, 6])
 def test_fused_gru(dev, dtype, xdim, m, iters):
-    """M at the bf16 kernel's 64-point tile edges, and at more tiles than
-    the card has SMs (20,000: each block walks 2-3 tiles, so the prefetch
-    buffers alternate)."""
+    """M at the edges of 32- and 64-point tiles (the f32 kernel's and the
+    bf16 kernel's), just past a wave of 132 blocks of either, and at more
+    tiles than the card has SMs (20,000: each block walks 2-3 tiles, so the
+    prefetch buffers alternate); held to the plain version and bit for bit
+    between two launches."""
     g = torch.Generator().manual_seed(m * 7 + xdim)
     k_in = 128 + xdim
     args = [torch.randn(m, 128, generator=g) * 0.5,
@@ -277,8 +280,10 @@ def test_fused_gru(dev, dtype, xdim, m, iters):
             torch.randn(128, generator=g) * 0.1]
     args = [a.to(dev, dtype).contiguous() for a in args]
     k = gru.fused_gru(*args, iters)
+    again = gru.fused_gru(*args, iters)
     ref = gru.fused_gru_plain(*args, iters)
     torch.cuda.synchronize()
+    assert torch.equal(k, again)
     assert k.shape == (m, 128) and k.dtype == dtype
     rtol, atol = (1e-5, 1e-4) if dtype == torch.float32 else (2 ** -6, 4e-3)
     torch.testing.assert_close(k.float(), ref.float(), rtol=rtol, atol=atol)
@@ -565,6 +570,47 @@ def test_cbg_block_fwd_f32_route(dev, head, shape):
     assert first[1].shape[0] == lib.cbg_fwd_blocks(b, h, w, c, 0)
     assert _rel_err(first[0], s_ref) <= 1e-5
     assert _rel_err(first[1].sum(0), ps_ref.sum(0)) <= GRAD_TOL[torch.float32]
+
+
+@pytest.mark.parametrize("head", [False, True])
+@pytest.mark.parametrize("shape", [  # (B, H, W, C, O)
+    (2, 7, 100, 64, 64), (1, 5, 70, 128, 128), (2, 3, 90, 256, 256),
+    (1, 6, 40, 64, 128), (1, 4, 20, 128, 64), (2, 5, 36, 48, 80),
+    (1, 3, 20, 30, 18), (2, 9, 130, 200, 136)])
+def test_cbg_block_bwd_f32_route(dev, head, shape):
+    """The backward's f32 route (its dgrad's 8 x 8 FFMA micro-tile, 4 rows a
+    block at <= 64 input channels and 2 above, output channels in chunks of
+    32; its wgrad's 3 x 4 x 8 tile over units of 2 rows): rows not a
+    multiple of either row group, map widths that are not a multiple of
+    64, 64, 128 and 256 channels, C != O both ways, a ragged last o chunk,
+    widths that are not a multiple of 32 or of 4 (element copies); dz_prev,
+    dW, db and the statistics held to the plain version within the f32
+    gradient tolerance (inside phase 3's 1e-4), one partial-sum row a row
+    group, and bit for bit between two launches."""
+    from deflow_tpu_torch.ops import _build, cbg
+
+    g = torch.Generator().manual_seed(sum(shape) * 5 + head)
+    b, h, w, c, o = shape
+    sp, wm, _, scal_out = _cbg_inputs(g, shape, torch.float32, dev, head)
+    si = torch.randn(b, h, w, o, generator=g).to(dev)
+    dz = torch.randn(b, h, w, o, generator=g).to(dev)
+    scal_in = torch.stack([torch.randn(o, generator=g) * 0.1, torch.rand(o, generator=g) + 0.5,
+                           1 + 0.1 * torch.randn(o, generator=g),
+                           0.1 * torch.randn(o, generator=g), 0.1 * torch.randn(o, generator=g),
+                           0.1 * torch.randn(o, generator=g)]).to(dev)
+    first = cbg.cbg_block_bwd(dz, si, sp, wm, scal_in, scal_out)
+    second = cbg.cbg_block_bwd(dz, si, sp, wm, scal_in, scal_out)
+    want = cbg.cbg_block_bwd_plain(dz, si, sp, wm, scal_in, scal_out)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+    lib = _build.load("cbg", cbg._setup)
+    assert first[2].shape[0] == first[3].shape[0] == lib.cbg_bwd_blocks(b, h, w, c, 0)
+    tol = GRAD_TOL[torch.float32]
+    assert first[0].shape == (b, h, w, c) and _rel_err(first[0], want[0]) <= tol
+    assert first[1].shape == (3, 3, c, o) and _rel_err(first[1], want[1]) <= tol
+    assert _rel_err(first[2].sum(0), want[2].sum(0)) <= tol
+    assert _rel_err(first[3].sum(0), want[3].sum(0)) <= tol
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

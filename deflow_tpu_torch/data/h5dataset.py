@@ -34,6 +34,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from deflow_tpu_torch.utils import native
+from deflow_tpu_torch.utils.timer import span
 
 
 @dataclass(frozen=True)
@@ -302,7 +303,9 @@ class DataLoader:
     consumer's path; ``num_workers > 1`` decodes a batch's samples on
     ``utils.native.shared_pool`` (threads: the h5 reads and the C++
     ``select_pad`` release the GIL).  ``prefetch=0`` runs everything inline.
-    An error in decode or ``post_collate`` reaches the consumer.
+    An error in decode or ``post_collate`` reaches the consumer.  Each
+    batch's decode and collate is the span ``deflow/loader/collate``, its
+    ``post_collate`` the span ``deflow/loader/prep``.
 
     Data parallel (``world`` > 1): ``batch_size`` is the global batch.
     Every rank draws the same order and decodes (and preps) only its rows
@@ -360,11 +363,13 @@ class DataLoader:
                     sel = np.concatenate([sel, sel[-1:].repeat((-size) % self.world)])
                     b = len(sel) // self.world
                     sel = sel[self.rank * b:(self.rank + 1) * b]
-                batch = collate(self._decode(sel))
+                with span("deflow/loader/collate"):
+                    batch = collate(self._decode(sel))
                 if self.world > 1:
                     batch["global_size"] = size
                 if self.post_collate is not None:
-                    batch = self.post_collate(batch)
+                    with span("deflow/loader/prep"):
+                        batch = self.post_collate(batch)
                 yield batch
 
         if self.prefetch <= 0:

@@ -18,7 +18,9 @@ checkpoint on ``model.val_monitor`` and ``epoch_<N>.ckpt`` (every
 checkpoints``.  ``resume=<.ckpt>`` continues with the epoch after the
 file's, with that epoch's shuffle; ``checkpoint=<.ckpt|.pth|.pt>`` starts
 from its weights.  ``profile=k`` traces steps 2 … 2+k with torch.profiler
-into ``<run_dir>/profile``.
+into ``<run_dir>/profile`` (``trace.json``), with the program's spans
+(``utils.timer.span``) on for those steps: their ranges in the trace, their
+tallies in ``spans.json``.
 
 ``main`` composes the config and opens the ``.h5`` splits; :func:`fit`
 does the rest on any datasets shaped like ``HDF5Dataset`` (lists of sample
@@ -36,6 +38,7 @@ rank 0 alone logs and writes the checkpoints (see ``dist.py``).
 
 from __future__ import annotations
 
+import json
 import os
 import time
 import warnings
@@ -58,7 +61,7 @@ from deflow_tpu_torch.trainer import (SSL_TRAIN_KEYS, TRAIN_KEYS, BestCheckpoint
                                       load_checkpoint, load_weights, make_eval_step,
                                       make_train_step, save_checkpoint)
 from deflow_tpu_torch.utils.logger import MetricLogger
-from deflow_tpu_torch.utils.timer import StageTimer
+from deflow_tpu_torch.utils.timer import StageTimer, set_spans, take_spans
 
 
 class DynCapMonitor:
@@ -158,10 +161,9 @@ def fit(cfg, train_ds, val_ds=None, device=None,
         output_dir=str(cfg["output_dir"]), config=cfg_dict)
     say = print if main_rank else (lambda *a, **k: None)
     profile_steps = int(cfg.get("profile", 0) or 0) if main_rank else 0
-    # a sync at every stage stop serialises the host with the card: only
-    # when profiling
-    timer = StageTimer("Total", sync_fn=(torch.cuda.synchronize
-                                         if profile_steps and dev.type == "cuda" else None))
+    # host time of each stage: a sync at its stops would serialise the host
+    # with the card, and a profile would show idle gaps a run does not have
+    timer = StageTimer("Total")
     train_step = make_train_step(model, loss_name, dev, remat=bool(cfg.get("remat", False)))
     eval_step = make_eval_step(model, dev)
     val_cfg = Config(cfg_dict)
@@ -185,8 +187,10 @@ def fit(cfg, train_ds, val_ds=None, device=None,
     final_metrics: Dict[str, float] = {}
     prof = None
     frames_seen = global_it = 0
+    # frames/s of each log over the frames and seconds since the one before
+    # (the first log's since the first step ended: the warm-up left out)
+    frames_mark, t_mark = 0, None
     aux = None
-    t_train0 = time.perf_counter()
     for epoch in range(start_epoch, int(cfg["epochs"])):
         # the shuffle of epoch `epoch`, in a resumed run too
         train_loader.epoch = epoch
@@ -205,10 +209,14 @@ def fit(cfg, train_ds, val_ds=None, device=None,
             frames_seen += len(host_batch["scene_id"]) * world
             if i % log_every == 0:
                 vals = {k: float(v) for k, v in aux.items()}
+                now = time.perf_counter()
+                fps = (float("nan") if t_mark is None
+                       else (frames_seen - frames_mark) / (now - t_mark))
+                frames_mark, t_mark = frames_seen, now
                 logger.log({
                     "train/loss": vals["loss"], "train/epe": vals["epe"],
                     "train/grad_norm": vals["grad_norm"],
-                    "train/frames_per_sec": frames_seen / (time.perf_counter() - t_train0),
+                    "train/frames_per_sec": fps,
                     "epoch": epoch,
                 }, step=state.step)
                 say(f"epoch {epoch} it {i} loss {vals['loss']:.4f} "
@@ -248,15 +256,20 @@ def _start_profile(dev: torch.device):
 
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
     prof = profile(activities=acts)
+    take_spans()
     prof.start()
+    set_spans(True)
     return prof
 
 
 def _stop_profile(prof, run_dir: str) -> None:
+    set_spans(False)
     prof.stop()
     out = os.path.join(run_dir, "profile")
     os.makedirs(out, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out, "trace.json"))
+    with open(os.path.join(out, "spans.json"), "w") as f:
+        json.dump(take_spans(), f, indent=1, sort_keys=True)
     print(f"profile trace written to {out}")
 
 

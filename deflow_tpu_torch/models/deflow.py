@@ -18,7 +18,8 @@ before the U-Net (the JAX package's per-phase fuse: a table row is one
 pillar).  ``model.train()`` selects the training forward: batch-statistics
 BatchNorm (with running-stat updates in call order: pc0, pc1, then the
 history) and the fused encoder chains; the MMHead's dropout then draws
-from the ``dropout`` generator.
+from the ``dropout`` generator.  The embedder calls, the backbone and the
+head are the spans ``deflow/embed``, ``deflow/unet`` and ``deflow/head``.
 
 Returns, as the JAX model does:
     flow        [B, N, 3] f32  net flow at pc0 slots (zero where invalid)
@@ -42,6 +43,7 @@ from deflow_tpu_torch.models.unet import FastFlow3DUNet
 from deflow_tpu_torch.ops.pose import cal_pose0to1, transform_points
 from deflow_tpu_torch.ops.voxel import (
     VoxelConfig, image_to_table, pillar_info_from_ids, table_to_image)
+from deflow_tpu_torch.utils.timer import span
 
 
 class DeFlow(nn.Module):
@@ -98,44 +100,47 @@ class DeFlow(nn.Module):
             tpc0 = transform_points(pc0.float(), pose)
         pose_flow = torch.where(pc0_mask[..., None], tpc0 - pc0.float(), 0.0)
 
-        if hosted and self.embedder.scatter_mode == "max":
-            # the max scatter has no sorted-record shortcut: the centroids
-            # and features run on the card over the host's ids
-            tab0, info0, _ = self.embedder.embed_points(tpc0, pc0_mask, dt,
-                                                        ids=host_prep["pc0_ids"])
-            tab1, info1, _ = self.embedder.embed_points(pc1.float(), pc1_mask, dt,
-                                                        ids=host_prep["pc1_ids"])
-            plan0 = None
-        elif hosted:
-            tab0 = self.embedder(host_prep["pc0_sorted_rec"],
-                                 host_prep["pc0_sorted"], dt)
-            tab1 = self.embedder(host_prep["pc1_sorted_rec"],
-                                 host_prep["pc1_sorted"], dt)
-            info0 = pillar_info_from_ids(tpc0, pc0_mask, host_prep["pc0_ids"], cfg)
-            info1 = pillar_info_from_ids(pc1.float(), pc1_mask,
-                                         host_prep["pc1_ids"], cfg)
-            plan0 = None
-        else:
-            tab0, info0, plan0 = self.embedder.embed_points(tpc0, pc0_mask, dt)
-            tab1, info1, _ = self.embedder.embed_points(pc1.float(), pc1_mask, dt)
+        with span("deflow/embed"):
+            if hosted and self.embedder.scatter_mode == "max":
+                # the max scatter has no sorted-record shortcut: the centroids
+                # and features run on the card over the host's ids
+                tab0, info0, _ = self.embedder.embed_points(tpc0, pc0_mask, dt,
+                                                            ids=host_prep["pc0_ids"])
+                tab1, info1, _ = self.embedder.embed_points(pc1.float(), pc1_mask, dt,
+                                                            ids=host_prep["pc1_ids"])
+                plan0 = None
+            elif hosted:
+                tab0 = self.embedder(host_prep["pc0_sorted_rec"],
+                                     host_prep["pc0_sorted"], dt)
+                tab1 = self.embedder(host_prep["pc1_sorted_rec"],
+                                     host_prep["pc1_sorted"], dt)
+                info0 = pillar_info_from_ids(tpc0, pc0_mask, host_prep["pc0_ids"], cfg)
+                info1 = pillar_info_from_ids(pc1.float(), pc1_mask,
+                                             host_prep["pc1_ids"], cfg)
+                plan0 = None
+            else:
+                tab0, info0, plan0 = self.embedder.embed_points(tpc0, pc0_mask, dt)
+                tab1, info1, _ = self.embedder.embed_points(pc1.float(), pc1_mask, dt)
 
-        if self.num_frames > 2:
-            if history is None or len(history) != self.num_frames - 2:
-                raise ValueError(
-                    f"a num_frames={self.num_frames} model needs "
-                    f"{self.num_frames - 2} history frames (the loader's pch keys)")
-            tabs = [tab0]
-            for h in history:
-                pose_h1 = cal_pose0to1(h["pose"].float(), pose1.float())
-                pts = transform_points(h["pc"].float(), pose_h1)
-                tabs.append(self.embedder.embed_points(pts, h["mask"], dt)[0])
-            tab0 = _linear(self.history_fuse, torch.cat(tabs, dim=-1), dt)
+            if self.num_frames > 2:
+                if history is None or len(history) != self.num_frames - 2:
+                    raise ValueError(
+                        f"a num_frames={self.num_frames} model needs "
+                        f"{self.num_frames - 2} history frames (the loader's pch keys)")
+                tabs = [tab0]
+                for h in history:
+                    pose_h1 = cal_pose0to1(h["pose"].float(), pose1.float())
+                    pts = transform_points(h["pc"].float(), pose_h1)
+                    tabs.append(self.embedder.embed_points(pts, h["mask"], dt)[0])
+                tab0 = _linear(self.history_fuse, torch.cat(tabs, dim=-1), dt)
 
-        flow_img = self.backbone(table_to_image(tab0, cfg),
-                                 table_to_image(tab1, cfg), dt)
-        flow = self.head(torch.cat([tab0, tab1], dim=-1),
-                         image_to_table(flow_img, cfg), info0, dt, plan=plan0,
-                         dropout=dropout)
+        with span("deflow/unet"):
+            flow_img = self.backbone(table_to_image(tab0, cfg),
+                                     table_to_image(tab1, cfg), dt)
+        with span("deflow/head"):
+            flow = self.head(torch.cat([tab0, tab1], dim=-1),
+                             image_to_table(flow_img, cfg), info0, dt, plan=plan0,
+                             dropout=dropout)
         return {
             "flow": flow.float(),
             "pose_flow": pose_flow,

@@ -45,6 +45,7 @@ from deflow_tpu_torch.device import resolve_device
 from deflow_tpu_torch.losses import SSL_LOSS_REGISTRY, get_loss
 from deflow_tpu_torch.models.decoder import dropout_generator
 from deflow_tpu_torch.models.running_stats import remat_contexts
+from deflow_tpu_torch.utils.timer import span
 
 # the loader's history frames (num_frames > 2: pch1 is the frame before
 # pc0, ...), for every depth it can emit
@@ -106,7 +107,8 @@ def device_prefetch(loader: Iterable[Dict], device=None, depth: int = 2,
     each tensor is marked as used by it (``record_stream``) before it is
     handed out.  On the CPU the batch is moved without a stream.  An error
     of the loader reaches the consumer; an abandoned iteration stops the
-    thread at its next put."""
+    thread at its next put.  The consumer's wait for each batch, the stream
+    wait included, is the span ``deflow/loader/wait``."""
     dev = resolve_device(device)
 
     def moved():
@@ -124,12 +126,18 @@ def device_prefetch(loader: Iterable[Dict], device=None, depth: int = 2,
                 ready.record(side)
                 yield hb, db, ready
 
-    for hb, db, ready in background(moved(), depth):
-        if ready is not None:
-            stream = torch.cuda.current_stream(dev)
-            stream.wait_event(ready)
-            for t in db.values():
-                t.record_stream(stream)
+    it = background(moved(), depth)
+    while True:
+        with span("deflow/loader/wait"):
+            got = next(it, None)
+            if got is None:
+                return
+            hb, db, ready = got
+            if ready is not None:
+                stream = torch.cuda.current_stream(dev)
+                stream.wait_event(ready)
+                for t in db.values():
+                    t.record_stream(stream)
         yield hb, db
 
 
@@ -249,7 +257,11 @@ def make_train_step(model: torch.nn.Module, loss_name: str,
     step.  The recompute leaves the BN running statistics alone, and on the
     CPU the step is the plain step bit for bit.  Under a process group the
     recompute issues the forward's collectives again, in the same order on
-    every rank."""
+    every rank.
+
+    Spans (``utils.timer.span``): ``deflow/step`` around each step, and in
+    it ``deflow/step/`` ``forward`` (the model, or its ``checkpoint`` call),
+    ``loss``, ``backward``, ``all_reduce`` and ``optimizer``."""
     dev = resolve_device(device)
     model.to(dev)
     is_ssl = loss_name in SSL_LOSS_REGISTRY
@@ -264,24 +276,33 @@ def make_train_step(model: torch.nn.Module, loss_name: str,
                      b["pc0_mask"], b["pc1_mask"], dropout=gen, **_model_inputs(model, b))
 
     def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
+        with span("deflow/step"):
+            return run_step(state, batch)
+
+    def run_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
         if state.model is not model:
             raise ValueError("the state holds another model than the step")
         model.train()
         b = device_batch(batch, dev, keys)
         state.optimizer.zero_grad(set_to_none=True)
-        out = (checkpoint(forward, b, state.step, use_reentrant=False,
-                          context_fn=remat_contexts)
-               if remat else forward(b, state.step))
-        if is_ssl:
-            mask = out["pc0_valid"] & b["pc0_mask"]
-            loss = loss_fn(out, b)
-        else:
-            target = b["flow"] - out["pose_flow"]
-            mask = out["pc0_valid"] & b["flow_is_valid"]
-            loss = loss_fn(out["flow"], target, mask, b.get("flow_category_indices"))
-        loss.backward()
-        dist.all_reduce_grads(model.parameters())
-        grad_norm = apply_gradients(state.optimizer, model.parameters(), state.clip)
+        with span("deflow/step/forward"):
+            out = (checkpoint(forward, b, state.step, use_reentrant=False,
+                              context_fn=remat_contexts)
+                   if remat else forward(b, state.step))
+        with span("deflow/step/loss"):
+            if is_ssl:
+                mask = out["pc0_valid"] & b["pc0_mask"]
+                loss = loss_fn(out, b)
+            else:
+                target = b["flow"] - out["pose_flow"]
+                mask = out["pc0_valid"] & b["flow_is_valid"]
+                loss = loss_fn(out["flow"], target, mask, b.get("flow_category_indices"))
+        with span("deflow/step/backward"):
+            loss.backward()
+        with span("deflow/step/all_reduce"):
+            dist.all_reduce_grads(model.parameters())
+        with span("deflow/step/optimizer"):
+            grad_norm = apply_gradients(state.optimizer, model.parameters(), state.clip)
         state.step += 1
         with torch.no_grad():
             if is_ssl:      # no gt flow to compare against

@@ -7,12 +7,79 @@ Voxelization, Encoder, Decoder}); ``dztimer`` is not a dependency here.
 The card runs asynchronously, so a stage measures host time unless the
 timer is given a ``sync_fn`` (``torch.cuda.synchronize``), which it calls
 before each stop.
+
+Beside it, named spans at the program's layer boundaries (:func:`span`):
+off by default, when each costs one check of a flag; switched on
+(:func:`set_spans`, as ``entry.train.fit`` does for its ``profile=k``
+steps) each span is a ``torch.profiler.record_function`` range, on the
+profiler's timeline with the kernels it launches, and adds to a
+process-wide tally per name (count, wall seconds, the entering thread's CPU
+seconds) that :func:`take_spans` returns and resets.  Spans nest: a tally
+holds its children's time.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 import time
 from typing import Callable, Dict, List, Optional
+
+from torch.profiler import record_function
+
+_spans_on = False
+_OFF = contextlib.nullcontext()
+_tally_lock = threading.Lock()
+# name -> [count, wall ns, thread CPU ns]
+_tally: Dict[str, List[int]] = {}
+
+
+class _Span:
+    __slots__ = ("name", "range", "wall0", "cpu0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.range = record_function(self.name).__enter__()
+        self.wall0, self.cpu0 = time.perf_counter_ns(), time.thread_time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        wall = time.perf_counter_ns() - self.wall0
+        cpu = time.thread_time_ns() - self.cpu0
+        self.range.__exit__(*exc)
+        with _tally_lock:
+            t = _tally.setdefault(self.name, [0, 0, 0])
+            t[0] += 1
+            t[1] += wall
+            t[2] += cpu
+        return False
+
+
+def span(name: str):
+    """A context manager around one pass through a layer of the program:
+    while spans are off, a shared no-op; while on, a profiler range named
+    ``name`` and one more entry in ``name``'s tally."""
+    return _Span(name) if _spans_on else _OFF
+
+
+def set_spans(on: bool) -> bool:
+    """Switch the spans on or off for every thread; returns the previous
+    setting."""
+    global _spans_on
+    was, _spans_on = _spans_on, bool(on)
+    return was
+
+
+def take_spans() -> Dict[str, Dict[str, float]]:
+    """The tallies since the last call, ``{name: {"n", "wall_s", "cpu_s"}}``
+    (``cpu_s``: the CPU time of the thread that ran the span), and a fresh
+    start."""
+    global _tally
+    with _tally_lock:
+        got, _tally = _tally, {}
+    return {k: {"n": n, "wall_s": w / 1e9, "cpu_s": c / 1e9} for k, (n, w, c) in got.items()}
 
 
 class StageTimer:

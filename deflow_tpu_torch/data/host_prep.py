@@ -5,8 +5,9 @@ The port's own copy of ``deflow_tpu/data/host_prep.py`` (``prep_sample`` and
 compensation, pillar binning, the stable sort by pillar id and the sorted
 9-lane PFN record, and permutes every per-point array into ascending-id
 order, so the device runs no sort and no permute.  The work runs in the C++
-host ops (``utils/native.py``, the default) or in the numpy versions here,
-the plain versions the C++ matches bit for bit (``backend="numpy"``).
+host ops (``utils/native.py``, the default: one call a sample that writes
+its rows of every output) or in the numpy versions here, the plain
+versions the C++ matches bit for bit (``backend="numpy"``).
 
 Pillar ids use the s2d order on even grids,
 ``((y>>1)·W/2 + (x>>1))·4 + (y&1)·2 + (x&1)``, row-major otherwise; invalid
@@ -27,7 +28,6 @@ and, when the batch carries DUFO labels (SSL), pc1's chamfer cell sort
 
 from __future__ import annotations
 
-from types import SimpleNamespace
 from typing import Dict, Sequence
 
 import numpy as np
@@ -44,7 +44,8 @@ HOST_PREP_KEYS = (
 # ``_sweep_cloud_from_host``); pc1 carries no gradient, so the host owns it
 CHAMFER_CELL_KEYS = ("pc1_cell_lanes", "pc1_cell_sid", "pc1_cell_start")
 
-# per-point batch keys that ride pc0's (resp. pc1's) point order
+# per-point batch keys that ride pc0's (resp. pc1's) point order, the cloud
+# first (the fused C++ call reads pc1's sorted rows from its output)
 _PC0_ALIGNED = ("pc0", "pc0_mask", "flow", "flow_is_valid",
                 "flow_category_indices", "eval_mask", "dufo_label0")
 _PC1_ALIGNED = ("pc1", "pc1_mask", "dufo_label1")
@@ -160,34 +161,41 @@ def permute_rows(a: np.ndarray, order: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(a)[order]
 
 
-def prep_sample(
-    pc0: np.ndarray, pc1: np.ndarray,
-    pc0_mask: np.ndarray, pc1_mask: np.ndarray,
-    pose0: np.ndarray, pose1: np.ndarray,
-    voxel_size: Sequence[float], point_cloud_range: Sequence[float],
-    ego_motion: np.ndarray = None, backend: str = "native",
-) -> Dict[str, np.ndarray]:
-    """Per-sample host prep in the clouds' original point order."""
-    ops = _ops(backend)
+def _grid_of(voxel_size, point_cloud_range):
     lo = np.asarray(point_cloud_range[:3], np.float32)
     hi = np.asarray(point_cloud_range[3:], np.float32)
     vs = np.asarray(voxel_size, np.float32)
-    grid = np.round((hi - lo) / vs).astype(np.int32)
+    return lo, vs, np.round((hi - lo) / vs).astype(np.int32)
 
-    if ego_motion is None:
-        ego_motion = np.linalg.inv(np.asarray(pose1, np.float64)) @ np.asarray(
-            pose0, np.float64)
-    tpc0 = ops.se3_transform(pc0, ego_motion)
 
+def _ego_motion(batch, i) -> np.ndarray:
+    if "ego_motion" in batch:
+        return np.asarray(batch["ego_motion"][i], np.float64)
+    return np.linalg.inv(np.asarray(batch["pose1"][i], np.float64)) @ np.asarray(
+        batch["pose0"][i], np.float64)
+
+
+def prep_sample(
+    pc0: np.ndarray, pc1: np.ndarray,
+    pc0_mask: np.ndarray, pc1_mask: np.ndarray,
+    ego_motion: np.ndarray,
+    voxel_size: Sequence[float], point_cloud_range: Sequence[float],
+) -> Dict[str, np.ndarray]:
+    """Per-sample host prep in the clouds' original point order (numpy)."""
+    lo, vs, grid = _grid_of(voxel_size, point_cloud_range)
+    tpc0 = se3_transform(pc0, ego_motion)
     out = {"pc0_transformed": tpc0}
     for tag, pts, mask in (("pc0", tpc0, pc0_mask), ("pc1", pc1, pc1_mask)):
-        pid, order, iperm, sid = ops.pillar_prep(pts, mask, lo, vs, grid)
+        pid, order, iperm, sid = pillar_prep(pts, mask, lo, vs, grid)
         out[f"{tag}_ids"] = pid
         out[f"{tag}_order"] = order
         out[f"{tag}_iperm"] = iperm
         out[f"{tag}_sorted"] = sid
-        out[f"{tag}_sorted_rec"] = ops.sorted_record(pts, order, sid, lo, vs, grid)
+        out[f"{tag}_sorted_rec"] = sorted_record(pts, order, sid, lo, vs, grid)
     return out
+
+
+_OUT_KEYS = HOST_PREP_KEYS + ("pc0_unsort", "pc1_unsort") + CHAMFER_CELL_KEYS
 
 
 def attach_host_prep(
@@ -204,32 +212,33 @@ def attach_host_prep(
     on the host (``out_orig = out_sorted[unsort]``).  ``backend`` is
     ``"native"`` (the C++ host ops; raises if they cannot be built) or
     ``"numpy"``.  ``num_workers > 1`` preps the samples in parallel on
-    ``utils.native.shared_pool`` (the C++ calls release the GIL)."""
-    ops = _ops(backend)
+    ``utils.native.shared_pool``.
+
+    The native backend allocates each output once for the batch and preps
+    each sample in one GIL-free call (``native.host_prep``) that writes the
+    sample's rows of every output; the permuted per-point arrays replace
+    the batch's.  ``attach_host_prep.fused_samples`` counts those calls."""
+    if backend == "native":
+        return _attach_native(batch, voxel_size, point_cloud_range, num_workers)
+    if backend != "numpy":
+        raise ValueError(f"unknown host-prep backend {backend!r} (native | numpy)")
 
     def one(i):
-        p = prep_sample(
-            batch["pc0"][i], batch["pc1"][i],
-            batch["pc0_mask"][i], batch["pc1_mask"][i],
-            batch["pose0"][i], batch["pose1"][i],
-            voxel_size, point_cloud_range,
-            ego_motion=(batch["ego_motion"][i]
-                        if "ego_motion" in batch else None),
-            backend=backend,
-        )
+        p = prep_sample(batch["pc0"][i], batch["pc1"][i],
+                        batch["pc0_mask"][i], batch["pc1_mask"][i],
+                        _ego_motion(batch, i), voxel_size, point_cloud_range)
         for keys, o in ((_PC0_ALIGNED, p["pc0_order"]),
                         (_PC1_ALIGNED, p["pc1_order"])):
             for k in keys:
                 if k in batch:
-                    batch[k][i] = ops.permute_rows(batch[k][i], o)
-        p["pc0_transformed"] = ops.permute_rows(p["pc0_transformed"],
-                                                p["pc0_order"])
+                    batch[k][i] = permute_rows(batch[k][i], o)
+        p["pc0_transformed"] = permute_rows(p["pc0_transformed"], p["pc0_order"])
         for tag in ("pc0", "pc1"):
             p[f"{tag}_ids"] = p[f"{tag}_sorted"]
             p[f"{tag}_unsort"] = p.pop(f"{tag}_iperm")
             del p[f"{tag}_order"]
         if "dufo_label1" in batch:
-            cp = ops.chamfer_cell_prep(
+            cp = chamfer_cell_prep(
                 batch["pc1"][i], batch["pc1_mask"][i],
                 batch["pc1_mask"][i] & (batch["dufo_label1"][i] > 0))
             for k in CHAMFER_CELL_KEYS:
@@ -242,10 +251,33 @@ def attach_host_prep(
     else:
         per = [one(i) for i in range(b)]
 
-    for k in HOST_PREP_KEYS + ("pc0_unsort", "pc1_unsort") + CHAMFER_CELL_KEYS:
+    for k in _OUT_KEYS:
         if k in per[0]:
             batch[k] = np.stack([p[k] for p in per])
     return batch
+
+
+def _attach_native(batch, voxel_size, point_cloud_range, num_workers):
+    lo, vs, grid = _grid_of(voxel_size, point_cloud_range)
+    b = len(batch["pc0"])
+    keys = [{k: batch[k] for k in aligned if k in batch}
+            for aligned in (_PC0_ALIGNED, _PC1_ALIGNED)]
+    flag = (batch["pc1_mask"] & (batch["dufo_label1"] > 0)
+            if "dufo_label1" in batch else None)
+    out, run = native.host_prep(keys, (batch["pc0_mask"], batch["pc1_mask"]),
+                                np.stack([_ego_motion(batch, i) for i in range(b)]),
+                                lo, vs, grid, cell_flag=flag)
+    if num_workers > 1 and b > 1:
+        list(native.shared_pool(num_workers).map(run, range(b)))
+    else:
+        for i in range(b):
+            run(i)
+    attach_host_prep.fused_samples += b
+    batch.update((k, out[k]) for k in (*keys[0], *keys[1], *_OUT_KEYS) if k in out)
+    return batch
+
+
+attach_host_prep.fused_samples = 0
 
 
 def host_prep_from_batch(batch) -> "dict | None":
@@ -253,18 +285,3 @@ def host_prep_from_batch(batch) -> "dict | None":
     if "pc0_ids" not in batch:
         return None
     return {k: batch[k] for k in HOST_PREP_KEYS if k in batch}
-
-
-# the numpy versions, the plain versions of the C++ host ops
-_NUMPY = SimpleNamespace(se3_transform=se3_transform, pillar_prep=pillar_prep,
-                         sorted_record=sorted_record,
-                         chamfer_cell_prep=chamfer_cell_prep,
-                         permute_rows=permute_rows)
-
-
-def _ops(backend: str):
-    if backend == "native":
-        return native
-    if backend == "numpy":
-        return _NUMPY
-    raise ValueError(f"unknown host-prep backend {backend!r} (native | numpy)")

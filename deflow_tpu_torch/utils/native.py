@@ -101,10 +101,29 @@ def _declare(lib: ctypes.CDLL) -> None:
             ("sorted_record", None, [f32p, i64, f32p, f32p, i32p, i32,
                                      i32p, i32p, f32p]),
             ("chamfer_cell_prep", None, [f32p, u8p, u8p, i64, ctypes.c_float,
-                                         f32p, i32, i32, f32p, i32p, i32p])):
+                                         f32p, i32, i32, f32p, i32p, i32p]),
+            ("host_prep_sample", None, [ctypes.POINTER(_PrepBatch), i64])):
         fn = getattr(lib, name)
         fn.restype = res
         fn.argtypes = args
+
+
+class _PrepBatch(ctypes.Structure):
+    """``csrc/pointops.cpp`` ``PrepBatch``: one batch's arrays and grid."""
+    _fields_ = [
+        ("n", ctypes.c_int64), ("pc", ctypes.c_void_p * 2),
+        ("pc_cols", ctypes.c_int64 * 2), ("mask", ctypes.c_void_p * 2),
+        ("ego", ctypes.c_void_p), ("vmin", ctypes.c_float * 3),
+        ("vsize", ctypes.c_float * 3), ("grid", ctypes.c_int32 * 3),
+        ("s2d", ctypes.c_int32), ("transformed", ctypes.c_void_p),
+        ("ids", ctypes.c_void_p * 2), ("sorted", ctypes.c_void_p * 2),
+        ("unsort", ctypes.c_void_p * 2), ("rec", ctypes.c_void_p * 2),
+        ("n_keys", ctypes.c_int32 * 2), ("key_src", ctypes.c_void_p * 2),
+        ("key_dst", ctypes.c_void_p * 2), ("key_row_bytes", ctypes.c_void_p * 2),
+        ("cell_flag", ctypes.c_void_p), ("cell", ctypes.c_float),
+        ("cell_lo", ctypes.c_float * 2), ("cell_gx", ctypes.c_int32),
+        ("cell_gy", ctypes.c_int32), ("cell_lanes", ctypes.c_void_p),
+        ("cell_sid", ctypes.c_void_p), ("cell_start", ctypes.c_void_p)]
 
 
 def _ptr(a: Optional[np.ndarray], ctype):
@@ -295,9 +314,7 @@ def chamfer_cell_prep(pts: np.ndarray, mask: np.ndarray, flag: np.ndarray,
     """One cloud's chamfer cell sort (``data/host_prep.py``
     ``chamfer_cell_prep``): ``lanes`` [5, N], ``sid`` [N], ``start``
     [kgap+1]."""
-    gx = int(np.ceil((hi[0] - lo[0]) / cell - 1e-6))
-    gy = int(np.ceil((hi[1] - lo[1]) / cell - 1e-6))
-    kgap = (gy + 1) * gx
+    gx, gy, kgap = _cell_grid(cell, lo, hi)
     pts = _f32(pts, 3)
     n = len(pts)
     mask = _rows(mask, n, np.uint8, "mask")
@@ -312,6 +329,103 @@ def chamfer_cell_prep(pts: np.ndarray, mask: np.ndarray, flag: np.ndarray,
         gx, gy, _ptr(lanes, ctypes.c_float), _ptr(sid, ctypes.c_int32),
         _ptr(start, ctypes.c_int32))
     return {"lanes": lanes, "sid": sid, "start": start}
+
+
+def _cell_grid(cell: float, lo: Sequence[float], hi: Sequence[float]):
+    """(gx, gy, kgap) of the chamfer cell sort."""
+    gx = int(np.ceil((hi[0] - lo[0]) / cell - 1e-6))
+    gy = int(np.ceil((hi[1] - lo[1]) / cell - 1e-6))
+    return gx, gy, (gy + 1) * gx
+
+
+def _truth(a, shape, what: str) -> np.ndarray:
+    """A C-ordered 0/1 uint8 copy of a mask (a view of a bool one)."""
+    a = np.asarray(a)
+    if a.shape != shape:
+        raise ValueError(f"{what} is {a.shape}, expected {shape}")
+    return np.ascontiguousarray(a if a.dtype == bool else a != 0).view(np.uint8)
+
+
+def host_prep(keys, masks, ego, vmin, vsize, grid, cell_flag=None,
+              cell: float = 2.0,
+              lo: Sequence[float] = (-51.2, -51.2),
+              hi: Sequence[float] = (51.2, 51.2)):
+    """The fused host prep of one batch (``csrc/pointops.cpp``
+    ``host_prep_sample``).
+
+    ``keys``: for pc0 and pc1, a dict of the per-point arrays [B, n, ...]
+    that ride the cloud's point order, the cloud itself under ``"pc0"``
+    (``"pc1"``) as [B, n, >=3] float32.  ``masks``: the clouds' [B, n]
+    masks; ``ego`` [B, 4, 4], pc0 into pc1's frame; ``cell_flag``: pc1's
+    [B, n] chamfer flag, for the SSL cell sort of pc1's sorted rows
+    (``chamfer_cell_prep``'s geometry), or None.
+
+    Returns ``(out, run)``.  ``out`` holds the batch's new arrays, each
+    allocated here once: every key's permuted copy under its name,
+    ``pc0_transformed``, ``pc{0,1}_ids``, ``_sorted``, ``_unsort`` and
+    ``_sorted_rec`` and, with ``cell_flag``, ``pc1_cell_lanes``, ``_sid``
+    and ``_start``.  ``run(i)`` preps sample ``i`` in one GIL-free call that
+    writes its rows of each."""
+    pcs = [np.asarray(keys[c][f"pc{c}"]) for c in (0, 1)]
+    b, n = pcs[0].shape[:2]
+    for c, pc in enumerate(pcs):
+        if (pc.dtype != np.float32 or pc.ndim != 3 or pc.shape[:2] != (b, n)
+                or pc.shape[2] < 3):
+            raise ValueError(f"pc{c} must be a [{b}, {n}, >=3] float32 array, "
+                             f"got {pc.dtype} {pc.shape}")
+    grid = _grid(grid)
+    trash = int(grid[0]) * int(grid[1])
+    if n >= 2 ** 31 or trash + 2 >= 2 ** 31:
+        raise ValueError(f"{n} slots or a {grid[0]}x{grid[1]} grid overflow int32")
+    masks = [_truth(m, (b, n), f"pc{c}_mask") for c, m in enumerate(masks)]
+    ego = np.ascontiguousarray(ego, np.float64).reshape(b, 4, 4)
+    st = _PrepBatch(n=n, s2d=int(use_s2d(grid)), ego=ego.ctypes.data)
+    st.vmin[:], st.vsize[:] = _vec3(vmin).tolist(), _vec3(vsize).tolist()
+    st.grid[:] = grid.tolist()
+    out, refs = {}, [masks, ego]
+    for c in (0, 1):
+        # the cloud first: the record and the cell sort read its sorted rows
+        names = [f"pc{c}"] + [k for k in keys[c] if k != f"pc{c}"]
+        src = [np.ascontiguousarray(keys[c][k]) for k in names]
+        for k, a in zip(names, src):
+            if a.shape[:2] != (b, n):
+                raise ValueError(f"{k} is {a.shape}, expected [{b}, {n}, ...]")
+            out[k] = np.empty(a.shape, a.dtype)
+        arrays = ((ctypes.c_void_p * len(src))(*(a.ctypes.data for a in src)),
+                  (ctypes.c_void_p * len(src))(*(out[k].ctypes.data for k in names)),
+                  (ctypes.c_int64 * len(src))(*(a.nbytes // (b * n) for a in src)))
+        refs += [src, arrays]
+        st.pc[c], st.pc_cols[c], st.mask[c] = src[0].ctypes.data, src[0].shape[2], masks[c].ctypes.data
+        st.n_keys[c] = len(src)
+        st.key_src[c], st.key_dst[c], st.key_row_bytes[c] = map(ctypes.addressof, arrays)
+    out["pc0_transformed"] = np.empty((b, n, 3), np.float32)
+    st.transformed = out["pc0_transformed"].ctypes.data
+    for c in (0, 1):
+        for k in ("ids", "sorted", "unsort"):
+            out[f"pc{c}_{k}"] = np.empty((b, n), np.int32)
+            getattr(st, k)[c] = out[f"pc{c}_{k}"].ctypes.data
+        out[f"pc{c}_sorted_rec"] = np.empty((b, n, 9), np.float32)
+        st.rec[c] = out[f"pc{c}_sorted_rec"].ctypes.data
+    if cell_flag is not None:
+        st.cell_gx, st.cell_gy, kgap = _cell_grid(cell, lo, hi)
+        flag = _truth(cell_flag, (b, n), "the cell flag")
+        refs.append(flag)
+        st.cell_flag, st.cell = flag.ctypes.data, cell
+        st.cell_lo[:] = np.asarray(lo, np.float32).reshape(2).tolist()
+        for k, shape, dtype in (("lanes", (b, 5, n), np.float32), ("sid", (b, n), np.int32),
+                                ("start", (b, kgap + 1), np.int32)):
+            out[f"pc1_cell_{k}"] = np.empty(shape, dtype)
+            setattr(st, f"cell_{k}", out[f"pc1_cell_{k}"].ctypes.data)
+    refs.append(out)
+    fn, arg = get_lib().host_prep_sample, ctypes.pointer(st)
+
+    def run(i: int) -> None:
+        if not 0 <= i < b:
+            raise IndexError(f"sample {i} of a batch of {b}")
+        fn(arg, i)
+
+    run.arrays = refs       # what the struct points into lives as long as run
+    return out, run
 
 
 _POOL = None

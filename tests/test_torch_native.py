@@ -5,8 +5,9 @@ package's.
 Each wrapper is held bit for bit (same dtype, shape and bytes) to the
 port's numpy version where the port has one (``data/host_prep.py``), else
 to the numpy expression of what it computes.  ``attach_host_prep`` with the
-C++ ops over a pool of 4 threads is held bit for bit to its numpy backend on
-every key, eval and SSL batches alike, and to the JAX package's
+C++ ops (one fused call a sample) is held bit for bit to its numpy backend
+on every key, eval and SSL batches alike, over 4 threads and none, at
+grids up to 1024², and to the JAX package's
 ``attach_host_prep(sort=True)`` at ``test_host_prep_matches_jax``'s bounds
 (integer and mask keys exact, float keys atol 1e-5).
 """
@@ -21,6 +22,7 @@ import numpy as np
 import pytest
 
 from deflow_tpu.data.host_prep import attach_host_prep as jax_attach
+from deflow_tpu_torch import trainer
 from deflow_tpu_torch.data import host_prep as hp
 from deflow_tpu_torch.utils import native
 
@@ -29,7 +31,7 @@ from test_torch_host_prep import RANGE, make_host_batch
 ROOT = Path(__file__).resolve().parents[1]
 VMIN = np.asarray(RANGE[:3], np.float32)
 GRIDS = {"s2d": (3.2, 3.2, 6.0), "row_major": (3.3, 3.2, 6.0),
-         "z_bins": (0.8, 0.4, 0.7)}
+         "z_bins": (0.8, 0.4, 0.7), "fine_1024": (0.1, 0.1, 6.0)}
 
 
 def assert_bitwise(got, want, what=""):
@@ -185,18 +187,77 @@ def _batches(voxel):
     return {"eval": eval_batch, "ssl": ssl}
 
 
-@pytest.mark.parametrize("kind", ["eval", "ssl"])
-@pytest.mark.parametrize("grid", sorted(GRIDS))
-def test_attach_host_prep_native_matches_numpy(kind, grid):
-    hb = _batches(GRIDS[grid])[kind]
+def _variant(hb, case, rng):
+    """The batch of a case: ``b1`` its first sample alone, ``ego`` an
+    ``ego_motion`` that the poses do not give, ``full`` every slot of both
+    clouds valid and inside the range (no trash id)."""
+    if case == "b1":
+        return {k: v[:1] for k, v in hb.items()}
+    if case == "ego":
+        ego = np.tile(np.eye(4, dtype=np.float32), (len(hb["pc0"]), 1, 1))
+        a = rng.uniform(-0.2, 0.2, len(ego))
+        ego[:, 0, 0], ego[:, 0, 1] = np.cos(a), -np.sin(a)
+        ego[:, 1, 0], ego[:, 1, 1] = np.sin(a), np.cos(a)
+        ego[:, :3, 3] = rng.uniform(-1, 1, (len(ego), 3))
+        return {**hb, "ego_motion": ego}
+    if case == "full":
+        for c in ("pc0", "pc1"):
+            hb[c] = np.clip(hb[c], [-50.9, -50.9, -2.9], [50.9, 50.9, 2.9]).astype(np.float32)
+            hb[f"{c}_mask"] = np.ones_like(hb[f"{c}_mask"])
+        eye = np.tile(np.eye(4, dtype=np.float32), (len(hb["pc0"]), 1, 1))
+        return {**hb, "pose0": eye, "pose1": eye.copy()}
+    return hb
+
+
+# (grid, kind, case): every grid of eval and SSL batches of 4 over 4 threads
+# with ego motion from the poses, then the 512² and 1024² s2d grids with one
+# thing changed: no pool, a batch of 1, a given ego_motion, every slot valid
+ATTACH_CASES = ([(g, k, "") for g in sorted(GRIDS) for k in ("eval", "ssl")]
+                + [(g, k, c) for g in ("s2d", "fine_1024") for k in ("eval", "ssl")
+                   for c in ("workers0", "b1", "ego", "full")])
+
+
+@pytest.mark.parametrize("grid,kind,case", ATTACH_CASES,
+                         ids=["-".join(filter(None, c)) for c in ATTACH_CASES])
+def test_attach_host_prep_native_matches_numpy(grid, kind, case):
+    hb = _variant(_batches(GRIDS[grid])[kind], case, np.random.default_rng(11))
     want = hp.attach_host_prep(copy.deepcopy(hb), list(GRIDS[grid]), RANGE,
                                backend="numpy")
     got = hp.attach_host_prep(copy.deepcopy(hb), list(GRIDS[grid]), RANGE,
-                              num_workers=4)
-    assert got.keys() == want.keys()
+                              num_workers=0 if case == "workers0" else 4)
+    assert list(got) == list(want)
     assert ("pc1_cell_lanes" in got) == (kind == "ssl")
+    if case == "full":
+        trash = np.prod(grid_of(GRIDS[grid])[0][:2])
+        assert (got["pc0_sorted"] < trash).all() and (got["pc1_sorted"] < trash).all()
     for k in want:
         assert_bitwise(got[k], want[k], k)
+    moved = trainer.SSL_TRAIN_KEYS if kind == "ssl" else trainer.TRAIN_KEYS
+    for k in set(moved) & set(got):
+        assert got[k].flags.c_contiguous, k
+
+
+def test_fused_samples_counts_native_calls():
+    """One fused call a sample under the C++ backend, none under numpy."""
+    hb = _batches(GRIDS["s2d"])["ssl"]
+    for backend, workers, grows in (("native", 4, 4), ("native", 0, 4),
+                                    ("numpy", 4, 0)):
+        before = hp.attach_host_prep.fused_samples
+        hp.attach_host_prep(copy.deepcopy(hb), list(GRIDS["s2d"]), RANGE,
+                            num_workers=workers, backend=backend)
+        assert hp.attach_host_prep.fused_samples - before == grows, backend
+    before = hp.attach_host_prep.fused_samples
+    hp.attach_host_prep({k: v[:1] for k, v in hb.items()}, list(GRIDS["s2d"]),
+                        RANGE)
+    assert hp.attach_host_prep.fused_samples - before == 1
+
+
+def test_native_host_prep_refuses_other_clouds():
+    """The fused call reads float32 clouds of at least 3 lanes a row."""
+    hb = _batches(GRIDS["s2d"])["eval"]
+    for bad in (hb["pc1"].astype(np.float64), hb["pc1"][..., :2]):
+        with pytest.raises(ValueError, match="pc1 must be"):
+            hp.attach_host_prep({**hb, "pc1": bad}, list(GRIDS["s2d"]), RANGE)
 
 
 @pytest.mark.parametrize("grid", ["s2d", "row_major"])

@@ -21,10 +21,15 @@ So the window's first ``CHECKED_STEPS`` steps start from the seed's
 weights, and the reference follows them (losses, the first gradient as
 Adam's first moment holds it, the parameters' change) once the window has
 closed and the program's state is freed.
+
+In a traced run the program's own spans (``lib/stages.py``) are on through
+the window; their tallies of the window's steps, the profiled ones left
+out, are the context's ``program_spans``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import time
 from typing import Dict, List
@@ -32,6 +37,7 @@ from typing import Dict, List
 import numpy as np
 
 from portbench.counts.samples import sample_stats
+from portbench.lib import stages
 from portbench.lib.common import Spans
 from portbench.reference import model as ref_model
 from portbench.reference import train as ref_train
@@ -75,7 +81,8 @@ RAW_KEYS = ("pc0", "pc1", "pc0_mask", "pc1_mask", "ego_motion", "flow", "flow_is
 class TrainRun:
     """One cell's training state, loop and checks."""
 
-    def __init__(self, config: Dict, workload: Dict, seed: int, device, spans: Spans):
+    def __init__(self, config: Dict, workload: Dict, seed: int, device, spans: Spans,
+                 program=None):
         import torch
 
         from deflow_tpu_torch import trainer
@@ -116,6 +123,11 @@ class TrainRun:
         # each run starts with a mark recorded on an idle card
         self.segments: List[list] = []
         self.to_check = 0
+        # the program's (set_spans, take_spans) where its spans are read;
+        # their tallies before the profiled steps, and of the window's steps
+        self.program = program
+        self.program_before: Dict = {}
+        self.program_spans: Dict = {}
 
     # ---------------------------------------------------------------- loop
     def sync(self) -> None:
@@ -212,6 +224,23 @@ class TrainRun:
         self.prog_loss = [float(x) for x in self.check_loss]
         self.checked_batches = self.batches[self.check_from:self.check_from + CHECKED_STEPS]
 
+    @contextlib.contextmanager
+    def spans_on(self):
+        """The program's spans on while inside, where they are read; then
+        ``program_spans`` holds the tallies of the steps run inside, those
+        under the profiler left out."""
+        if not self.program:
+            yield
+            return
+        on, take = self.program
+        on(True)
+        take()
+        try:
+            yield
+        finally:
+            on(False)
+        self.program_spans = stages.add_tallies(self.program_before, take())
+
     def window(self, seconds: float, trace_at: int = -1, trace_steps: int = 0) -> Dict:
         """Steps until ``seconds`` have passed and the checked steps have
         run; with ``trace_steps``, steps ``trace_at`` … under torch.profiler.
@@ -277,6 +306,8 @@ class TrainRun:
             return out
 
         self.sync()
+        if self.program:
+            self.program_before = self.program[1]()
         first = len(self.batches)
         before = counts()
         prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
@@ -289,6 +320,8 @@ class TrainRun:
         self.spans.profiling = False
         prof.stop()
         after = counts()
+        if self.program:
+            self.program[1]()        # the profiled steps' tallies, left out
         return {"prof": prof, "steps": steps, "batches": self.batches[first:],
                 "calls": {k: after[k] - before[k] for k in after}}
 
@@ -335,21 +368,27 @@ class TrainRun:
 def run(config: Dict, workload: Dict, seed: int, seconds: float, trace: bool,
         device, spans: Spans) -> Dict:
     """Set-up, the window, the check; the context the metric readers read."""
-    r = TrainRun(config, workload, seed, device, spans)
+    r = TrainRun(config, workload, seed, device, spans,
+                 stages.program_spans() if trace else None)
     r.setup_steps(WARMUP_STEPS)
     if trace:
         r.warm_profiler()
     r.restart()
     setup_done = time.perf_counter()
-    win = r.window(seconds, trace_at=TRACE_AT, trace_steps=TRACE_STEPS if trace else 0)
+    with r.spans_on():
+        win = r.window(seconds, trace_at=TRACE_AT, trace_steps=TRACE_STEPS if trace else 0)
     ctx = {"mode": "train", "cfg": r.cfg, "workload": workload, "setup_end": setup_done,
            "spans": {k: {"s": r.spans.total[k], "n": r.spans.count[k]}
                      for k in r.spans.total},
-           "attempted": win["steps"], "failed": r.nonfinite, **win}
+           "attempted": win["steps"], "failed": r.nonfinite,
+           "program_spans": r.program_spans, **win}
     if win["traced"] is not None:
         from portbench.lib.trace import reduce_trace
 
-        win["traced"]["trace"] = reduce_trace(win["traced"].pop("prof"))
+        prof = win["traced"].pop("prof")
+        tr = win["traced"]["trace"] = reduce_trace(prof)
+        if tr:
+            tr["idle_by_stage"] = stages.idle_by_stage(prof)
     r.close()
     if trace:
         ctx["sample_stats"] = [sample_stats(s, r.cfg["model"]) for s in r.pool]

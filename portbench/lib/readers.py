@@ -15,13 +15,6 @@ def of_mode(ctx: Dict, mode: str) -> bool:
     return ctx.get("mode") == mode
 
 
-def span_ms(ctx: Dict, name: str) -> Optional[float]:
-    s = ctx.get("spans", {}).get(name)
-    if not s or not s["n"]:
-        return None
-    return s["s"] / s["n"] * 1e3
-
-
 def p90_ms(intervals) -> Optional[float]:
     """The 90th percentile (``statistics.quantiles``, exclusive) of all
     intervals, given ten or more."""

@@ -95,18 +95,15 @@ def trace_ranges(prof) -> Tuple[float, float, list, list]:
     end, name, thread)`` on the host (empty without a window)."""
     from torch.autograd import DeviceType
 
+    from portbench.lib.trace import device_ops
+
     events = prof.events()
     win = [e for e in events if e.name == "traced_window"]
     if not win:
         return 0.0, 0.0, [], []
     t0 = min(e.time_range.start for e in win)
     t1 = max(e.time_range.end for e in win)
-    ops = sorted((e.time_range.start, e.time_range.end) for e in events
-                 if e.device_type == DeviceType.CUDA
-                 and t0 <= e.time_range.start < t1
-                 and not getattr(e, "is_user_annotation", False)
-                 and e.name != "traced_window"
-                 and not e.name.startswith(("Optimizer.", PREFIX)))
+    ops = [(a, b) for a, b, _ in device_ops(events, t0, t1)]
     ranges = [(e.time_range.start, e.time_range.end, e.name, e.thread) for e in events
               if e.device_type == DeviceType.CPU and e.name.startswith(PREFIX)
               and e.time_range.end >= t0 and e.time_range.start <= t1]

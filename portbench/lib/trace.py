@@ -3,9 +3,10 @@ the per-layer metrics read.
 
 The arithmetic of the repository's ``chip_smoke.profile_step``, applied
 to a window of steps: device operations (kernels, memcpys, memsets; not
-annotation ranges) that start inside the harness's ``traced_window``
-range; busy time as the union of their intervals; idle gaps between them,
-each labelled with the harness span the host was in at the gap's middle.
+annotation ranges, such as the optimizer's or the program's spans) that
+start inside the harness's ``traced_window`` range; busy time as the union
+of their intervals; idle gaps between them, each labelled with the harness
+span the host was in at the gap's middle.
 """
 
 from __future__ import annotations
@@ -16,6 +17,22 @@ from portbench.counts.kernels import kernel_of
 
 # the main thread's spans (one at a time); ``prep`` runs in the loader's thread
 HOST_SPANS = ("input_wait", "dispatch", "log_sync")
+# ranges that the profiler also puts on the device's timeline: the
+# optimizer's and the program's spans (``lib/stages.py``)
+ANNOTATIONS = ("Optimizer.", "deflow/")
+
+
+def device_ops(events, t0: float, t1: float) -> list:
+    """The device operations among ``events`` that start in [t0, t1), as
+    (start, end, name) sorted by start."""
+    from torch.autograd import DeviceType
+
+    return sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                  if e.device_type == DeviceType.CUDA
+                  and t0 <= e.time_range.start < t1
+                  and not getattr(e, "is_user_annotation", False)
+                  and e.name != "traced_window"
+                  and not e.name.startswith(ANNOTATIONS))
 
 
 def reduce_trace(prof) -> Dict:
@@ -30,12 +47,7 @@ def reduce_trace(prof) -> Dict:
         return {}
     t0 = min(e.time_range.start for e in win)
     t1 = max(e.time_range.end for e in win)
-    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
-                   if e.device_type == DeviceType.CUDA
-                   and t0 <= e.time_range.start < t1
-                   and not getattr(e, "is_user_annotation", False)
-                   and e.name != "traced_window"
-                   and not e.name.startswith("Optimizer."))
+    spans = device_ops(events, t0, t1)
     host = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
                   if e.device_type == DeviceType.CPU and e.name in HOST_SPANS
                   and e.time_range.end >= t0 and e.time_range.start <= t1)

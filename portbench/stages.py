@@ -40,16 +40,12 @@ def measure(cell: str, seed: int, seconds: float, spans: bool, device,
     from portbench.lib.trace import reduce_trace
 
     _, _, config, workload = run.load_cell(cell, overrides)
-    program = stages.program_spans() if spans else None
     parts = {}
 
     class StagedRun(TrainRun):
         def traced(self, steps):
             harness = {k: (self.spans.total[k], self.spans.count[k]) for k in self.spans.total}
-            parts["before"] = program[1]() if program else None
             out = super().traced(steps)
-            if program:
-                program[1]()        # the profiled steps' tallies, left out
             parts["harness"] = {k: (self.spans.total[k] - harness.get(k, (0, 0))[0],
                                     self.spans.count[k] - harness.get(k, (0, 0))[1])
                                 for k in self.spans.total}
@@ -58,19 +54,13 @@ def measure(cell: str, seed: int, seconds: float, spans: bool, device,
             out["trace"]["idle_by_stage"] = stages.idle_by_stage(prof)
             return out
 
-    r = StagedRun(config, workload, seed, device, Spans())
+    r = StagedRun(config, workload, seed, device, Spans(),
+                  stages.program_spans() if spans else None)
     r.setup_steps(WARMUP_STEPS)
     r.warm_profiler()
     r.restart()
-    if program:
-        program[0](True)
-        program[1]()
-    try:
+    with r.spans_on():
         win = r.window(seconds, trace_at=TRACE_AT, trace_steps=TRACE_STEPS)
-    finally:
-        if program:
-            program[0](False)
-    after = program[1]() if program else None
     r.close()
     traced, tr = win["traced"], win["traced"]["trace"]
     n_traced = traced["steps"]
@@ -79,7 +69,7 @@ def measure(cell: str, seed: int, seconds: float, spans: bool, device,
         s, n = parts["harness"].get(k, (0.0, 0))
         if r.spans.count[k] - n:
             harness[f"{k}_ms"] = (total - s) / (r.spans.count[k] - n) * 1e3
-    tally = stages.add_tallies(parts["before"], after) if program else {}
+    tally = r.program_spans
     ctx = {"program_spans": tally, "traced": traced}
     step = tally.get(stages.STEP)
     inner = [tally[s] for s in stages.STAGES if s in tally]

@@ -10,7 +10,7 @@ from portbench import run
 pytestmark = pytest.mark.cuda
 
 
-@pytest.mark.parametrize("cell", ["deflow.train-b16"])
+@pytest.mark.parametrize("cell", ["deflow.train-b16", "fastflow3d.train-b16"])
 def test_a_short_traced_run(card, cell):
     result, _ = run.run_cell(cell, 2 ** 31 + 101, 10.0, True, card)
     bench = run.load_cell(cell)[0]

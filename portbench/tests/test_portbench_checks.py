@@ -11,7 +11,7 @@ from conftest import TINY_MODEL
 from portbench import calibrate, run
 
 TRAFFIC = {"samples": 8, "slots": 4096, "valid": [3000, 3800]}
-CELLS = ["deflow.train-b16"]
+CELLS = ["deflow.train-b16", "fastflow3d.train-b16"]
 
 
 def _tiny(precision):

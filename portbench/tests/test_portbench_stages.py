@@ -1,15 +1,19 @@
 """The program's spans as the harness reads them (``portbench/lib/stages.py``,
-``portbench/stages.py``): the idle labelling by step stage on a hand-built
-trace, the readers on hand-built tallies, and a run at a tiny size on the
-CPU with the program's spans, and without them as a program that has none
-reads."""
+``portbench/stages.py``, ``portbench/drivers/train.py``): the idle labelling
+by step stage on a hand-built trace, the readers on hand-built tallies, and
+runs at a tiny size on the CPU with the program's spans, and without them as
+a program that has none reads."""
+
+from types import SimpleNamespace
 
 import pytest
 import torch
 
 from conftest import TINY_MODEL
+from portbench import run
 from portbench import stages as tool
 from portbench.lib import stages
+from portbench.lib.trace import reduce_trace
 
 TINY = {"model": TINY_MODEL, "traffic": {"samples": 8, "slots": 4096, "valid": [3000, 3800]},
         "train": {"batch_size": 4, "num_workers": 0, "precision": "fp32"}}
@@ -102,3 +106,77 @@ def test_a_tiny_run_on_the_cpu(monkeypatch, spans):
     # the CPU has no device ops: the window is one idle gap
     assert sum(got["idle_ms_by_stage"].values()) == pytest.approx(got["window_ms"])
     assert 0 < metrics["launch_cpu_share.train"] <= 100 + 5
+
+
+def test_the_programs_spans_are_no_device_ops():
+    """A hand-built trace (times in µs) in which the program's spans and the
+    optimizer's range lie on the device's timeline, as the profiler may put
+    them: ``reduce_trace`` counts neither as a device op, busy time or
+    cover of an idle gap, and the stage labelling sees the same ops."""
+    from torch.autograd import DeviceType
+
+    def ev(name, device, start, end):
+        return SimpleNamespace(name=name, device_type=device, thread=1,
+                               time_range=SimpleNamespace(start=start, end=end))
+
+    cpu, cuda = DeviceType.CPU, DeviceType.CUDA
+    events = [ev("traced_window", cpu, 0, 100), ev("dispatch", cpu, 0, 100),
+              ev(stages.STEP, cpu, 0, 100), ev("deflow/step/forward", cpu, 5, 45),
+              ev(stages.STEP, cuda, 0, 100), ev("deflow/step/forward", cuda, 5, 45),
+              ev("deflow/embed", cuda, 10, 30), ev("Optimizer.step#Adam.step", cuda, 80, 95),
+              ev("segment_sum_kernel", cuda, 10, 30), ev("gemm", cuda, 50, 60)]
+    prof = SimpleNamespace(events=lambda: events)
+    tr = reduce_trace(prof)
+    assert tr["ops"] == 2 and set(tr["by_name"]) == {"segment_sum_kernel", "gemm"}
+    assert tr["busy_s"] == pytest.approx(30e-6) and tr["window_s"] == pytest.approx(100e-6)
+    assert tr["idle_by_span"] == pytest.approx({"dispatch": 70e-6})
+    assert stages.trace_ranges(prof)[2] == [(10, 30), (50, 60)]
+    assert stages.idle_by_stage(prof) == pytest.approx(
+        {"deflow/step/forward": 30e-6, stages.STEP_SELF: 40e-6})
+
+
+@pytest.mark.parametrize("trace,spans", [(True, True), (True, False), (False, True)],
+                         ids=["trace1", "trace1_no_spans", "trace0"])
+def test_a_tiny_benchmark_run_reads_the_stage_metrics(monkeypatch, trace, spans):
+    """``run_cell`` at a tiny size on the CPU: a ``--trace 1`` run switches the
+    program's spans on for its window and off after it, and reports the six
+    span metrics as numbers; for a program without spans all nine are None
+    and left out of the line; a ``--trace 0`` run never asks for the spans."""
+    from deflow_tpu_torch.utils import timer
+
+    asked, switched = [], []
+
+    def program_spans():
+        asked.append(True)
+        if not spans:
+            return None
+
+        def on(flag):
+            switched.append(bool(flag))
+            return timer.set_spans(flag)
+        return on, timer.take_spans
+
+    monkeypatch.setattr(stages, "program_spans", program_spans)
+    result, ctx = run.run_cell("deflow.train-b16", 2 ** 31 + 11, 0.0, trace,
+                               torch.device("cpu"), TINY)
+    assert result["correct"], result["checks"]
+    assert timer.set_spans(False) is False and timer.take_spans() == {}
+    metrics = result["metrics"]
+    if not trace:
+        assert asked == [] and switched == [] and ctx["program_spans"] == {}
+        assert "train_pairs_per_s" in metrics
+        return
+    assert asked == [True]
+    if not spans:
+        assert switched == [] and ctx["program_spans"] == {}
+        assert all(stages.read(name, ctx) is None for name in stages.METRICS)
+        assert not set(metrics) & set(stages.METRICS)
+        assert "mfu.train" in metrics
+        return
+    assert switched == [True, False]
+    for name in stages.METRICS:
+        if not name.startswith("idle_"):
+            assert isinstance(metrics[name]["value"], float), name
+    # each step span once a window step outside the profiled ones
+    window = ctx["steps"] - ctx["traced"]["steps"]
+    assert ctx["program_spans"][stages.STEP]["n"] == window

@@ -4,14 +4,17 @@ Counted: every multiply-add of the convolutions and matrix products that
 the model defines, two FLOPs each; not counted: normalisation, activations,
 scatters and gathers.  The U-Net's convolutions run over the whole grid
 whatever its occupancy; the per-point layers count the valid points (in
-range) of each cloud.  A train step is three forwards (the forward and a
-backward of twice its products), whatever the program recomputes; an eval
-step is one.  The counts depend on shapes only.
+range) of each cloud.  The head's count is its own
+(``counts/heads/<decoder_option>.py``).  A train step is three forwards
+(the forward and a backward of twice its products), whatever the program
+recomputes; an eval step is one.  The counts depend on shapes only.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
+
+from portbench.counts import heads
 
 _ENCODER = ((64, 8, 2, 3), (64, 3, 1, 1), (64, 3, 1, 1), (64, 3, 1, 1),
             (128, 8, 2, 3), (128, 3, 1, 1), (128, 3, 1, 1), (128, 3, 1, 1),
@@ -52,25 +55,32 @@ def unet_flops(cfg: Dict) -> float:
 
 
 def point_flops(cfg: Dict) -> Dict[str, float]:
-    """Forward FLOPs per valid point: ``pfn`` (each cloud's points) and
-    ``head`` (pc0's points)."""
-    c = int(cfg["feat_channels"])
-    pfn = 2.0 * 9 * c
-    if cfg["decoder_option"] == "gru":
-        it = int(cfg["num_iters"])
-        head = 2.0 * (3 * 64 + it * (192 * 256 + 192 * 128) + 192 * 32 + 32 * 3)
-    else:
-        head = 2.0 * (3 * 128 + 256 * 32 + 32 * 3)
-    return {"pfn": pfn, "head": head}
+    """Forward FLOPs per valid point: ``pfn`` (each cloud's points) and, of a
+    head whose count is per point, ``head`` (pc0's points)."""
+    return {"pfn": 2.0 * 9 * int(cfg["feat_channels"]),
+            "head": heads.of(cfg).point_flops(cfg)}
 
 
-def forward_flops(cfg: Dict, pairs: int, valid0: float, valid1: float) -> float:
-    """Forward FLOPs of ``pairs`` frame pairs with ``valid0`` / ``valid1``
-    valid points in all their pc0 / pc1 clouds together."""
-    pf = point_flops(cfg)
-    return pairs * unet_flops(cfg) + pf["pfn"] * (valid0 + valid1) + pf["head"] * valid0
+def _forward(cfg: Dict, pairs: int, valid0: float, valid1: float, head: float) -> float:
+    pfn = 2.0 * 9 * int(cfg["feat_channels"])
+    return pairs * unet_flops(cfg) + pfn * (valid0 + valid1) + head
+
+
+def _forwards(mode: str) -> float:
+    return 3.0 if mode == "train" else 1.0
+
+
+def batch_flops(cfg: Dict, mode: str, stats: List[Dict]) -> float:
+    """A train step (forward and backward: three forwards) or an eval step
+    over the frame pairs ``stats`` (each a ``samples.sample_stats``)."""
+    v0, v1 = (sum(s[k] for s in stats) for k in ("valid0", "valid1"))
+    head = heads.of(cfg).forward_flops(cfg, stats)
+    return _forwards(mode) * _forward(cfg, len(stats), v0, v1, head)
 
 
 def step_flops(cfg: Dict, mode: str, pairs: int, valid0: float, valid1: float) -> float:
-    """A train step (forward and backward: three forwards) or an eval step."""
-    return (3.0 if mode == "train" else 1.0) * forward_flops(cfg, pairs, valid0, valid1)
+    """The same from the batch's sums alone, ``valid0`` / ``valid1`` valid
+    points in all its pc0 / pc1 clouds together: of a head whose count is
+    per point."""
+    head = point_flops(cfg)["head"] * valid0
+    return _forwards(mode) * _forward(cfg, pairs, valid0, valid1, head)

@@ -286,18 +286,18 @@ class TrainRun:
 
     def traced(self, steps: int) -> Dict:
         """``steps`` steps under the profiler, inside the ``traced_window``
-        range, with the wrappers' call counts over them.  A wrapper of
-        ``counts.kernels.WRAPPERS`` that the program no longer has, or that
-        counts no calls, stops the run."""
+        range, with the wrappers' call counts over them (the trunk's and the
+        head's: ``counts.kernels.wrappers``).  A wrapper that the program no
+        longer has, or that counts no calls, stops the run."""
         import importlib
 
         from torch.profiler import ProfilerActivity, profile, record_function
 
-        from portbench.counts.kernels import WRAPPERS
+        from portbench.counts.kernels import wrappers
 
         def counts():
             out = {}
-            for name, (mod, fn) in WRAPPERS.items():
+            for name, (mod, fn) in wrappers(self.cfg["model"]).items():
                 wrapper = getattr(importlib.import_module(mod), fn, None)
                 if not hasattr(wrapper, "launches"):
                     raise RuntimeError(f"kernel_roofline: the program has no call counter "
@@ -386,7 +386,7 @@ def run(config: Dict, workload: Dict, seed: int, seconds: float, trace: bool,
         from portbench.lib.trace import reduce_trace
 
         prof = win["traced"].pop("prof")
-        tr = win["traced"]["trace"] = reduce_trace(prof)
+        tr = win["traced"]["trace"] = reduce_trace(prof, r.cfg["model"])
         if tr:
             tr["idle_by_stage"] = stages.idle_by_stage(prof)
     r.close()

@@ -50,9 +50,7 @@ def mfu(ctx: Dict) -> Optional[float]:
     if not stats or not ctx.get("timed_s"):
         return None
     mode, cfg = ctx["mode"], ctx["cfg"]["model"]
-    total = sum(flops.step_flops(cfg, mode, len(ids),
-                                 sum(stats[i]["valid0"] for i in ids),
-                                 sum(stats[i]["valid1"] for i in ids))
+    total = sum(flops.batch_flops(cfg, mode, [stats[i] for i in ids])
                 for ids in ctx["timed_batches"])
     return 100.0 * total / ctx["timed_s"] / H100_BF16_FLOP_PER_S
 

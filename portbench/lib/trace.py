@@ -11,7 +11,7 @@ span the host was in at the gap's middle.
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 from portbench.counts.kernels import kernel_of
 
@@ -35,9 +35,10 @@ def device_ops(events, t0: float, t1: float) -> list:
                   and not e.name.startswith(ANNOTATIONS))
 
 
-def reduce_trace(prof) -> Dict:
+def reduce_trace(prof, cfg: Optional[Dict] = None) -> Dict:
     """busy_s, window_s, ops, by_name (device s), by_kernel (device s of the
-    hand-written kernels' wrappers), idle_gaps ([label, s], longest first),
+    hand-written kernels' wrappers: the trunk's and those of ``cfg``'s head,
+    or of every head), idle_gaps ([label, s], longest first),
     idle_by_span."""
     from torch.autograd import DeviceType
 
@@ -58,7 +59,7 @@ def reduce_trace(prof) -> Dict:
     for start, end, name in spans:
         dt = (end - start) / 1e6
         by_name[name] = by_name.get(name, 0.0) + dt
-        k = kernel_of(name)
+        k = kernel_of(name, cfg)
         if k is not None:
             by_kernel[k] = by_kernel.get(k, 0.0) + dt
         if start > cur:

@@ -16,11 +16,10 @@ The forward of a frame pair:
    points of the whole batch, ReLU, and each pillar's mean → [B, 32, H, W];
 3. the siamese U-Net over the 2B images (BatchNorm eps 1e-5 over the 2B
    batch, exact-erf GELU), the skips pairing each image's two halves;
-4. the head at each valid pc0 point: the [pc0 | pc1 | U-Net] pillar
-   features (128), then ``num_iters`` ConvGRU steps with the 64-wide
-   offset embedding as input and an MLP 192→32→3 (``gru``), or the MLP
-   256→32→3 over the features and a 128-wide offset embedding
-   (``linear``); zero flow at invalid points.
+4. the head (``reference/heads/<decoder_option>.py``, found by the
+   configuration's ``decoder_option``) at each pc0 point, given the
+   [pc0 | pc1 | U-Net] pillar features (128) gathered there, zero at
+   invalid points.
 
 BatchNorm uses the batch statistics (two-pass, biased variance); running
 statistics are not tracked.  ``quant`` (the control's lower precision)
@@ -28,7 +27,9 @@ rounds the operands of every convolution and matrix product and the
 gradient arriving at its output; None, the reference itself, rounds
 nothing.  The large per-point and U-Net stages
 run under ``torch.utils.checkpoint`` in blocks, which changes the memory
-and not the arithmetic, so the whole batch fits one card.
+and not the arithmetic, so the whole batch fits one card.  The product
+helpers (``operand``, ``output``, ``mm``, ``linear``, ``ckpt``) are the
+heads' too.
 """
 
 from __future__ import annotations
@@ -38,6 +39,9 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from portbench.reference import heads
+from portbench.reference.weights import Leaf, bn, dense
 
 # a lower precision: ``operand`` rounds a product's operand, ``output`` marks
 # a product's output (for the gradient arriving there); None is f32
@@ -56,74 +60,55 @@ def grid_size(cfg: Dict):
     return tuple(int(round((h - l) / v)) for l, h, v in zip(lo, hi, cfg["voxel_size"]))
 
 
-def param_spec(cfg: Dict) -> Dict[str, tuple]:
-    """name → (shape, kind) of every weight and BatchNorm buffer; kind is
-    ``dense`` (a Linear or conv weight or bias, drawn within ±1/√fan_in),
-    ``bn_weight``, ``bn_bias``, ``bn_mean`` or ``bn_var``."""
+def param_spec(cfg: Dict) -> Dict[str, Leaf]:
+    """name → ``weights.Leaf`` of every weight and BatchNorm buffer, in the
+    order they are drawn: the embedder's, the U-Net's, then the head's."""
     c = int(cfg["feat_channels"])
-    spec: Dict[str, tuple] = {}
-
-    def dense(name, shape, bias=True):
-        spec[f"{name}.weight"] = (tuple(shape), "dense")
-        if bias:
-            spec[f"{name}.bias"] = ((shape[0],), "dense")
-
-    def bn(name, ch):
-        for leaf, kind in (("weight", "bn_weight"), ("bias", "bn_bias"),
-                           ("running_mean", "bn_mean"), ("running_var", "bn_var")):
-            spec[f"{name}.{leaf}"] = ((ch,), kind)
-
-    dense("embedder.feature_net.pfn_layers.0.0", (c, 9), bias=False)
-    bn("embedder.feature_net.pfn_layers.0.1", c)
+    spec: Dict[str, Leaf] = {}
+    dense(spec, "embedder.feature_net.pfn_layers.0.0", (c, 9), bias=False)
+    bn(spec, "embedder.feature_net.pfn_layers.0.1", c)
     cin = c
     for i, (cout, k, _, _) in enumerate(_ENCODER, start=1):
-        dense(f"backbone.encoder_step_{i}.conv", (cout, cin, k, k))
-        bn(f"backbone.encoder_step_{i}.batchnorm", cout)
+        dense(spec, f"backbone.encoder_step_{i}.conv", (cout, cin, k, k))
+        bn(spec, f"backbone.encoder_step_{i}.batchnorm", cout)
         cin = cout
     for j, (skip, latent, out) in enumerate(_DECODER, start=1):
         latent = 2 * c if latent is None else latent
         name = f"backbone.decoder_step{j}"
-        dense(f"{name}.u1_u2.0", (skip // 4, skip, 1, 1))
-        dense(f"{name}.u1_u2.2", (skip // 8, skip // 4, 1, 1))
-        dense(f"{name}.u3", (skip // 8, latent, 1, 1))
-        dense(f"{name}.u4_u5.0", (skip // 8, skip // 4, 1, 1))
-        dense(f"{name}.u4_u5.1", (out, skip // 8, 1, 1))
-    dense("backbone.decoder_step4", (64, 64, 3, 3))
-    if cfg["decoder_option"] == "gru":
-        dense("head.offset_encoder", (64, 3))
-        for gate in ("convz", "convr", "convq"):
-            dense(f"head.gru.{gate}", (128, 192, 1))
-        dense("head.decoder.0", (32, 192))
-    elif cfg["decoder_option"] == "linear":
-        dense("head.offset_encoder", (128, 3))
-        dense("head.decoder.0", (32, 256))
-    else:
-        raise ValueError(f"the reference has no head {cfg['decoder_option']!r}")
-    dense("head.decoder.2", (3, 32))
+        dense(spec, f"{name}.u1_u2.0", (skip // 4, skip, 1, 1))
+        dense(spec, f"{name}.u1_u2.2", (skip // 8, skip // 4, 1, 1))
+        dense(spec, f"{name}.u3", (skip // 8, latent, 1, 1))
+        dense(spec, f"{name}.u4_u5.0", (skip // 8, skip // 4, 1, 1))
+        dense(spec, f"{name}.u4_u5.1", (out, skip // 8, 1, 1))
+    dense(spec, "backbone.decoder_step4", (64, 64, 3, 3))
+    spec.update(heads.of(cfg).param_spec(cfg))
     return spec
 
 
-def _q(quant: Quant, t: torch.Tensor) -> torch.Tensor:
+def operand(quant: Quant, t: torch.Tensor) -> torch.Tensor:
+    """``t`` as a product's operand in ``quant``'s precision."""
     return t if quant is None else quant.operand(t)
 
 
-def _out(quant: Quant, t: torch.Tensor) -> torch.Tensor:
+def output(quant: Quant, t: torch.Tensor) -> torch.Tensor:
+    """``t`` as a product's output: the gradient arriving there in ``quant``'s
+    precision."""
     return t if quant is None else quant.output(t)
 
 
-def _mm(quant: Quant, x, w):
+def mm(quant: Quant, x, w):
     """``x @ w.T`` with both operands in ``quant``'s precision."""
-    return _out(quant, _q(quant, x) @ _q(quant, w).t())
+    return output(quant, operand(quant, x) @ operand(quant, w).t())
 
 
-def _linear(x, W, name, quant: Quant, bias=True):
-    y = _mm(quant, x, W[f"{name}.weight"])
+def linear(x, W, name, quant: Quant, bias=True):
+    y = mm(quant, x, W[f"{name}.weight"])
     return y + W[f"{name}.bias"] if bias else y
 
 
 def _conv(x, W, name, quant: Quant, stride=1, padding=0):
-    return _out(quant, F.conv2d(_q(quant, x), _q(quant, W[f"{name}.weight"]),
-                                W[f"{name}.bias"], stride, padding))
+    return output(quant, F.conv2d(operand(quant, x), operand(quant, W[f"{name}.weight"]),
+                                  W[f"{name}.bias"], stride, padding))
 
 
 def ego_compensate(pc0: torch.Tensor, ego: torch.Tensor) -> torch.Tensor:
@@ -172,7 +157,7 @@ def embed(pts, mask, W, cfg, quant: Quant = None):
     """Pillar image [B, C, H, W] and (valid, flat, offsets) of one cloud."""
     valid, flat, rec, offsets = pillars(pts, mask, cfg)
     pfn = "embedder.feature_net.pfn_layers.0"
-    x = _linear(rec, W, f"{pfn}.0", quant, bias=False)
+    x = linear(rec, W, f"{pfn}.0", quant, bias=False)
     x = torch.relu(_masked_bn(x, valid, W, f"{pfn}.1", 1e-3))
     x = torch.where(valid[..., None], x, 0.0)
     gw, gh, _ = grid_size(cfg)
@@ -210,7 +195,7 @@ def _upsample_skip(a, b, W, j, quant: Quant):
     return _conv(u4, W, f"{name}.u4_u5.1", quant)
 
 
-def _ckpt(fn, *args):
+def ckpt(fn, *args):
     return checkpoint(fn, *args, use_reentrant=False)
 
 
@@ -220,46 +205,25 @@ def unet(img0, img1, W, quant: Quant = None):
     x = torch.cat([img0, img1])
     taps = []
     for i in range(1, len(_ENCODER) + 1):
-        x = _ckpt(lambda t, i=i: _cbg(t, W, i, quant), x)
+        x = ckpt(lambda t, i=i: _cbg(t, W, i, quant), x)
         if i in (4, 8, 10):
             taps.append(x)
     n_all, r_all, t_all = taps
     pair = lambda z: torch.cat([z[:b], z[b:]], 1)
-    s = _ckpt(lambda a, c: _upsample_skip(a, c, W, 1, quant), pair(t_all), pair(r_all))
-    l = _ckpt(lambda a, c: _upsample_skip(a, c, W, 2, quant), s, pair(n_all))
-    u = _ckpt(lambda a, c: _upsample_skip(a, c, W, 3, quant), l, torch.cat([img0, img1], 1))
-    return _ckpt(lambda t: _conv(t, W, "backbone.decoder_step4", quant, 1, 1), u)
-
-
-def _gru_head(feats, offsets, valid, W, num_iters, quant: Quant):
-    off = _linear(offsets, W, "head.offset_encoder", quant)
-    h = feats
-    wz, wr, wq = (W[f"head.gru.{g}.weight"][:, :, 0] for g in ("convz", "convr", "convq"))
-    bz, br, bq = (W[f"head.gru.{g}.bias"] for g in ("convz", "convr", "convq"))
-    for _ in range(num_iters):
-        hx = torch.cat([h, off], -1)
-        z = torch.sigmoid(_mm(quant, hx, wz) + bz)
-        r = torch.sigmoid(_mm(quant, hx, wr) + br)
-        rhx = torch.cat([r * h, off], -1)
-        q = torch.tanh(_mm(quant, rhx, wq) + bq)
-        h = (1.0 - z) * h + z * q
-    hid = F.gelu(_linear(torch.cat([h, off], -1), W, "head.decoder.0", quant))
-    flow = _linear(hid, W, "head.decoder.2", quant)
-    return torch.where(valid[..., None], flow, 0.0)
-
-
-def _linear_head(feats, offsets, valid, W, quant: Quant):
-    off = _linear(offsets, W, "head.offset_encoder", quant)
-    hid = F.gelu(_linear(torch.cat([feats, off], -1), W, "head.decoder.0", quant))
-    flow = _linear(hid, W, "head.decoder.2", quant)
-    return torch.where(valid[..., None], flow, 0.0)
+    s = ckpt(lambda a, c: _upsample_skip(a, c, W, 1, quant), pair(t_all), pair(r_all))
+    l = ckpt(lambda a, c: _upsample_skip(a, c, W, 2, quant), s, pair(n_all))
+    u = ckpt(lambda a, c: _upsample_skip(a, c, W, 3, quant), l, torch.cat([img0, img1], 1))
+    return ckpt(lambda t: _conv(t, W, "backbone.decoder_step4", quant, 1, 1), u)
 
 
 def forward(W: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor], cfg: Dict,
-            quant: Quant = None, block: int = 2) -> Dict[str, torch.Tensor]:
+            quant: Quant = None, block: Optional[int] = None,
+            step: int = 0) -> Dict[str, torch.Tensor]:
     """``flow`` (network flow), ``pose_flow``, ``pc0_valid``, ``pc1_valid`` of a raw
-    batch (``pc0``, ``pc1``, ``pc0_mask``, ``pc1_mask``, ``ego_motion``);
-    the head runs ``block`` samples at a time."""
+    batch (``pc0``, ``pc1``, ``pc0_mask``, ``pc1_mask``, ``ego_motion``) at
+    train step ``step``; the head runs ``block`` samples at a time under
+    checkpoint (by default its ``BLOCK``; None there: the whole batch)."""
+    head = heads.of(cfg)
     pc0, pc1 = batch["pc0"].float(), batch["pc1"].float()
     m0, m1 = batch["pc0_mask"].bool(), batch["pc1_mask"].bool()
     tpc0 = ego_compensate(pc0, batch["ego_motion"])
@@ -269,18 +233,17 @@ def forward(W: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor], cfg: Dic
     flow_img = unet(img0, img1, W, quant)
     b = pc0.shape[0]
     tables = torch.cat([img0, img1, flow_img], 1).flatten(2).transpose(1, 2)
+
+    def run(tab, flat, off, valid):
+        feats = torch.gather(tab, 1, flat[..., None].expand(*flat.shape, tab.shape[-1]))
+        feats = torch.where(valid[..., None], feats, 0.0)
+        return head.forward(feats, flat, off, valid, W, cfg, quant, step)
+
+    block = block or head.BLOCK or b
     outs = []
     for s in range(0, b, block):
         sl = slice(s, s + block)
-
-        def head(tab, flat, off, valid):
-            feats = torch.gather(tab, 1, flat[..., None].expand(*flat.shape, tab.shape[-1]))
-            feats = torch.where(valid[..., None], feats, 0.0)
-            if cfg["decoder_option"] == "gru":
-                return _gru_head(feats, off, valid, W, int(cfg["num_iters"]), quant)
-            return _linear_head(feats, off, valid, W, quant)
-
-        outs.append(_ckpt(head, tables[sl], flat0[sl], off0[sl], valid0[sl]))
+        outs.append(ckpt(run, tables[sl], flat0[sl], off0[sl], valid0[sl]))
     return {"flow": torch.cat(outs), "pose_flow": pose_flow, "pc0_valid": valid0,
             "pc1_valid": valid1}
 

@@ -3,7 +3,8 @@ with the program's.
 
 ``follow`` runs the plain model, loss and Adam over the batches of the
 program's first steps, from the benchmark's weights, in f32 with TF32 off
-(or with ``quant``, the control's lower precision).  It returns what the
+(or with ``quant``, the control's lower precision); step ``i`` is the
+program's step ``i`` after the restart.  It returns what the
 program's run is held to: each step's loss, each leaf's gradient norm at
 the first step, and each leaf's change after the last.
 """
@@ -18,9 +19,15 @@ import torch
 from portbench.reference import model as ref_model
 from portbench.reference.losses import loss_of
 from portbench.reference.optim import Adam
-from portbench.reference.weights import make_weights
+from portbench.reference.weights import Leaf, make_weights
 
+# the kinds of leaf that train, where a leaf does not say
 PARAM_KINDS = ("dense", "bn_weight", "bn_bias")
+
+
+def trains(leaf: Leaf) -> bool:
+    """Whether the optimizer moves ``leaf``."""
+    return leaf.kind in PARAM_KINDS if leaf.trains is None else leaf.trains
 
 
 def no_tf32() -> None:
@@ -37,12 +44,13 @@ def follow(cfg: Dict, loss_name: str, lr: float, seed: int, batches: List[Dict],
     spec = ref_model.param_spec(cfg)
     weights = make_weights(spec, seed, device)
     params = {k: v.clone().requires_grad_(True) for k, v in weights.items()
-              if spec[k][1] in PARAM_KINDS}
+              if trains(spec[k])}
     opt = Adam(params, lr)
     q = ref_model.QUANTS[quant or "f32"]
+    W = {**weights, **params}      # the leaves that do not train, as drawn
     losses, grad_norms = [], {}
     for i, batch in enumerate(batches):
-        out = ref_model.forward(params, batch, cfg, quant=q)
+        out = ref_model.forward(W, batch, cfg, quant=q, step=i)
         loss = loss_of(loss_name, out, batch)
         loss.backward()
         if i == 0:

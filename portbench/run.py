@@ -6,12 +6,13 @@ from the root of a checkout, on a machine with the cards the cell asks
 for.  Everything is found by name: the cell in ``BENCHMARK.json``, its
 traffic, loop and limits in ``portbench/workloads/<cell>.json``, its
 configuration in ``portbench/configs/<config>.json``, its loop in
-``portbench/drivers/<mode>.py`` and each metric's reader in
-``portbench/metrics/<metric>.py``.  With ``--trace 0`` the line carries the
-cell's end-to-end metrics, with ``--trace 1`` its per-layer metrics and a
-breakdown of the traced steps.  The last lines on standard error, and the
-line's last key ``checks``, give each number compared with the plain
-reference beside its limit.
+``portbench/drivers/<mode>.py``, each metric's reader in
+``portbench/metrics/<metric>.py``, and its head's plain reference and
+counts in ``portbench/{reference,counts}/heads/<decoder_option>.py``.
+With ``--trace 0`` the line carries the cell's end-to-end metrics, with
+``--trace 1`` its per-layer metrics and a breakdown of the traced steps.
+The last lines on standard error, and the line's last key ``checks``,
+give each number compared with the plain reference beside its limit.
 
 Exits 3 without the cards the cell needs, 4 when JAX or the JAX package is
 loaded once the window has closed; either way no result is printed.

@@ -39,3 +39,46 @@ def test_yardstick_imports_nothing_of_the_program(part):
 
 def test_whole_names_are_compared():
     assert "deflow_tpu_torch".split(".", 1)[0] not in NEVER
+
+
+HEAD_DIRS = (BENCH / "reference" / "heads", BENCH / "counts" / "heads")
+
+
+def _mentions_the_head(node) -> bool:
+    return any(isinstance(n, ast.Constant) and n.value == "decoder_option"
+               for n in ast.walk(node))
+
+
+def _is_literal(node) -> bool:
+    if isinstance(node, (ast.Tuple, ast.List, ast.Set)):
+        return bool(node.elts) and all(_is_literal(e) for e in node.elts)
+    return isinstance(node, ast.Constant) and isinstance(node.value, str)
+
+
+def head_comparisons(source: str):
+    """The lines on which ``decoder_option`` is compared with a literal."""
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Compare):
+            sides = [node.left, *node.comparators]
+            literal = [_is_literal(s) for s in sides]
+            named = [_mentions_the_head(s) and not lit for s, lit in zip(sides, literal)]
+            if any(named) and any(literal):
+                yield node.lineno
+
+
+@pytest.mark.parametrize("path", [p for p in MODULES if not any(d in p.parents for d in HEAD_DIRS)],
+                         ids=lambda p: str(p.relative_to(BENCH)))
+def test_only_the_heads_name_a_head(path):
+    """A head is found by its name (``lib/heads.py``), never by a branch."""
+    assert not list(head_comparisons(path.read_text())), path
+
+
+@pytest.mark.parametrize("source, lines", [
+    ('if cfg["decoder_option"] == "gru":\n    pass', [1]),
+    ('x = cfg.get("decoder_option") in ("gru", "linear")', [1]),
+    ('y = 1\nz = "linear" != model["decoder_option"]', [2]),
+    ('head = heads.of(cfg)\nname = cfg["decoder_option"]', []),
+    ('ok = cfg["decoder_option"] == other', []),
+])
+def test_the_head_check_sees_a_comparison(source, lines):
+    assert list(head_comparisons(source)) == lines

@@ -28,7 +28,9 @@ Phases (any failure exits non-zero):
    the skewed clouds' pillar ids (points per occupied pillar); the
    segment-sum and the row gather also as each
    other's backward on the train path's ids; the fused conv3x3+BN+GELU
-   kernels at both chain widths; the SSL kernels on an SSL batch: the cell
+   kernels at both chain widths, and in bf16 at the 256^2 and 128^2
+   groups' shapes at 2B = 32 (the config's batch_size 16, which the train
+   path chains); the SSL kernels on an SSL batch: the cell
    sweep (both directions, and on skewed clouds: blocks per chunk and
    pieces), the lane segment-sum of the chamfer VJP (beside
    the pillar segment-sum at the same shape) and the brute search at 2 x
@@ -89,7 +91,7 @@ Phases (any failure exits non-zero):
    round trip bit for bit with its save and load ms; one step with remat
    against two without (the same loss, gradients within 4x the plain
    steps' difference, BN statistics moved once) and the peak memory of
-   each, also at the config's batch_size 16 (2B = 32, the plain U-Net);
+   each, also at the config's batch_size 16 (2B = 32, chained in bf16);
 8. the rest of the model, each path at full width with its launch counts
    held: (a) the MMHead decoder's eval of 3 host-sorted batches of 4 x
    98,304 (device ms, peak memory, a profiled batch; its attention against
@@ -808,6 +810,7 @@ def check_train_kernels(model, host_batch, splits: list):
                 results[kname] = r
             else:
                 results[kname][f"width_{name}"] = r
+    hold_cbg_config_batch(model, g)
     results["fused_gru"] = {"f32_train": fwd32}
     results["sorted_gather"] = {"as_scatter_bwd": scatter_bwd}
     results["segment_sum"] = {"as_gather_bwd": gather_bwd, "train_embedder": embedder}
@@ -865,6 +868,75 @@ def hold_gather_bwd(what: str, db, cfg, b: int, g) -> dict:
     return hold_segment_sum(f"(the gather's backward{what})", cot, gplan, b * seg, b)
 
 
+def cbg_case(net, step: int, rows: int, res: int, g) -> tuple:
+    """Random inputs of ``net``'s encoder block ``step`` at siamese batch
+    ``rows`` on ``res``^2 maps, in f32: (wmat, bias, x, si, dz, scal,
+    scal_in), the BN slabs with the block's gamma and beta on the output
+    side."""
+    import torch
+
+    from deflow_tpu_torch.ops import cbg
+
+    dev = torch.device("cuda")
+    wm, bias, gamma, beta = (t.detach() for t in
+                             getattr(net, f"encoder_step_{step}").chain_params(torch.float32))
+    c, o = wm.shape[2], wm.shape[3]
+    x32 = torch.randn(rows, res, res, c, generator=g, device=dev)
+    si32 = torch.randn(rows, res, res, o, generator=g, device=dev)
+    dz32 = torch.randn(rows, res, res, o, generator=g, device=dev)
+    scal = cbg.scal_slab(0.1 * torch.randn(c, generator=g, device=dev),
+                         torch.rand(c, generator=g, device=dev) + 0.5, torch.full((c,), 1.05, device=dev),
+                         torch.full((c,), 0.02, device=dev))
+    scal_in = cbg.scal_slab(0.1 * torch.randn(o, generator=g, device=dev),
+                            torch.rand(o, generator=g, device=dev) + 0.5, gamma, beta,
+                            0.01 * torch.randn(o, generator=g, device=dev),
+                            0.01 * torch.randn(o, generator=g, device=dev))
+    return wm, bias, x32, si32, dz32, scal, scal_in
+
+
+def hold_cbg_block(what: str, dt, case: tuple) -> tuple:
+    """The fused block's forward and backward in ``dt`` on ``case``
+    (:func:`cbg_case`) against their plain versions, every output held
+    (s and its stats; dz_prev, dw, db and dz_prev's stats): (forward args,
+    backward args, forward error, backward error)."""
+    import torch
+
+    from deflow_tpu_torch.ops import cbg
+
+    wm, bias, x32, si32, dz32, scal, scal_in = case
+    c, o = wm.shape[2], wm.shape[3]
+    fa = (x32.to(dt), wm.to(dt).contiguous(), bias.to(dt), scal)
+    kf = cbg.cbg_block_fwd(*fa)
+    rf = cbg.cbg_block_fwd_plain(*fa)
+    ba = (dz32.to(dt), si32.to(dt), x32.to(dt), wm.to(dt).contiguous(), scal_in, scal)
+    kb = cbg.cbg_block_bwd(*ba)
+    rb = cbg.cbg_block_bwd_plain(*ba)
+    torch.cuda.synchronize()
+    res = x32.shape[1]
+    ef = _hold(f"cbg_fwd {res}^2x{c}->{o}{what}", dt,
+               [("s", kf[0], rf[0]), ("stats", kf[1].sum(0), rf[1].sum(0))])
+    eb = _hold(f"cbg_bwd {res}^2x{c}->{o}{what}", dt,
+               [("dz_prev", kb[0], rb[0]), ("dw", kb[1], rb[1]),
+                ("db", kb[2].sum(0), rb[2].sum(0)),
+                ("stats", kb[3].sum(0), rb[3].sum(0))])
+    return fa, ba, ef, eb
+
+
+def hold_cbg_config_batch(model, g) -> None:
+    """The bf16 fused-block forward and backward of the 256 and 128 groups
+    at the config's siamese batch 2 x CONFIG_BATCH, where the train path
+    chains them, against their plain versions: the partial-sum rows, the
+    backward's scratch and its weight-gradient slabs are sized by the
+    batch."""
+    import torch
+
+    net, hw = model.backbone, model.voxel_cfg.pseudoimage_hw
+    for step, res in ((2, hw[0] // 2), (6, hw[0] // 4)):
+        hold_cbg_block(f", 2B = {2 * CONFIG_BATCH}", torch.bfloat16,
+                       cbg_case(net, step, 2 * CONFIG_BATCH, res, g))
+        torch.cuda.empty_cache()
+
+
 def hold_cbg(model, g, splits: list) -> dict:
     """The fused conv3x3+BN+GELU forward and backward of each encoder group
     of ``model`` ("256", "128", "64": the maps at a half, a quarter and an
@@ -877,42 +949,17 @@ def hold_cbg(model, g, splits: list) -> dict:
 
     from deflow_tpu_torch.ops import cbg
 
-    dev = torch.device("cuda")
     net = model.backbone
     hw = model.voxel_cfg.pseudoimage_hw
     results = {}
     for (name, step, res) in (("256", 2, hw[0] // 2), ("128", 6, hw[0] // 4),
                               ("64", 10, hw[0] // 8)):
-        wm, bias, gamma, beta = (t.detach() for t in
-                                 getattr(net, f"encoder_step_{step}").chain_params(torch.float32))
+        case = cbg_case(net, step, 2 * TRAIN_B, res, g)
+        wm, bias, *_, scal, scal_in = case
         c, o = wm.shape[2], wm.shape[3]
         shape = (2 * TRAIN_B, res, res)
-        x32 = torch.randn(*shape, c, generator=g, device=dev)
-        si32 = torch.randn(*shape, o, generator=g, device=dev)
-        dz32 = torch.randn(*shape, o, generator=g, device=dev)
-        scal = cbg.scal_slab(0.1 * torch.randn(c, generator=g, device=dev),
-                             torch.rand(c, generator=g, device=dev) + 0.5, torch.full((c,), 1.05, device=dev),
-                             torch.full((c,), 0.02, device=dev))
-        scal_in = cbg.scal_slab(0.1 * torch.randn(o, generator=g, device=dev),
-                                torch.rand(o, generator=g, device=dev) + 0.5, gamma, beta,
-                                0.01 * torch.randn(o, generator=g, device=dev),
-                                0.01 * torch.randn(o, generator=g, device=dev))
-        held = {}
-        for dt in (torch.float32, torch.bfloat16):
-            fa = (x32.to(dt), wm.to(dt).contiguous(), bias.to(dt), scal)
-            kf = cbg.cbg_block_fwd(*fa)
-            rf = cbg.cbg_block_fwd_plain(*fa)
-            ba = (dz32.to(dt), si32.to(dt), x32.to(dt), wm.to(dt).contiguous(), scal_in, scal)
-            kb = cbg.cbg_block_bwd(*ba)
-            rb = cbg.cbg_block_bwd_plain(*ba)
-            torch.cuda.synchronize()
-            ef = _hold(f"cbg_fwd {res}^2x{c}->{o}", dt,
-                       [("s", kf[0], rf[0]), ("stats", kf[1].sum(0), rf[1].sum(0))])
-            eb = _hold(f"cbg_bwd {res}^2x{c}->{o}", dt,
-                       [("dz_prev", kb[0], rb[0]), ("dw", kb[1], rb[1]),
-                        ("db", kb[2].sum(0), rb[2].sum(0)),
-                        ("stats", kb[3].sum(0), rb[3].sum(0))])
-            held[dt] = (fa, ba, ef, eb)
+        held = {dt: hold_cbg_block("", dt, case) for dt in (torch.float32, torch.bfloat16)}
+        fa, ba, ef, eb = held[torch.bfloat16]
         npix = shape[0] * res * res
         flops = 2.0 * npix * 9 * c * o
         x_cl = fa[0].permute(0, 3, 1, 2)           # NCHW view, channels-last
@@ -1782,7 +1829,7 @@ def hold_remat(batch) -> dict:
 
 def probe_config_batch() -> dict:
     """The peak memory of one step at the config's batch_size on one card
-    (2B = 32: the plain cuDNN U-Net, no fused chains), with remat and
+    (2B = 32: the 256 and 128 groups chained in bf16), with remat and
     without; 'does not fit' where the card runs out."""
     import torch
 
@@ -1798,7 +1845,7 @@ def probe_config_batch() -> dict:
         torch.cuda.empty_cache()
     show = lambda v: v if isinstance(v, str) else f"{v:.2f} GiB"
     print(f"batch_size {CONFIG_BATCH} on one card ({CONFIG_BATCH} x {N}, 2B = "
-          f"{2 * CONFIG_BATCH}: the plain U-Net): peak memory of one step "
+          f"{2 * CONFIG_BATCH}): peak memory of one step "
           f"{show(out['remat_gib'])} with remat, {show(out['plain_gib'])} without")
     return out
 
@@ -2847,8 +2894,8 @@ def hold_block_remat(batch, big_batch) -> dict:
     64^2 group's two blocks are wrapped: the others chain at 2B = 4): the
     same first-step loss, gradients within SPREAD times two plain steps'
     difference, every BN statistic moved once (hold_remat's rules); then
-    the peak and step ms of each at 16 per card (2B = 32: no chain, all
-    ten encoder blocks wrapped)."""
+    the peak and step ms of each at 16 per card (2B = 32: chained in bf16
+    as at 2, only the 64^2 group's blocks wrapped)."""
     import torch
 
     runs = {"0": remat_run(batch, "0")}

@@ -22,11 +22,13 @@ three blocks, 128 channels) and 64 (step 9 + one block, 256 channels).
 ``DEFLOW_FUSED_CBG`` picks the chain-capable groups
 (:func:`~deflow_tpu_torch.ops.cbg.fused_groups`, the JAX package's
 policy).  In training such a group runs as one fused ``cbg_chain`` when
-:func:`~deflow_tpu_torch.ops.cbg.chain_at_batch` allows it and its map is
-a multiple of 8, with the stem's BN + GELU deferred into the chain's first
-block (``StemHeadCBG`` in the JAX package); the stems' k8/s2 convolutions
-stay ``F.conv2d``.  Otherwise it runs its modules one by one as the JAX
-package's ``CBGBlock`` twins do: the variance not clipped, no remat.
+:func:`~deflow_tpu_torch.ops.cbg.chain_at_batch` allows it (under ``auto``
+the crossover measured on an H100: in bf16 at every batch, in f32 at
+2B <= 4) and its map is a multiple of 8, with the stem's BN + GELU
+deferred into the chain's first block (``StemHeadCBG`` in the JAX
+package); the stems' k8/s2 convolutions stay ``F.conv2d``.  Otherwise it
+runs its modules one by one as the JAX package's ``CBGBlock`` twins do:
+the variance not clipped, no remat.
 ``DEFLOW_REMAT`` (``1`` or ``conv``) recomputes each other encoder
 ``ConvWithNorms`` in the backward, the JAX package's ``_remat_wrap``.
 Parameter names do not change.
@@ -187,25 +189,30 @@ class FastFlow3DUNet(nn.Module):
     def _encode(self, x: torch.Tensor, dtype: torch.dtype):
         """The three groups' outputs (stride 2, 4, 8 feature maps)."""
         fused = fused_groups()
-        grad = self.training and torch.is_grad_enabled()
-        remat = remat_mode() if grad else "0"
+        remat = remat_mode() if self.training and torch.is_grad_enabled() else "0"
         taps = []
         for tag in GROUPS:
-            mods = [getattr(self, f"encoder_step_{i}") for i in _GROUP_STEPS[tag]]
-            twin = tag in fused
-            if twin and self.training and chain_at_batch(x.shape[0]):
-                s = _conv(mods[0].conv, x.contiguous(memory_format=torch.channels_last),
-                          dtype)
-                if s.shape[2] % 8 == 0 and s.shape[3] % 8 == 0:
-                    x = self._chain_group(mods[0], mods[1:], s, dtype)
-                    taps.append(x)
-                    continue
-                x = mods[0].norm_act(s, twin=True)
-                mods = mods[1:]
-            for m in mods:
-                x = m(x, dtype, twin=twin, remat="0" if twin else remat)
+            chain = tag in fused and self.training and chain_at_batch(x.shape[0], dtype)
+            x = self.encode_group(tag, x, dtype, tag in fused, chain, remat)
             taps.append(x)
         return taps
+
+    def encode_group(self, tag: str, x: torch.Tensor, dtype: torch.dtype, twin: bool,
+                     chain: bool = False, remat: str = "0") -> torch.Tensor:
+        """Group ``tag``'s output from its input ``x``: one fused chain when
+        ``chain`` and the stem's map is a multiple of 8, else the modules one
+        by one, as the ``CBGBlock`` twins when ``twin`` (without remat)."""
+        stem, *blocks = [getattr(self, f"encoder_step_{i}") for i in _GROUP_STEPS[tag]]
+        if chain:
+            s = _conv(stem.conv, x.contiguous(memory_format=torch.channels_last), dtype)
+            if s.shape[2] % 8 == 0 and s.shape[3] % 8 == 0:
+                return self._chain_group(stem, blocks, s, dtype)
+            x = stem.norm_act(s, twin=True)
+        else:
+            blocks = [stem, *blocks]
+        for m in blocks:
+            x = m(x, dtype, twin=twin, remat="0" if twin else remat)
+        return x
 
     def forward(self, img0: torch.Tensor, img1: torch.Tensor,
                 dtype: torch.dtype) -> torch.Tensor:

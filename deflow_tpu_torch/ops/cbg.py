@@ -377,11 +377,23 @@ def fused_groups() -> frozenset:
     return frozenset(x.strip() for x in v.split(","))
 
 
-def chain_at_batch(rows2b: int) -> bool:
-    """Whether a chain-capable group chains at siamese batch ``rows2b``
-    (``pallas_cbg.chain_at_batch``): under ``auto`` only at 2B <= 4, where
-    the JAX package measured the chain faster than plain convolutions; an
-    explicit ``DEFLOW_FUSED_CBG`` always chains."""
+def chain_at_batch(rows2b: int, dtype: torch.dtype) -> bool:
+    """Whether a chain-capable group chains at siamese batch ``rows2b`` in
+    the compute ``dtype``.  Under ``auto``, the port's own crossover,
+    measured on an H100 with ``tools/unet_chain_sweep.py`` (each group
+    under autograd against its fallback, 512² grid, 2B = 4 to 32):
+
+    - bf16 chains at every batch: at 2B = 32 the 256 and 128 groups'
+      forwards run 1.53x and 1.38x faster, their backwards 1.03x and
+      0.97x, and each group's forward and backward together are faster
+      at every 2B from 8 up.
+    - f32 chains at 2B <= 4 only.  There the two routes are even within
+      the runs' spread with cuDNN's TF32 on (PyTorch's default), and the
+      chain is 1.26x and 1.37x faster with TF32 off, the setting of the
+      card's f32 checks.  From 2B = 8 up the TF32 fallback is 1.1x to
+      1.7x faster.
+
+    An explicit ``DEFLOW_FUSED_CBG`` always chains."""
     if os.environ.get("DEFLOW_FUSED_CBG", "auto").strip() == "auto":
-        return rows2b <= 4
+        return dtype == torch.bfloat16 or rows2b <= 4
     return True

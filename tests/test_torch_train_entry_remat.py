@@ -62,8 +62,8 @@ def _count_wrappers(monkeypatch):
 
 
 # wrapper calls per step, plain and remat.  Forward: two segment-sums (the
-# embedder, pc0 and pc1), one gather, one GRU, and at 2B <= 4 two chains of
-# three fused blocks.  Backward: each segment-sum's is a gather, the
+# embedder, pc0 and pc1), one gather, one GRU, and, unless the plain U-Net
+# is selected, two chains of three fused blocks.  Backward: each segment-sum's is a gather, the
 # gather's a segment-sum; the GRU backward, three fused-block backwards a
 # chain.  Remat runs every forward call a second time in the backward.
 PER_STEP = {"sorted_segment_sum": (3, 5), "sorted_rows_gather": (3, 4),
@@ -71,14 +71,18 @@ PER_STEP = {"sorted_segment_sum": (3, 5), "sorted_rows_gather": (3, 4),
             "cbg_block_fwd": (6, 12), "cbg_block_bwd": (6, 6)}
 
 
-@pytest.mark.parametrize("loss_name,b", [("deflowLoss", 2), ("deflowLoss", 3),
-                                         ("seflowLoss", 2)],
+@pytest.mark.parametrize("loss_name,b,policy", [("deflowLoss", 2, "auto"),
+                                                ("deflowLoss", 3, "0"),
+                                                ("seflowLoss", 2, "auto")],
                          ids=["chains", "plain_unet", "seflow"])
-def test_remat_step_equals_plain_bit_for_bit(monkeypatch, loss_name, b):
+def test_remat_step_equals_plain_bit_for_bit(monkeypatch, loss_name, b, policy):
     """Two steps from the same state with and without remat: the loss, aux,
     every gradient, every parameter after Adam, the Adam state, every BN
     running statistic and ``num_batches_tracked`` are identical (a second
-    momentum update in the recompute would move the statistics)."""
+    momentum update in the recompute would move the statistics).
+    ``plain_unet`` selects the plain U-Net (``DEFLOW_FUSED_CBG=0``), so
+    that remat is held bit for bit on the path without chains too."""
+    monkeypatch.setenv("DEFLOW_FUSED_CBG", policy)
     calls = _count_wrappers(monkeypatch)
     batches = [(ssl_batch(40 + s, b=b) if loss_name == "seflowLoss"
                 else make_host_batch(40 + s, b, 512, VOXEL)) for s in range(2)]
@@ -96,7 +100,7 @@ def test_remat_step_equals_plain_bit_for_bit(monkeypatch, loss_name, b):
         runs.append((state, trace))
     (plain, t_plain), (remat, t_remat) = runs
     _same_state(plain, remat)
-    chains = 2 * b <= 4
+    chains = policy != "0"
     for (aux_p, g_p, c_p), (aux_r, g_r, c_r) in zip(t_plain, t_remat):
         for k in aux_p:
             assert torch.equal(aux_p[k], aux_r[k]), k

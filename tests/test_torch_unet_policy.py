@@ -1,7 +1,9 @@
 """The train-mode U-Net's chain policy against the JAX package on the CPU in
 f32: ``DEFLOW_FUSED_CBG`` (which encoder groups chain, the 64² group's chain
-at 256 channels included).  ``DEFLOW_REMAT`` and the plain path at siamese
-batch 2B > 4 are in ``test_torch_unet_remat.py``.
+at 256 channels included).  ``DEFLOW_REMAT`` and siamese batch 2B > 4
+against the JAX package are in ``test_torch_unet_remat.py``; the port's own
+``auto`` route at the benchmark's 2B = 32 in bf16 is checked here with a
+stub in place of the chain.
 
 The JAX package ignores ``DEFLOW_FUSED_CBG`` off the TPU, so its side runs
 with ``deflow_tpu.ops.voxel._use_pallas`` patched on and the Pallas chain in
@@ -156,9 +158,11 @@ def test_fused_cbg_policy_matches_jax(interpret_cbg, monkeypatch, policy):
 
 
 def test_policy_values_follow_jax(monkeypatch):
-    """``fused_groups`` and ``chain_at_batch`` against the JAX package's
-    ``use_fused_cbg`` / ``chain_at_batch`` (``_use_pallas`` on) for every
-    value, at 2B = 4 and 8."""
+    """``fused_groups`` against the JAX package's ``use_fused_cbg``
+    (``_use_pallas`` on) for every value, and ``chain_at_batch`` against its
+    ``chain_at_batch`` for every explicit value, at 2B = 4, 8 and 32 in
+    bf16 and f32.  Under ``auto`` the port keeps the card's rule instead of
+    the TPU's 2B <= 4: in bf16 it chains at every batch, in f32 at 2B <= 4."""
     import deflow_tpu.ops.voxel as V
     from deflow_tpu.ops import pallas_cbg as C
 
@@ -170,11 +174,52 @@ def test_policy_values_follow_jax(monkeypatch):
         else:
             monkeypatch.setenv("DEFLOW_FUSED_CBG", value)
         assert TC.fused_groups() == C.use_fused_cbg(), value
-        for rows2b in (4, 8):
-            assert TC.chain_at_batch(rows2b) == C.chain_at_batch(rows2b), value
+        for rows2b in (4, 8, 32):
+            for dtype in (torch.bfloat16, torch.float32):
+                got = TC.chain_at_batch(rows2b, dtype)
+                if value is None or value.strip() == "auto":
+                    assert got == (dtype == torch.bfloat16 or rows2b <= 4), (value, rows2b)
+                else:
+                    assert got == C.chain_at_batch(rows2b), (value, rows2b)
     monkeypatch.setenv("DEFLOW_REMAT", "2")
     with pytest.raises(ValueError, match="DEFLOW_REMAT"):
         TU.remat_mode()
+
+
+def _stub_chain(monkeypatch):
+    """``cbg_chain`` replaced by a recorder that returns zeros of its
+    outputs' shapes (nothing computed): the groups it was called for."""
+    calls = []
+
+    def stub(x, params, head_gb=(), eps=1e-5):
+        calls.append(GROUP_OF[params[0][0].shape[-1]])
+        b, h, w, c = x.shape
+        chans = ([c] if head_gb else []) + [p[0].shape[-1] for p in params]
+        stats = tuple(x.new_zeros(k, dtype=torch.float32) for k in chans)
+        return x.new_zeros(b, h, w, chans[-1]), stats, stats
+
+    monkeypatch.setattr(TU, "cbg_chain", stub)
+    return calls
+
+
+@pytest.mark.parametrize("case,grid,expect", [
+    ("train", 64, ["256", "128"]), ("eval", 64, []), ("map_not_8", 48, ["256"])])
+def test_auto_route_at_the_cells_batch(monkeypatch, case, grid, expect):
+    """The cells' batch (16 pairs, 2B = 32) in bf16 under ``auto``: in
+    training ``_encode`` takes ``cbg_chain`` for the 256 and 128 groups; in
+    eval it chains none; at a 48² grid the 128 group's 12² map is not a
+    multiple of 8 and only the 256 group (24²) chains."""
+    monkeypatch.setenv("DEFLOW_FUSED_CBG", "auto")
+    calls = _stub_chain(monkeypatch)
+    model = TU.FastFlow3DUNet(stem_cin=32)
+    model.train(case != "eval")
+    x = torch.zeros(32, 32, grid, grid, dtype=torch.bfloat16)
+    with torch.no_grad():
+        taps = model._encode(x, torch.bfloat16)
+    assert calls == expect
+    assert [t.shape[1:] for t in taps] == [(64, grid // 2, grid // 2),
+                                           (128, grid // 4, grid // 4),
+                                           (256, grid // 8, grid // 8)]
 
 
 def test_cbg_chain_256_matches_pallas_chain(interpret_cbg):

@@ -125,17 +125,11 @@ Phases (any failure exits non-zero):
    ``entry.train.fit`` under an nccl group of world size 1 against the
    same without a group, and the device time of the nccl kernels a step;
 11. the JAX package's last surface, each path at full width with its
-   launch counts held: (a) the leaderboard step (bf16, 2 x 98,304) under
-   DEFLOW_FUSED_CBG=all (7 fused-block forwards and backwards a step, the
-   64^2 group's 256 channels chained) against auto, in turns; the f32
-   small model's step under all and under 64 against 0, on the card;
-   (b) DEFLOW_REMAT 1 and conv against 0: the same loss, gradients within
-   the card's run-to-run spread, BN statistics moved once, peak memory and
-   step ms, also at 16 per card; (c) SeFlow with dyn_cap at 20% and 5% of
-   N: the first step's loss equal to the uncompacted one, 2 sweeps and 1
-   lane sum a step, the chamfer's d_pc0 on fixed clouds equal off the rows
-   the truncated f-terms touch; (d) the eval with scatter_mode="max", with
-   and without host prep, and its f32 small model against the CPU; (e) the
+   launch counts held: (a) SeFlow with dyn_cap at 20% and 5% of N: the
+   first step's loss equal to the uncompacted one, 2 sweeps and 1 lane sum
+   a step, the chamfer's d_pc0 on fixed clouds equal off the rows the
+   truncated f-terms touch; (b) the eval with scatter_mode="max", with and
+   without host prep, and its f32 small model against the CPU; (c) the
    DUFO labeller on a synthetic 20-frame drive of 98,304 points a frame,
    the card against the CPU;
 12. the reference's ablation configurations, each path at full width with
@@ -2799,12 +2793,10 @@ def run_data_parallel(model, train_batches) -> dict:
 
 
 # phase 11: the JAX package's last surface.  Steps (or batches) of each
-# path; a train step's launches with the 64^2 group chained too
-# (DEFLOW_FUSED_CBG=all), an SSL step's, a max-scatter eval batch's (either
-# route: the centroid and count sums of both clouds, the centroids'
-# gathers and the decoder's); the dyn_cap shares of N; the DUFO scene
+# path; an SSL step's launches, a max-scatter eval batch's (either route:
+# the centroid and count sums of both clouds, the centroids' gathers and
+# the decoder's); the dyn_cap shares of N; the DUFO scene
 SURFACE_STEPS = 3
-ALL_PER_STEP = dict(PER_STEP, cbg_fwd=7, cbg_bwd=7)
 SSL_PER_STEP = dict(PER_STEP, cell_sweep=2, segment_sum_lanes=1)
 MAX_EVAL_PER_BATCH = {"segment_sum": 4, "sorted_gather": 3, "fused_gru": 1}
 DYNCAP_SHARES = (0.20, 0.05)
@@ -2828,118 +2820,8 @@ class env:
             os.environ[self.name] = self.old
 
 
-def policy_check(seed: int, policy: str) -> dict:
-    """(a) One f32 deflowLoss step of the small model (64^2 grid, 2 x 4,096
-    slots: the groups' maps 32^2, 16^2, 8^2, all chained at 2B = 4) under
-    ``DEFLOW_FUSED_CBG=policy`` against the same step under ``0`` (plain
-    cuDNN), both on the card: the ratios of train_reference_check, and the
-    fused blocks' launches of the policy's step."""
-    from deflow_tpu_torch.models import build_model
-    from deflow_tpu_torch.trainer import init_train_state, make_train_step
-
-    small = dict(LEADERBOARD, voxel_size=[1.6, 1.6, 6.0], grid_feature_size=[64, 64])
-    hb, _ = held_prep(make_batch(seed, b=2, n=4096, valid=3500), small["voxel_size"])
-    auxes, grads, states, launches = [], [], [], []
-    for value in (policy, "0"):
-        with env("DEFLOW_FUSED_CBG", value):
-            model = build_model(small, precision="fp32", seed=seed)
-            state = init_train_state(model, {"lr": LR})
-            reset_launches()
-            state, aux = make_train_step(model, "deflowLoss")(state, hb)
-            launches.append(read_launches())
-        auxes.append({k: float(v) for k, v in aux.items()})
-        grads.append({k: p.grad.detach().cpu() for k, p in model.named_parameters()})
-        states.append({k: v.detach().cpu() for k, v in model.state_dict().items()})
-    ratio, _ = step_ratios(auxes, grads, states)
-    return {"ratio": ratio, "cbg": (launches[0]["cbg_fwd"], launches[0]["cbg_bwd"]),
-            "cbg_plain": (launches[1]["cbg_fwd"], launches[1]["cbg_bwd"])}
-
-
-def remat_run(batch, mode: str, steps: int = 2, seed: int = 11) -> dict:
-    """(b) A bf16 deflowLoss step of a fresh model (seed ``seed``) under
-    ``DEFLOW_REMAT=mode``: its loss, gradients, BN buffers before and
-    after, the peak memory above the state (GiB; 'does not fit' when the
-    card runs out), then ``steps`` more steps' median device ms."""
-    import torch
-
-    from deflow_tpu_torch.models import build_model
-    from deflow_tpu_torch.trainer import TRAIN_KEYS, device_batch, init_train_state, make_train_step
-
-    with env("DEFLOW_REMAT", mode):
-        model = build_model(LEADERBOARD, precision="bf16", seed=seed)
-        state = init_train_state(model, {"lr": LR, "optimizer": "adam"})
-        stats = lambda: {k: v.clone() for k, v in model.state_dict().items() if "running" in k}
-        before = stats()
-        db = device_batch(batch, keys=TRAIN_KEYS)
-        step = make_train_step(model, "deflowLoss")
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        try:
-            state, aux = step(state, db)
-            torch.cuda.synchronize()
-        except torch.cuda.OutOfMemoryError:
-            return {"peak_gib": "does not fit"}
-        out = {"peak_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
-               "loss": float(aux["loss"]), "before": before, "after": stats(),
-               "grads": {k: p.grad.detach().float().clone()
-                         for k, p in model.named_parameters()}}
-        _, ms = _timed_steps(lambda d: step(state, d), [db] * steps, lambda o: None)
-    out["ms"] = float(np.median(ms))
-    return out
-
-
-def hold_block_remat(batch, big_batch) -> dict:
-    """(b) ``DEFLOW_REMAT`` 1 and conv against 0 at 2 per card (only the
-    64^2 group's two blocks are wrapped: the others chain at 2B = 4): the
-    same first-step loss, gradients within SPREAD times two plain steps'
-    difference, every BN statistic moved once (hold_remat's rules); then
-    the peak and step ms of each at 16 per card (2B = 32: chained in bf16
-    as at 2, only the 64^2 group's blocks wrapped)."""
-    import torch
-
-    runs = {"0": remat_run(batch, "0")}
-    runs["0 again"] = remat_run(batch, "0")
-    floor = _grad_spread(runs["0"]["grads"], runs["0 again"]["grads"])
-    res = {}
-    for mode in ("1", "conv"):
-        r = runs[mode] = remat_run(batch, mode)
-        grad = _grad_spread(runs["0"]["grads"], r["grads"])
-        ref = runs["0"]
-        share = max(((r["after"][k] - ref["after"][k]).abs().max()
-                     / (ref["after"][k] - v).abs().max().clamp(min=1e-30)).item()
-                    for k, v in ref["before"].items())
-        ok = (r["loss"] == ref["loss"] and grad[0] <= SPREAD * floor[0]
-              and share <= REMAT_STATS_SHARE)
-        print(f"(b) DEFLOW_REMAT={mode} against 0 ({TRAIN_B} x {N:,}, bf16): loss "
-              f"{r['loss']!r} against {ref['loss']!r}; largest gradient difference "
-              f"{grad[0]:.3e} in {grad[1]} (two plain steps {floor[0]:.3e}; tol "
-              f"{SPREAD}x); BN statistics {share:.3e} of the plain move (tol "
-              f"{REMAT_STATS_SHARE:g}); peak {r['peak_gib']:.3f} GiB against "
-              f"{ref['peak_gib']:.3f}; step {r['ms']:.3f} ms against {ref['ms']:.3f}: "
-              f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise SystemExit(f"DEFLOW_REMAT={mode} disagrees with the plain step")
-        res[f"remat_{mode}"] = {"peak_gib": r["peak_gib"], "ms": r["ms"],
-                                "grad_over_floor": grad[0] / max(floor[0], 1e-30)}
-    res["remat_0"] = {"peak_gib": runs["0"]["peak_gib"], "ms": runs["0"]["ms"]}
-    del runs
-    torch.cuda.empty_cache()
-    for mode in ("0", "1", "conv"):
-        r = remat_run(big_batch, mode, steps=1)
-        show = lambda v: v if isinstance(v, str) else f"{v:.2f} GiB"
-        print(f"(b) DEFLOW_REMAT={mode} at {CONFIG_BATCH} per card ({CONFIG_BATCH} x "
-              f"{N:,}, 2B = {2 * CONFIG_BATCH}): peak {show(r['peak_gib'])}"
-              + (f", step {r['ms']:.3f} ms" if "ms" in r else ""))
-        res[f"remat_{mode}_at_{CONFIG_BATCH}"] = {"peak_gib": r["peak_gib"],
-                                                 "ms": r.get("ms")}
-        del r
-        torch.cuda.empty_cache()
-    return res
-
-
 def dyncap_grads(db, caps) -> dict:
-    """(c) The chamfer-level d_pc0 of the SSL batch's fixed clouds (pc0
+    """(a) The chamfer-level d_pc0 of the SSL batch's fixed clouds (pc0
     ego-compensated, pc1 from the host cell prep, 15% flagged) for each
     ``dyn_cap``; and the rows the truncated f-terms touch at each cap (the
     flagged rows past it, and the pc0 f-matches of pc1's rows past it)."""
@@ -2972,7 +2854,7 @@ def dyncap_grads(db, caps) -> dict:
 
 
 def dufo_frames(seed: int = 9, frames: int = DUFO_FRAMES, n: int = N) -> list:
-    """(e) A synthetic drive for the DUFO labeller: the ego at 10 m/s, a
+    """(c) A synthetic drive for the DUFO labeller: the ego at 10 m/s, a
     slight turn; four walls around it (rays cross empty space to reach
     them), 10% ground points (ground_mask), six boxes of ~1,600 points
     each moving at up to 10 m/s; ``n`` points a frame in the ego frame."""
@@ -3041,20 +2923,17 @@ def run_path(label: str, per: dict, items: list, run, check, out: dict,
     return res
 
 
-def run_last_surface(eval_batches, train_batches, ssl_batches) -> dict:
+def run_last_surface(eval_batches, ssl_batches) -> dict:
     """Phase 11, each path at full width with its launch counts held:
-    (a) the leaderboard step under DEFLOW_FUSED_CBG=all against auto, and
-    the f32 small model under all and 64 against 0; (b) DEFLOW_REMAT;
-    (c) SeFlow with dyn_cap above and below the dynamic counts; (d) the
-    max-scatter eval with and without host prep; (e) the DUFO labeller on
+    (a) SeFlow with dyn_cap above and below the dynamic counts; (b) the
+    max-scatter eval with and without host prep; (c) the DUFO labeller on
     the card against the CPU."""
     import torch
 
     from deflow_tpu_torch.dataprocess.process import label_frames
-    from deflow_tpu_torch.data.host_prep import attach_host_prep
     from deflow_tpu_torch.models import build_model
-    from deflow_tpu_torch.trainer import (SSL_TRAIN_KEYS, TRAIN_KEYS, device_batch,
-                                          init_train_state, make_eval_step, make_train_step)
+    from deflow_tpu_torch.trainer import (SSL_TRAIN_KEYS, device_batch, init_train_state,
+                                          make_eval_step, make_train_step)
 
     out, launched = {}, {}
 
@@ -3067,38 +2946,7 @@ def run_last_surface(eval_batches, train_batches, ssl_batches) -> dict:
             raise SystemExit(f"a step gave non-finite values {aux}")
         return aux
 
-    # (a) the chain policy: the leaderboard step, auto / all / all / auto
-    tdbs = [device_batch(hb, keys=TRAIN_KEYS) for hb in train_batches[:SURFACE_STEPS]]
-    for i, policy in enumerate(("auto", "all", "all", "auto")):
-        with env("DEFLOW_FUSED_CBG", policy):
-            model = build_model(LEADERBOARD, precision="bf16", seed=0)
-            state = init_train_state(model, {"lr": LR, "optimizer": "adam"})
-            step = make_train_step(model, "deflowLoss")
-            path(f"(a) train, DEFLOW_FUSED_CBG={policy}, run {i // 2 + 1}",
-                 ALL_PER_STEP if policy == "all" else PER_STEP, tdbs,
-                 lambda db: step(state, db), finite)
-    del model, state, step, tdbs
-    for policy in ("all", "64"):
-        r = policy_check(7, policy)
-        print(f"(a) f32 64x64 step on the card, DEFLOW_FUSED_CBG={policy} against 0: "
-              "largest difference over its tolerance: "
-              + ", ".join(f"{k} {v:.3f}" for k, v in r["ratio"].items())
-              + f"; fused blocks forward/backward {r['cbg']} (0: {r['cbg_plain']})")
-        want = {"all": (7, 7), "64": (1, 1)}[policy]
-        if not (all(v <= 1.0 for v in r["ratio"].values()) and r["cbg"] == want
-                and r["cbg_plain"] == (0, 0)):
-            raise SystemExit(f"DEFLOW_FUSED_CBG={policy} disagrees with the plain U-Net")
-        out[f"(a) f32 {policy} against 0"] = r
-    torch.cuda.empty_cache()
-
-    # (b) per-block remat at 2 and at 16 per card
-    big = attach_host_prep(make_batch(600, b=CONFIG_BATCH), VOXEL, RANGE,
-                           num_workers=HOST_WORKERS)
-    out["(b) remat"] = hold_block_remat(train_batches[0], big)
-    del big
-    torch.cuda.empty_cache()
-
-    # (c) SeFlow with dyn_cap: the loss of the first step (the forward never
+    # (a) SeFlow with dyn_cap: the loss of the first step (the forward never
     # changes), 2 sweeps and 1 lane sum a step, and the chamfer's d_pc0
     sdbs = [device_batch(hb, keys=SSL_TRAIN_KEYS) for hb in ssl_batches[:SURFACE_STEPS]]
     caps = [None] + [int(share * N) for share in DYNCAP_SHARES]
@@ -3108,11 +2956,11 @@ def run_last_surface(eval_batches, train_batches, ssl_batches) -> dict:
             model = build_model(LEADERBOARD, precision="bf16", seed=0)
             state = init_train_state(model, {"lr": LR, "optimizer": "adam"})
             step = make_train_step(model, "seflowLoss")
-            auxes = path(f"(c) seflow, dyn_cap {cap}", SSL_PER_STEP, sdbs,
+            auxes = path(f"(a) seflow, dyn_cap {cap}", SSL_PER_STEP, sdbs,
                          lambda db: step(state, db), finite)
         first[cap] = auxes[0]["loss"]
     del model, state, step
-    print("(c) first-step loss by dyn_cap: " + ", ".join(f"{c}: {v!r}" for c, v in first.items()))
+    print("(a) first-step loss by dyn_cap: " + ", ".join(f"{c}: {v!r}" for c, v in first.items()))
     if len(set(first.values())) != 1:
         raise SystemExit("dyn_cap changed the SeFlow loss")
     grads = dyncap_grads(sdbs[0], caps)
@@ -3123,20 +2971,20 @@ def run_last_surface(eval_batches, train_batches, ssl_batches) -> dict:
         diff = (g - full).abs().max(-1).values
         off = diff[~touched].max().item() / scale
         changed = int((diff > 1e-5 * scale).sum())
-        print(f"(c) chamfer d_pc0, dyn_cap {cap} (flagged rows a sample up to {n0} / "
+        print(f"(a) chamfer d_pc0, dyn_cap {cap} (flagged rows a sample up to {n0} / "
               f"{n1}): largest difference off the {int(touched.sum())} touched rows "
               f"{off:.3e} of the largest element (tol 1e-5); rows differing by more "
               f"{changed}, all touched: {bool((diff[~touched] <= 1e-5 * scale).all())}")
         if not off <= 1e-5 or (cap >= max(n0, n1)) != (int(touched.sum()) == 0):
             raise SystemExit(f"the compacted backward at dyn_cap {cap} disagrees")
-        out[f"(c) d_pc0 at dyn_cap {cap}"] = {"off_touched_rel": off, "changed_rows": changed,
+        out[f"(a) d_pc0 at dyn_cap {cap}"] = {"off_touched_rel": off, "changed_rows": changed,
                                             "touched_rows": int(touched.sum()),
                                             "max_flagged": [n0, n1]}
-    out["(c) first_step_loss"] = first[None]
+    out["(a) first_step_loss"] = first[None]
     del sdbs, grads
     torch.cuda.empty_cache()
 
-    # (d) the max scatter's eval, host-sorted batches and raw ones
+    # (b) the max scatter's eval, host-sorted batches and raw ones
     model = build_model(LEADERBOARD, precision="bf16", seed=0)
     model.embedder.scatter_mode = "max"
     step = make_eval_step(model)
@@ -3145,20 +2993,20 @@ def run_last_surface(eval_batches, train_batches, ssl_batches) -> dict:
         if not all(torch.isfinite(v).all() for v in o.values() if v.is_floating_point()):
             raise SystemExit("the max-scatter eval gave non-finite values")
         return o
-    for label, hbs in (("(d) max-scatter eval, host prep", eval_batches[:SURFACE_STEPS]),
-                       ("(d) max-scatter eval, no host prep",
+    for label, hbs in (("(b) max-scatter eval, host prep", eval_batches[:SURFACE_STEPS]),
+                       ("(b) max-scatter eval, no host prep",
                         [make_batch(100 + i) for i in range(SURFACE_STEPS)])):
         path(label, MAX_EVAL_PER_BATCH, [device_batch(hb) for hb in hbs], step, finite_eval)
     del model, step
     for hosted in (True, False):
         err = reference_check(seed=7, hosted=hosted, scatter_mode="max")
-        print(f"(d) reference check, max scatter{'' if hosted else ', no host prep'} "
+        print(f"(b) reference check, max scatter{'' if hosted else ', no host prep'} "
               f"(f32, 64x64 grid, card vs CPU): max |d pred_flow| {err:.3e} (tol 2e-4)")
         if not err < 2e-4:
             raise SystemExit("card and CPU disagree on the max-scatter eval")
-        out[f"(d) f32 card vs cpu{'' if hosted else ', no host prep'}"] = err
+        out[f"(b) f32 card vs cpu{'' if hosted else ', no host prep'}"] = err
 
-    # (e) the DUFO labeller, the card against the CPU
+    # (c) the DUFO labeller, the card against the CPU
     frames = dufo_frames()
     labels, ms = {}, {}
     for where, dev in (("card", "cuda"), ("card", "cuda"), ("cpu", "cpu")):
@@ -3169,13 +3017,13 @@ def run_last_surface(eval_batches, train_batches, ssl_batches) -> dict:
         ms[where] = (time.perf_counter() - t0) * 1e3 / len(frames)
     card, cpu = np.concatenate(labels["card"]), np.concatenate(labels["cpu"])
     differ = float((card != cpu).mean())
-    print(f"(e) DUFO labels, {len(frames)} frames x {N:,}, window {DUFO_WINDOW}: card "
+    print(f"(c) DUFO labels, {len(frames)} frames x {N:,}, window {DUFO_WINDOW}: card "
           f"{ms['card']:.1f} ms a frame (the second run), CPU {ms['cpu']:.1f} ms; share "
           f"differing {differ:.3e}; dynamic fraction card {card.mean():.4f}, CPU "
           f"{cpu.mean():.4f}")
     if differ > 1e-4:
         raise SystemExit("the DUFO labels on the card disagree with the CPU's")
-    out["(e) dufo"] = {"card_ms_per_frame": ms["card"], "cpu_ms_per_frame": ms["cpu"],
+    out["(c) dufo"] = {"card_ms_per_frame": ms["card"], "cpu_ms_per_frame": ms["cpu"],
                        "share_differing": differ, "dynamic_fraction": float(card.mean())}
     return out, launched
 
@@ -3616,7 +3464,7 @@ def main() -> int:
     lap("7 reference checks")
     dp = run_data_parallel(model, train_batches)
     lap("9 data parallelism")
-    surface, surface_launches = run_last_surface(batches, train_batches, ssl_batches)
+    surface, surface_launches = run_last_surface(batches, ssl_batches)
     lap("11 last surface")
     ablations, ablation_launches = run_ablations(batches, train_batches)
     lap("12 ablation paths")

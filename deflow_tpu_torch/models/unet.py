@@ -19,49 +19,32 @@ clipped at 0; running ``ra = 0.9·ra + 0.1·batch`` with the BIASED variance).
 The encoder has three groups, named by their map at the 512² grid: 256
 (``encoder_step_1`` stem + three 3x3 blocks, 64 channels), 128 (step 5 +
 three blocks, 128 channels) and 64 (step 9 + one block, 256 channels).
-``DEFLOW_FUSED_CBG`` picks the chain-capable groups
-(:func:`~deflow_tpu_torch.ops.cbg.fused_groups`, the JAX package's
-policy).  In training such a group runs as one fused ``cbg_chain`` when
-:func:`~deflow_tpu_torch.ops.cbg.chain_at_batch` allows it (under ``auto``
-the crossover measured on an H100: in bf16 at every batch, in f32 at
-2B <= 4) and its map is a multiple of 8, with the stem's BN + GELU
-deferred into the chain's first block (``StemHeadCBG`` in the JAX
-package); the stems' k8/s2 convolutions stay ``F.conv2d``.  Otherwise it
-runs its modules one by one as the JAX package's ``CBGBlock`` twins do:
-the variance not clipped, no remat.
-``DEFLOW_REMAT`` (``1`` or ``conv``) recomputes each other encoder
-``ConvWithNorms`` in the backward, the JAX package's ``_remat_wrap``.
+In training each group of ``_CHAINED_GROUPS`` (the 256 and 128 groups)
+runs as one fused ``cbg_chain`` when :func:`_chain_at_batch` allows it (in
+bf16 at every batch, in f32 at 2B <= 4) and its map is a multiple of 8,
+with the stem's BN + GELU deferred into the chain's first block
+(``StemHeadCBG`` in the JAX package); the stems' k8/s2 convolutions stay
+``F.conv2d``.  Otherwise a group runs its ``ConvWithNorms`` modules one by
+one.  The chained groups are this module's constant and remat is the train
+step's (``trainer.make_train_step``): the JAX package's environment
+switches for either have no counterpart.
 Parameter names do not change.
 """
 
 from __future__ import annotations
 
-import os
-
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from deflow_tpu_torch import dist
-from deflow_tpu_torch.models.running_stats import remat_contexts, update_running_
-from deflow_tpu_torch.ops.cbg import GROUPS, cbg_chain, chain_at_batch, fused_groups
+from deflow_tpu_torch.models.running_stats import update_running_
+from deflow_tpu_torch.ops.cbg import cbg_chain
 
 
 def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return F.conv2d(x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype),
                     conv.stride, conv.padding)
-
-
-def remat_mode() -> str:
-    """``DEFLOW_REMAT`` (``deflow_tpu/models/unet.py`` ``_remat``): ``0``
-    (default) keeps every activation; ``1`` recomputes each encoder
-    ``ConvWithNorms`` whole (conv + BN + GELU) in the backward; ``conv``
-    keeps the conv outputs and recomputes only the BN normalise + GELU."""
-    mode = os.environ.get("DEFLOW_REMAT", "0")
-    if mode not in ("0", "1", "conv"):
-        raise ValueError(f"DEFLOW_REMAT={mode!r}: 0, 1 or conv")
-    return mode
 
 
 class ConvWithNorms(nn.Module):
@@ -76,13 +59,11 @@ class ConvWithNorms(nn.Module):
         update_running_(self.batchnorm.running_mean, mean, 0.1)
         update_running_(self.batchnorm.running_var, var, 0.1)
 
-    def norm_act(self, y: torch.Tensor, twin: bool = False) -> torch.Tensor:
+    def norm_act(self, y: torch.Tensor) -> torch.Tensor:
         """BN (batch statistics in training) + GELU of the conv output ``y``
-        in f32.  ``twin``: as the JAX package's ``CBGBlock`` /
-        ``StemHeadCBG`` fallback, the variance is not clipped at 0 and a
-        1x1 map is normalised too."""
+        in f32; a 1x1 map skips the BN."""
         y = y.float()
-        if twin or not (y.shape[2] == 1 and y.shape[3] == 1):
+        if not (y.shape[2] == 1 and y.shape[3] == 1):
             bn = self.batchnorm
             if self.training:
                 # [Σy, Σy², n] over the global batch (summed over ranks)
@@ -91,9 +72,7 @@ class ConvWithNorms(nn.Module):
                     [y.sum((0, 2, 3)), (y * y).sum((0, 2, 3)), n]))
                 c = y.shape[1]
                 mean = tot[:c] / tot[-1]
-                var = tot[c:2 * c] / tot[-1] - mean * mean
-                if not twin:
-                    var = var.clamp(min=0.0)
+                var = (tot[c:2 * c] / tot[-1] - mean * mean).clamp(min=0.0)
                 self.update_stats(mean, var)
             else:
                 mean, var = bn.running_mean, bn.running_var
@@ -102,22 +81,8 @@ class ConvWithNorms(nn.Module):
             y = (y - mean.view(shape)) * mul + bn.bias.view(shape)
         return F.gelu(y)
 
-    def _whole(self, x: torch.Tensor, dtype: torch.dtype, twin: bool) -> torch.Tensor:
-        return self.norm_act(_conv(self.conv, x, dtype), twin)
-
-    def forward(self, x: torch.Tensor, dtype: torch.dtype, twin: bool = False,
-                remat: str = "0") -> torch.Tensor:
-        """``remat`` (:func:`remat_mode`) under autograd: ``1`` checkpoints
-        the whole block, ``conv`` the BN + GELU after the conv; the
-        recompute leaves the BN running statistics alone."""
-        if remat == "1":
-            return checkpoint(self._whole, x, dtype, twin, use_reentrant=False,
-                              context_fn=remat_contexts)
-        y = _conv(self.conv, x, dtype)
-        if remat == "conv":
-            return checkpoint(self.norm_act, y, twin, use_reentrant=False,
-                              context_fn=remat_contexts)
-        return self.norm_act(y, twin)
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return self.norm_act(_conv(self.conv, x, dtype))
 
     def chain_params(self, dtype: torch.dtype):
         """(wmat [3, 3, C, O], bias [O] in ``dtype``; gamma, beta f32) for
@@ -158,6 +123,27 @@ _ENCODER = ((64, 8, 2, 3), (64, 3, 1, 1), (64, 3, 1, 1), (64, 3, 1, 1),
             (256, 8, 2, 3), (256, 3, 1, 1))
 # each group's encoder steps: the stem, then its 3x3 blocks
 _GROUP_STEPS = {"256": (1, 2, 3, 4), "128": (5, 6, 7, 8), "64": (9, 10)}
+# the groups that chain in training (the 64 group's chained backward read
+# 0.75-0.91x its modules' on an H100: PERF.md section 6)
+_CHAINED_GROUPS = ("256", "128")
+
+
+def _chain_at_batch(rows2b: int, dtype: torch.dtype) -> bool:
+    """Whether a group of ``_CHAINED_GROUPS`` chains at siamese batch
+    ``rows2b`` in the compute ``dtype``: the port's own crossover, measured
+    on an H100 with ``tools/unet_chain_sweep.py`` (each group under autograd
+    against its modules, 512² grid, 2B = 4 to 32; PERF.md section 6):
+
+    - bf16 chains at every batch: at 2B = 32 the 256 and 128 groups'
+      forwards run 1.53x and 1.38x faster, their backwards 1.03x and
+      0.97x, and each group's forward and backward together are faster
+      at every 2B from 8 up.
+    - f32 chains at 2B <= 4 only.  There the two routes are even within
+      the runs' spread with cuDNN's TF32 on (PyTorch's default), and the
+      chain is 1.26x and 1.37x faster with TF32 off, the setting of the
+      card's f32 checks.  From 2B = 8 up the TF32 route is 1.1x to 1.7x
+      faster."""
+    return dtype == torch.bfloat16 or rows2b <= 4
 
 
 class FastFlow3DUNet(nn.Module):
@@ -188,30 +174,28 @@ class FastFlow3DUNet(nn.Module):
 
     def _encode(self, x: torch.Tensor, dtype: torch.dtype):
         """The three groups' outputs (stride 2, 4, 8 feature maps)."""
-        fused = fused_groups()
-        remat = remat_mode() if self.training and torch.is_grad_enabled() else "0"
+        chain = self.training and _chain_at_batch(x.shape[0], dtype)
         taps = []
-        for tag in GROUPS:
-            chain = tag in fused and self.training and chain_at_batch(x.shape[0], dtype)
-            x = self.encode_group(tag, x, dtype, tag in fused, chain, remat)
+        for tag in _GROUP_STEPS:
+            x = self.encode_group(tag, x, dtype, chain and tag in _CHAINED_GROUPS)
             taps.append(x)
         return taps
 
-    def encode_group(self, tag: str, x: torch.Tensor, dtype: torch.dtype, twin: bool,
-                     chain: bool = False, remat: str = "0") -> torch.Tensor:
+    def encode_group(self, tag: str, x: torch.Tensor, dtype: torch.dtype,
+                     chain: bool) -> torch.Tensor:
         """Group ``tag``'s output from its input ``x``: one fused chain when
-        ``chain`` and the stem's map is a multiple of 8, else the modules one
-        by one, as the ``CBGBlock`` twins when ``twin`` (without remat)."""
+        ``chain`` and the stem's map is a multiple of 8, else its modules
+        one by one."""
         stem, *blocks = [getattr(self, f"encoder_step_{i}") for i in _GROUP_STEPS[tag]]
         if chain:
             s = _conv(stem.conv, x.contiguous(memory_format=torch.channels_last), dtype)
             if s.shape[2] % 8 == 0 and s.shape[3] % 8 == 0:
                 return self._chain_group(stem, blocks, s, dtype)
-            x = stem.norm_act(s, twin=True)
+            x = stem.norm_act(s)
         else:
             blocks = [stem, *blocks]
         for m in blocks:
-            x = m(x, dtype, twin=twin, remat="0" if twin else remat)
+            x = m(x, dtype)
         return x
 
     def forward(self, img0: torch.Tensor, img1: torch.Tensor,

@@ -6,7 +6,7 @@ tensors.  ``cbg_chain`` strings blocks together under autograd: the chain
 passes only the pre-BN conv outputs ``s_i`` between blocks, and each block
 applies the previous block's BN + GELU on load.  Counterpart of
 ``deflow_tpu/ops/pallas_cbg.py`` (``cbg_block_fwd``, ``cbg_block_bwd``,
-``cbg_chain``, ``use_fused_cbg``, ``chain_at_batch``).
+``cbg_chain``).
 
 Layout: channels-last ``[B, H, W, C]`` in the compute dtype (bf16 or f32),
 contiguous, without the Pallas guard rows or lane padding.  Weights
@@ -33,7 +33,6 @@ from __future__ import annotations
 
 import ctypes
 import math
-import os
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -353,47 +352,3 @@ def cbg_chain(x: torch.Tensor, params: Sequence[Tuple[torch.Tensor, ...]],
     k = len(params) + int(bool(head_gb))
     return out[0], out[1:1 + k], out[1 + k:]
 
-
-GROUPS = ("256", "128", "64")      # the encoder groups, by their map at the 512² grid
-
-
-def fused_groups() -> frozenset:
-    """The encoder groups whose modules are chain-capable
-    (``pallas_cbg.use_fused_cbg``), from ``DEFLOW_FUSED_CBG``: unset or
-    ``auto`` the 256 and 128 groups; ``0`` (or empty) none; ``1`` or
-    ``all`` the 256, 128 and 64 groups; else a comma list of those tags
-    (another tag names no group, as in the JAX package).
-    A chain-capable group that does not chain (in eval, when
-    :func:`chain_at_batch` refuses or its map is not a multiple of 8) runs
-    the JAX package's ``CBGBlock`` / ``StemHeadCBG`` fallback: plain
-    convolutions with the fast variance not clipped at 0, and no remat."""
-    v = os.environ.get("DEFLOW_FUSED_CBG", "auto").strip()
-    if v in ("0", ""):
-        return frozenset()
-    if v in ("1", "all"):
-        return frozenset(GROUPS)
-    if v == "auto":
-        return frozenset(GROUPS[:2])
-    return frozenset(x.strip() for x in v.split(","))
-
-
-def chain_at_batch(rows2b: int, dtype: torch.dtype) -> bool:
-    """Whether a chain-capable group chains at siamese batch ``rows2b`` in
-    the compute ``dtype``.  Under ``auto``, the port's own crossover,
-    measured on an H100 with ``tools/unet_chain_sweep.py`` (each group
-    under autograd against its fallback, 512² grid, 2B = 4 to 32):
-
-    - bf16 chains at every batch: at 2B = 32 the 256 and 128 groups'
-      forwards run 1.53x and 1.38x faster, their backwards 1.03x and
-      0.97x, and each group's forward and backward together are faster
-      at every 2B from 8 up.
-    - f32 chains at 2B <= 4 only.  There the two routes are even within
-      the runs' spread with cuDNN's TF32 on (PyTorch's default), and the
-      chain is 1.26x and 1.37x faster with TF32 off, the setting of the
-      card's f32 checks.  From 2B = 8 up the TF32 fallback is 1.1x to
-      1.7x faster.
-
-    An explicit ``DEFLOW_FUSED_CBG`` always chains."""
-    if os.environ.get("DEFLOW_FUSED_CBG", "auto").strip() == "auto":
-        return dtype == torch.bfloat16 or rows2b <= 4
-    return True

@@ -5,6 +5,9 @@
 - ``h5py``, ``pyarrow``, ``yaml`` and ``wandb`` (absent on the card's
   machine) are imported only inside functions, so every module imports
   without them;
+- no module of ``deflow_tpu_torch`` reads a ``DEFLOW_*`` environment
+  variable but those on an allow-list, each with its reason: a choice
+  between code paths belongs to the code, not to a switch;
 - without a visible card, the entry points raise unless asked for the CPU;
 - CPU tensors take the plain versions without building any kernel; tensors
   on any other non-CUDA device are refused, not computed.
@@ -87,6 +90,40 @@ def test_port_imports_without_optional_modules():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) > 25
+
+
+# the DEFLOW_* variables the port may read, each with its reason
+ENV_ALLOWED = {
+    "DEFLOW_SSL_DYNCAP": "the compacted SeFlow backward's budget, as the JAX package "
+                         "reads it; read in losses.py and entry/train.py until it "
+                         "becomes one config key",
+}
+
+
+def _deflow_names(tree):
+    """The ``DEFLOW_*`` strings in a module's code (docstrings left out):
+    each names an environment variable that the code reads or writes."""
+    docs = {id(n.body[0].value) for n in ast.walk(tree)
+            if isinstance(n, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                              ast.AsyncFunctionDef))
+            and n.body and isinstance(n.body[0], ast.Expr)
+            and isinstance(n.body[0].value, ast.Constant)}
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and n.value.startswith("DEFLOW_") and id(n) not in docs]
+
+
+def test_port_reads_no_deflow_switch():
+    files = sorted((ROOT / "deflow_tpu_torch").rglob("*.py"))
+    bad = [(p.relative_to(ROOT).as_posix(), name) for p in files
+           for name in _deflow_names(ast.parse(p.read_text()))
+           if name not in ENV_ALLOWED]
+    assert not bad, bad
+    # the scan sees what it must reject, and passes over a docstring
+    assert sorted(_deflow_names(ast.parse(
+        '"""DEFLOW_DOC"""\nimport os\n'
+        'def f():\n    """DEFLOW_DOC"""\n    return os.environ.get("DEFLOW_A", "0")\n'
+        'B = os.getenv("DEFLOW_B")\n'))) == ["DEFLOW_A", "DEFLOW_B"]
 
 
 @pytest.fixture

@@ -21,6 +21,7 @@ import torch
 
 from deflow_tpu_torch import trainer as TT
 from deflow_tpu_torch.data.host_prep import attach_host_prep
+from deflow_tpu_torch.models import unet
 
 from test_torch_host_prep import RANGE, make_host_batch
 from test_torch_modules import VOXEL
@@ -71,18 +72,20 @@ PER_STEP = {"sorted_segment_sum": (3, 5), "sorted_rows_gather": (3, 4),
             "cbg_block_fwd": (6, 12), "cbg_block_bwd": (6, 6)}
 
 
-@pytest.mark.parametrize("loss_name,b,policy", [("deflowLoss", 2, "auto"),
-                                                ("deflowLoss", 3, "0"),
-                                                ("seflowLoss", 2, "auto")],
+@pytest.mark.parametrize("loss_name,b,chains", [("deflowLoss", 2, True),
+                                                ("deflowLoss", 3, False),
+                                                ("seflowLoss", 2, True)],
                          ids=["chains", "plain_unet", "seflow"])
-def test_remat_step_equals_plain_bit_for_bit(monkeypatch, loss_name, b, policy):
+def test_remat_step_equals_plain_bit_for_bit(monkeypatch, loss_name, b, chains):
     """Two steps from the same state with and without remat: the loss, aux,
     every gradient, every parameter after Adam, the Adam state, every BN
     running statistic and ``num_batches_tracked`` are identical (a second
     momentum update in the recompute would move the statistics).
-    ``plain_unet`` selects the plain U-Net (``DEFLOW_FUSED_CBG=0``), so
-    that remat is held bit for bit on the path without chains too."""
-    monkeypatch.setenv("DEFLOW_FUSED_CBG", policy)
+    ``plain_unet`` chains no encoder group (the U-Net's chained groups
+    substituted by none), so that remat is held bit for bit on the path
+    without chains too."""
+    if not chains:
+        monkeypatch.setattr(unet, "_CHAINED_GROUPS", ())
     calls = _count_wrappers(monkeypatch)
     batches = [(ssl_batch(40 + s, b=b) if loss_name == "seflowLoss"
                 else make_host_batch(40 + s, b, 512, VOXEL)) for s in range(2)]
@@ -100,7 +103,6 @@ def test_remat_step_equals_plain_bit_for_bit(monkeypatch, loss_name, b, policy):
         runs.append((state, trace))
     (plain, t_plain), (remat, t_remat) = runs
     _same_state(plain, remat)
-    chains = policy != "0"
     for (aux_p, g_p, c_p), (aux_r, g_r, c_r) in zip(t_plain, t_remat):
         for k in aux_p:
             assert torch.equal(aux_p[k], aux_r[k]), k

@@ -1,9 +1,11 @@
 """The train-mode U-Net's chain policy against the JAX package on the CPU in
-f32: ``DEFLOW_FUSED_CBG`` (which encoder groups chain, the 64² group's chain
-at 256 channels included).  ``DEFLOW_REMAT`` and siamese batch 2B > 4
-against the JAX package are in ``test_torch_unet_remat.py``; the port's own
-``auto`` route at the benchmark's 2B = 32 in bf16 is checked here with a
-stub in place of the chain.
+f32: which encoder groups chain, the 64² group's chain at 256 channels
+included.  The port's chained groups are the constant
+``models.unet._CHAINED_GROUPS``, which each case substitutes, and the JAX
+package's are ``DEFLOW_FUSED_CBG``, which each case sets to the matching
+value.  Siamese batch 2B > 4 against the JAX package is in
+``test_torch_unet_remat.py``; the port's own route at the benchmark's
+2B = 32 in bf16 is checked here with a stub in place of the chain.
 
 The JAX package ignores ``DEFLOW_FUSED_CBG`` off the TPU, so its side runs
 with ``deflow_tpu.ops.voxel._use_pallas`` patched on and the Pallas chain in
@@ -32,7 +34,9 @@ from test_torch_modules import randomize_variables
 from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 HW = 64
-POLICIES = ["0", "auto", "all", "64", "128,64"]
+# the JAX package's DEFLOW_FUSED_CBG values and the port's chained groups
+POLICIES = {"0": (), "auto": ("256", "128"), "all": ("256", "128", "64"),
+            "64": ("64",), "128,64": ("128", "64")}
 # channels of each group's chained blocks: the 256, 128 and 64 groups
 GROUP_OF = {64: "256", 128: "128", 256: "64"}
 
@@ -141,49 +145,37 @@ def _hold(port, want):
 
 @pytest.mark.parametrize("policy", POLICIES)
 def test_fused_cbg_policy_matches_jax(interpret_cbg, monkeypatch, policy):
-    """Under each ``DEFLOW_FUSED_CBG`` value the port chains the groups the
-    JAX U-Net chains (stem head and block count), and its output, BN
-    statistics and gradients are the JAX U-Net's."""
+    """With the port's chained groups those of each ``DEFLOW_FUSED_CBG``
+    value of the JAX package, the port chains the groups the JAX U-Net
+    chains (stem head and block count), and its output, BN statistics and
+    gradients are the JAX U-Net's."""
     monkeypatch.setenv("DEFLOW_FUSED_CBG", policy)
+    monkeypatch.setattr(TU, "_CHAINED_GROUPS", POLICIES[policy])
     variables = _jax_variables(1)
     want = _jax_step(variables, 1)
     port_calls = _port_chain_spy(monkeypatch)
     got = _port_step(variables, 1)
     assert port_calls == interpret_cbg
-    expect = {"0": [], "auto": ["256", "128"], "all": ["256", "128", "64"],
-              "64": ["64"], "128,64": ["128", "64"]}[policy]
-    assert [c[0] for c in port_calls] == expect
+    assert tuple(c[0] for c in port_calls) == POLICIES[policy]
     assert all(c[2] and c[1] == (1 if c[0] == "64" else 3) for c in port_calls)
     _hold(got, want)
 
 
 def test_policy_values_follow_jax(monkeypatch):
-    """``fused_groups`` against the JAX package's ``use_fused_cbg``
-    (``_use_pallas`` on) for every value, and ``chain_at_batch`` against its
-    ``chain_at_batch`` for every explicit value, at 2B = 4, 8 and 32 in
-    bf16 and f32.  Under ``auto`` the port keeps the card's rule instead of
-    the TPU's 2B <= 4: in bf16 it chains at every batch, in f32 at 2B <= 4."""
+    """The port's chained groups are the JAX package's under ``auto``
+    (``use_fused_cbg``, ``_use_pallas`` on), and its batch rule is JAX's
+    ``chain_at_batch`` in f32 at 2B = 4, 8 and 32.  In bf16 the port keeps
+    the card's rule instead of the TPU's 2B <= 4: it chains at every
+    batch."""
     import deflow_tpu.ops.voxel as V
     from deflow_tpu.ops import pallas_cbg as C
 
     monkeypatch.setattr(V, "_use_pallas", lambda: True)
-    for value in (None, "auto", " auto ", "0", "", "1", "all", "64", "128,64",
-                  "256, 64", "32"):
-        if value is None:
-            monkeypatch.delenv("DEFLOW_FUSED_CBG", raising=False)
-        else:
-            monkeypatch.setenv("DEFLOW_FUSED_CBG", value)
-        assert TC.fused_groups() == C.use_fused_cbg(), value
-        for rows2b in (4, 8, 32):
-            for dtype in (torch.bfloat16, torch.float32):
-                got = TC.chain_at_batch(rows2b, dtype)
-                if value is None or value.strip() == "auto":
-                    assert got == (dtype == torch.bfloat16 or rows2b <= 4), (value, rows2b)
-                else:
-                    assert got == C.chain_at_batch(rows2b), (value, rows2b)
-    monkeypatch.setenv("DEFLOW_REMAT", "2")
-    with pytest.raises(ValueError, match="DEFLOW_REMAT"):
-        TU.remat_mode()
+    monkeypatch.setenv("DEFLOW_FUSED_CBG", "auto")
+    assert frozenset(TU._CHAINED_GROUPS) == C.use_fused_cbg()
+    for rows2b in (4, 8, 32):
+        assert TU._chain_at_batch(rows2b, torch.float32) == C.chain_at_batch(rows2b)
+        assert TU._chain_at_batch(rows2b, torch.bfloat16)
 
 
 def _stub_chain(monkeypatch):
@@ -205,11 +197,10 @@ def _stub_chain(monkeypatch):
 @pytest.mark.parametrize("case,grid,expect", [
     ("train", 64, ["256", "128"]), ("eval", 64, []), ("map_not_8", 48, ["256"])])
 def test_auto_route_at_the_cells_batch(monkeypatch, case, grid, expect):
-    """The cells' batch (16 pairs, 2B = 32) in bf16 under ``auto``: in
-    training ``_encode`` takes ``cbg_chain`` for the 256 and 128 groups; in
-    eval it chains none; at a 48² grid the 128 group's 12² map is not a
-    multiple of 8 and only the 256 group (24²) chains."""
-    monkeypatch.setenv("DEFLOW_FUSED_CBG", "auto")
+    """The cells' batch (16 pairs, 2B = 32) in bf16: in training
+    ``_encode`` takes ``cbg_chain`` for the 256 and 128 groups; in eval it
+    chains none; at a 48² grid the 128 group's 12² map is not a multiple of
+    8 and only the 256 group (24²) chains."""
     calls = _stub_chain(monkeypatch)
     model = TU.FastFlow3DUNet(stem_cin=32)
     model.train(case != "eval")

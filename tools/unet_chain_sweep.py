@@ -9,14 +9,15 @@ For each encoder group of ``deflow_tpu_torch``'s ``FastFlow3DUNet`` (the
 stem and its 3x3 blocks, at the maps of a grid² pseudoimage), siamese batch
 2B and compute dtype, runs the group under autograd in train mode both ways
 (``FastFlow3DUNet.encode_group``): ``chain`` (the stem's convolution, then
-``cbg_chain`` on ``csrc/cbg.cu``) and ``fallback`` (the ``CBGBlock`` twins:
-library convolutions, BN + GELU in f32 passes).  Both routes take the same
-input, laid out as the model hands it over: channels-last in the compute
-dtype into the 256 group (the pillar table's view), channels-last f32 into
-the others (what either route of the previous group returns; each row
-says whether its own output was channels-last).  f32 runs each route
-twice, with cuDNN's TF32 on (PyTorch's default, which the port's entries
-keep) and off.
+``cbg_chain`` on ``csrc/cbg.cu``) and ``fallback`` (the group's
+``ConvWithNorms`` modules one by one: library convolutions, BN + GELU in
+f32 passes).  Either route runs for any group, whether the model chains it
+or not.  Both routes take the same input, laid out as the model hands it
+over: channels-last in the compute dtype into the 256 group (the pillar
+table's view), channels-last f32 into the others (what either route of the
+previous group returns; each row says whether its own output was
+channels-last).  f32 runs each route twice, with cuDNN's TF32 on (PyTorch's
+default, which the port's entries keep) and off.
 
 Each row: forward and backward device ms (CUDA events from a drained card,
 median over ``--iters`` after ``--warm``), the bytes autograd keeps after
@@ -112,7 +113,7 @@ def measure(model, tag, x, dtype, route, dev, iters, warm, seed):
             torch.cuda.reset_peak_memory_stats(dev)
             base = torch.cuda.memory_allocated(dev)
         t0 = clock.mark()
-        y = model.encode_group(tag, x, dtype, True, chain=route == "chain")
+        y = model.encode_group(tag, x, dtype, route == "chain")
         t1 = clock.mark()
         if clock.cuda:
             saved = torch.cuda.memory_allocated(dev) - base

@@ -30,7 +30,9 @@ Phases (any failure exits non-zero):
    other's backward on the train path's ids; the fused conv3x3+BN+GELU
    kernels at both chain widths, and in bf16 at the 256^2 and 128^2
    groups' shapes at 2B = 32 (the config's batch_size 16, which the train
-   path chains); the SSL kernels on an SSL batch: the cell
+   path chains); the encoder stems' k8/s2/p3 kernels (forward, dgrad,
+   wgrad) at the three stems' maps at 2B = 32, beside F.conv2d in bf16 and
+   its autograd (with the library's kernels by name); the SSL kernels on an SSL batch: the cell
    sweep (both directions, and on skewed clouds: blocks per chunk and
    pieces), the lane segment-sum of the chamfer VJP (beside
    the pillar segment-sum at the same shape) and the brute search at 2 x
@@ -51,7 +53,7 @@ Phases (any failure exits non-zero):
    bf16 compute, random weights from a seed) evaluates 5 synthetic batches
    of 4 x 98,304 point slots (86,016 valid) through ``run_validation``
    (3-way and bucketed metrics); the launch counters must show 2 scatters,
-   1 gather and 1 GRU per batch; then two more steps under torch.profiler,
+   1 gather, 1 GRU and 3 stem forwards per batch; then two more steps under torch.profiler,
    the second read: device time by kernel and the device's idle share
    (every profiled step must show device time in the segment-sum
    categories of the kernels it launched);
@@ -61,12 +63,14 @@ Phases (any failure exits non-zero):
    reference's form, the C++ prep in the loader's prefetch thread and the
    copy by ``device_prefetch`` (all three with the metric terms in worker
    processes); wall ms per batch and the steady period between eval steps
-   of each run, launches 2 / 1 / 1 per batch, the metrics of all runs
+   of each run, launches 2 / 1 / 1 / 3 per batch, the metrics of all runs
    equal to 1e-6 relative;
 5. the train path: the same model in train mode takes 5 Adam steps (lr
    2e-4, deflowLoss) on synthetic batches of 2 x 98,304 slots through
    ``make_train_step``; per step 3 scatters, 3 gathers, 1 GRU forward and
-   1 backward, 6 fused-block forwards and 6 backwards; then one more step
+   1 backward, 6 fused-block forwards and 6 backwards, 3 stem forwards, 3
+   dgrads and 3 wgrads (every bf16 path counts the stems: a forward a stem
+   an eval batch, and under remat two); then one more step
    under torch.profiler;
 6. the SSL path: 5 Adam steps of seflowLoss (truncate 2 m, DUFO labels
    with 15% dynamic points, pc1's chamfer cell prep from the host) at
@@ -1017,6 +1021,98 @@ def hold_cbg(model, g, splits: list) -> dict:
     return results
 
 
+# row 10: the encoder stems at the config's siamese batch (2B = 32)
+STEM_ROWS = 32
+
+
+def library_kernels(fn, reps: int = 3) -> dict:
+    """Device ms a call of ``fn`` by kernel name (torch.profiler): which
+    library kernel runs it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "").split("(")[0][:90]
+            out[name] = out.get(name, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / reps
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def hold_stem(model, g) -> dict:
+    """Row 10: each encoder stem of ``model`` (``encoder_step_1``, ``_5``,
+    ``_9`` on the grid's map, a half and a quarter of it) at 2B =
+    STEM_ROWS: the forward, dgrad and wgrad kernels against their plain s2d
+    versions, timed beside their bound, the plain version and the library
+    (``F.conv2d`` in bf16 on the channels-last view; its autograd's input
+    and weight gradients), with the library's device kernels by name.
+    Returns the rows by wrapper name; the launches of every path are read
+    where that path runs."""
+    import torch
+    import torch.nn.functional as F
+
+    from deflow_tpu_torch.ops import stem
+
+    dev = torch.device("cuda")
+    net, hw = model.backbone, model.voxel_cfg.pseudoimage_hw
+    out = {"stem_fwd": {}, "stem_dgrad": {}, "stem_wgrad": {}}
+    for step, div in ((1, 1), (5, 2), (9, 4)):
+        conv = getattr(net, f"encoder_step_{step}").conv
+        o, c = conv.weight.shape[:2]
+        res = hw[0] // div
+        x = torch.randn(STEM_ROWS, res, res, c, generator=g, device=dev).to(torch.bfloat16)
+        dy = torch.randn(STEM_ROWS, res // 2, res // 2, o, generator=g,
+                         device=dev).to(torch.bfloat16)
+        wt, bias = conv.weight.detach(), conv.bias.detach()
+        shape = f"{STEM_ROWS}x{res}x{res}x{c}->{o}"
+        calls = {"stem_fwd": (lambda: (stem.stem_fwd(x, wt, bias),),
+                              lambda: (stem.stem_fwd_plain(x, wt, bias),)),
+                 "stem_dgrad": (lambda: (stem.stem_dgrad(dy, wt, res, res),),
+                                lambda: (stem.stem_dgrad_plain(dy, wt, res, res),)),
+                 "stem_wgrad": (lambda: stem.stem_wgrad(x, dy),
+                                lambda: stem.stem_wgrad_plain(x, dy))}
+        errs = {}
+        for k, (fn, plain) in calls.items():
+            got, want = fn(), plain()
+            torch.cuda.synchronize()
+            errs[k] = _hold(f"{k} {shape}", torch.bfloat16,
+                            list(zip(("out", "bias grad"), got, want)))
+            del got, want
+        xl = x.permute(0, 3, 1, 2).detach().requires_grad_()
+        wl = wt.to(torch.bfloat16).requires_grad_()
+        bl = bias.to(torch.bfloat16).requires_grad_()
+        yl, dyl = F.conv2d(xl, wl, bl, stride=2, padding=3), dy.permute(0, 3, 1, 2)
+        library = {"stem_fwd": lambda: F.conv2d(xl, wl, bl, stride=2, padding=3),
+                   "stem_dgrad": lambda: torch.autograd.grad(yl, xl, dyl, retain_graph=True),
+                   "stem_wgrad": lambda: torch.autograd.grad(yl, (wl, bl), dyl,
+                                                             retain_graph=True)}
+        flops = 2.0 * STEM_ROWS * (res // 2) ** 2 * o * 64 * c
+        b_ms, b_by = bound(STEM_ROWS * (res * res * c + (res // 2) ** 2 * o) * 2
+                           + o * c * 64 * 2, flops, BF16_FLOP_PER_S)
+        for k, (fn, plain) in calls.items():
+            r = {"max_abs_err": errs[k], "shape": shape, "ms": cuda_ms(fn, 10),
+                 "plain_ms": cuda_ms(plain, 3), "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": cuda_ms(library[k], 5),
+                 "library_call": "F.conv2d (cuDNN, bf16, channels-last) / its autograd",
+                 "library_kernels": library_kernels(library[k])}
+            r["tflops"] = flops / r["ms"] / 1e9
+            out[k][f"encoder_step_{step}"] = r
+            print_timing(k, r)
+            print(f"{k} {shape}: {r['tflops']:.1f} TFLOP/s, {100 * b_ms / r['ms']:.1f}% of "
+                  "bound; library kernels " + ", ".join(
+                      f"{n} {ms:.3f} ms" for n, ms in list(r["library_kernels"].items())[:3]))
+        del x, dy, xl, wl, bl, yl, dyl, calls, library
+        torch.cuda.empty_cache()
+    return out
+
+
 def ssl_clouds(db, spec):
     """The SSL loss's sweep clouds from a device batch: pc0 (ego-compensated,
     the warped cloud of an untrained flow) device-sorted with its DUFO
@@ -1361,7 +1457,7 @@ def run_entry_phase(model, device_median_ms: float) -> dict:
     All three compute the metric terms in HOST_WORKERS worker processes.
     Per run: wall ms per batch (the workers' start included) and the
     steady period, the median time between two eval steps, with pairs/s;
-    launches 2 / 1 / 1 per batch; the metrics of (a), (b) and (c) equal to
+    launches 2 / 1 / 1 / 3 per batch; the metrics of (a), (b) and (c) equal to
     1e-6 relative.  Returns the launch counts of a run."""
     import torch
 
@@ -1395,7 +1491,7 @@ def run_entry_phase(model, device_median_ms: float) -> dict:
     }
     want = {name: 0 for name in _wrappers()}
     want.update(segment_sum=2 * ENTRY_BATCHES, sorted_gather=ENTRY_BATCHES,
-                fused_gru=ENTRY_BATCHES)
+                fused_gru=ENTRY_BATCHES, stem_fwd=3 * ENTRY_BATCHES)
     runs = {}
     for way in "abccba":
         torch.cuda.synchronize()
@@ -1415,8 +1511,8 @@ def run_entry_phase(model, device_median_ms: float) -> dict:
             f"{ms:.1f} ms per batch = {B / ms * 1e3:.2f} pairs/s, steady "
             f"{p:.1f} ms = {B / p * 1e3:.2f} pairs/s" for ms, p, _ in runs[way]))
     print(f"entry: eval step device median {device_median_ms:.3f} ms = "
-          f"{B / device_median_ms * 1e3:.2f} pairs/s; launches per batch 2 / 1 / 1 "
-          f"(segment_sum / sorted_gather / fused_gru), {ENTRY_BATCHES} batches "
+          f"{B / device_median_ms * 1e3:.2f} pairs/s; launches per batch 2 / 1 / 1 / 3 "
+          f"(segment_sum / sorted_gather / fused_gru / stem_fwd), {ENTRY_BATCHES} batches "
           f"of {B} x {N} slots, {HOST_WORKERS} host threads and metric processes")
     ref = runs["a"][0][2]
     worst = 0.0
@@ -1451,14 +1547,16 @@ def run_entry_phase(model, device_median_ms: float) -> dict:
 
 
 def _wrappers():
-    from deflow_tpu_torch.ops import cbg, gather, gru, nn, scatter, sweep
+    from deflow_tpu_torch.ops import cbg, gather, gru, nn, scatter, stem, sweep
 
     return {"segment_sum": scatter.sorted_segment_sum,
             "sorted_gather": gather.sorted_rows_gather,
             "fused_gru": gru.fused_gru, "fused_gru_bwd": gru.fused_gru_bwd,
             "cbg_fwd": cbg.cbg_block_fwd, "cbg_bwd": cbg.cbg_block_bwd,
             "segment_sum_lanes": scatter.segment_sum_lanes,
-            "cell_sweep": sweep.cell_sweep, "chamfer_brute": nn.chamfer_min}
+            "cell_sweep": sweep.cell_sweep, "chamfer_brute": nn.chamfer_min,
+            "stem_fwd": stem.stem_fwd, "stem_dgrad": stem.stem_dgrad,
+            "stem_wgrad": stem.stem_wgrad}
 
 
 def reset_launches() -> None:
@@ -1507,10 +1605,16 @@ def run_train_path(model, batches, loss_name="deflowLoss", label="train"):
     return auxes, device_ms, launches
 
 
+# the encoder stems' launches in bf16: an eval batch runs each of the three
+# stems' forward, a train step adds its dgrad and wgrad (and under remat its
+# forward once more); f32 takes F.conv2d
+STEM_EVAL = {"stem_fwd": 3}
+STEM_STEP = {"stem_fwd": 3, "stem_dgrad": 3, "stem_wgrad": 3}
+NO_STEM = {"stem_fwd": 0, "stem_dgrad": 0, "stem_wgrad": 0}
 # launches a train step without remat (phases 5 and 9)
 PER_STEP = {"segment_sum": 3, "sorted_gather": 3, "fused_gru": 1, "fused_gru_bwd": 1,
             "cbg_fwd": 6, "cbg_bwd": 6, "segment_sum_lanes": 0, "cell_sweep": 0,
-            "chamfer_brute": 0}
+            "chamfer_brute": 0, **STEM_STEP}
 
 
 # phase 5b: the train entry.  Steps an epoch at TRAIN_B, epochs, val
@@ -1521,8 +1625,9 @@ CONFIG_BATCH = 16
 # batch
 REMAT_PER_STEP = {"segment_sum": 5, "sorted_gather": 4, "fused_gru": 2,
                   "fused_gru_bwd": 1, "cbg_fwd": 12, "cbg_bwd": 6,
-                  "segment_sum_lanes": 0, "cell_sweep": 0, "chamfer_brute": 0}
-PER_VAL_BATCH = {"segment_sum": 2, "sorted_gather": 1, "fused_gru": 1}
+                  "segment_sum_lanes": 0, "cell_sweep": 0, "chamfer_brute": 0,
+                  "stem_fwd": 6, "stem_dgrad": 3, "stem_wgrad": 3}
+PER_VAL_BATCH = {"segment_sum": 2, "sorted_gather": 1, "fused_gru": 1, **STEM_EVAL}
 # the card's backward is not deterministic (the bilinear upsample's
 # backward adds with atomics), so two runs of the same step or epoch differ
 # in the last bits, which Adam carries on.  The resumed run and the remat
@@ -1916,11 +2021,11 @@ MMHEAD_CHUNK = 512
 # backward gather), and an eval batch without host prep (per cloud the
 # centroid segment-sum, its gather back and the feature segment-sum)
 MMHEAD_PER_STEP = {"segment_sum": 3, "sorted_gather": 3, "fused_gru": 0,
-                   "fused_gru_bwd": 0, "cbg_fwd": 6, "cbg_bwd": 6}
+                   "fused_gru_bwd": 0, "cbg_fwd": 6, "cbg_bwd": 6, **STEM_STEP}
 HISTORY_PER_STEP = {"segment_sum": 5, "sorted_gather": 5, "fused_gru": 1,
-                    "fused_gru_bwd": 1, "cbg_fwd": 6, "cbg_bwd": 6}
-DEVICE_EVAL_PER_BATCH = {"segment_sum": 4, "sorted_gather": 3, "fused_gru": 1}
-MMHEAD_EVAL_PER_BATCH = {"segment_sum": 2, "sorted_gather": 1}
+                    "fused_gru_bwd": 1, "cbg_fwd": 6, "cbg_bwd": 6, **STEM_STEP}
+DEVICE_EVAL_PER_BATCH = {"segment_sum": 4, "sorted_gather": 3, "fused_gru": 1, **STEM_EVAL}
+MMHEAD_EVAL_PER_BATCH = {"segment_sum": 2, "sorted_gather": 1, **STEM_EVAL}
 
 
 def with_history(hb: dict, seed: int) -> dict:
@@ -2211,6 +2316,7 @@ def _category(name: str) -> str:
                       ("segment_sum", ("segment_sum",)),
                       ("sorted_gather", ("rows_kernel", "chunk_kernel")),
                       ("fused_gru", ("gru_fwd",)),
+                      ("stem", ("stem_conv", "stem_wgrad", "stem_wsum")),
                       ("conv/matmul (cuDNN, cuBLAS)",
                        ("conv", "cudnn", "xmma", "fprop", "implicit",
                         "winograd", "gemm")),
@@ -2798,7 +2904,7 @@ def run_data_parallel(model, train_batches) -> dict:
 # the decoder's); the dyn_cap shares of N; the DUFO scene
 SURFACE_STEPS = 3
 SSL_PER_STEP = dict(PER_STEP, cell_sweep=2, segment_sum_lanes=1)
-MAX_EVAL_PER_BATCH = {"segment_sum": 4, "sorted_gather": 3, "fused_gru": 1}
+MAX_EVAL_PER_BATCH = {"segment_sum": 4, "sorted_gather": 3, "fused_gru": 1, **STEM_EVAL}
 DYNCAP_SHARES = (0.20, 0.05)
 DUFO_FRAMES, DUFO_WINDOW = 20, 10
 
@@ -3216,10 +3322,10 @@ def run_ablations(eval_batches, train_batches) -> tuple:
         trains(f"(f) zeroflowLoss, {what}", LEADERBOARD, "bf16", train_batches[:steps],
                "zeroflowLoss", opt, PER_STEP)
     # (g) fp32 at full width, each with a profiled step (the f32 kernel routes)
-    evals("(g) fp32 eval", LEADERBOARD, "fp32", eval_batches[:steps], PER_VAL_BATCH,
-          profile=True)
+    evals("(g) fp32 eval", LEADERBOARD, "fp32", eval_batches[:steps],
+          {**PER_VAL_BATCH, **NO_STEM}, profile=True)
     trains("(g) fp32 train, deflowLoss", LEADERBOARD, "fp32", train_batches[:steps],
-           "deflowLoss", {}, PER_STEP, profile=True)
+           "deflowLoss", {}, {**PER_STEP, **NO_STEM}, profile=True)
 
     # (h) the train entry of FastFlow3D
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ablation_")
@@ -3354,6 +3460,7 @@ def main() -> int:
         kernels.setdefault(name, {}).update(r)
     for name, r in check_ssl_kernels(ssl_batches[0], brute_batches[0]).items():
         kernels.setdefault(name, {}).update(r)
+    kernels.update(hold_stem(model, torch.Generator(device="cuda").manual_seed(10)))
     for what, r in (("eval", kernels["segment_sum"]),
                     ("train", kernels["segment_sum"]["train_embedder"]),
                     ("skewed, eval shape", kernels["segment_sum"]["skewed"])):
@@ -3379,7 +3486,7 @@ def main() -> int:
     metrics, tables, device_ms, eval_launches = run_main_path(model, batches)
     want = {"segment_sum": 2 * NUM_BATCHES, "sorted_gather": NUM_BATCHES,
             "fused_gru": NUM_BATCHES, "fused_gru_bwd": 0, "cbg_fwd": 0, "cbg_bwd": 0,
-            **no_ssl}
+            **no_ssl, **NO_STEM, "stem_fwd": 3 * NUM_BATCHES}
     print(f"launches on the eval path: {eval_launches} (want {want})")
     if eval_launches != want:
         raise SystemExit("the eval path did not launch every kernel as expected")
@@ -3496,7 +3603,9 @@ def main() -> int:
                "cell_sweep": ("deflow_tpu_torch/csrc/cell_sweep.cu",
                               "deflow_tpu/ops/pallas_sweep.py:205"),
                "chamfer_brute": ("deflow_tpu_torch/csrc/chamfer_brute.cu",
-                                 "deflow_tpu/ops/pallas_chamfer.py:79")}
+                                 "deflow_tpu/ops/pallas_chamfer.py:79"),
+               **{name: ("deflow_tpu_torch/csrc/stem.cu", "none (XLA's convolution)")
+                  for name in ("stem_fwd", "stem_dgrad", "stem_wgrad")}}
     # launches: kernels 1-6 from the train path's run, the sweep and the lane
     # sum from the SSL path's, the brute search from the 2 x 16,384 SSL run;
     # the per-step counts of every path (and the eval path's) beside them

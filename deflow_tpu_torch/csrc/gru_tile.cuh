@@ -4,7 +4,7 @@
 // pair loads and stores, cp.async, the f32 routes' FFMA product with its
 // weights streamed from L2, and the 16-byte copy of a shared tile to
 // device memory.  ldsm4 and mma16816 are copies of cbg.cu's (that file
-// stays as it is).
+// stays as it is).  stem.cu takes ldsm4, mma16816 and cp.async from here.
 //
 // mma.sync's accumulator layout (a 16 x 8 tile): lane l holds rows l/4 and
 // l/4 + 8, columns 2(l%4) and 2(l%4) + 1, as d[0..1] and d[2..3].

@@ -23,11 +23,14 @@ In training each group of ``_CHAINED_GROUPS`` (the 256 and 128 groups)
 runs as one fused ``cbg_chain`` when :func:`_chain_at_batch` allows it (in
 bf16 at every batch, in f32 at 2B <= 4) and its map is a multiple of 8,
 with the stem's BN + GELU deferred into the chain's first block
-(``StemHeadCBG`` in the JAX package); the stems' k8/s2 convolutions stay
-``F.conv2d``.  Otherwise a group runs its ``ConvWithNorms`` modules one by
-one.  The chained groups are this module's constant and remat is the train
-step's (``trainer.make_train_step``): the JAX package's environment
-switches for either have no counterpart.
+(``StemHeadCBG`` in the JAX package).  Otherwise a group runs its
+``ConvWithNorms`` modules one by one.  In bf16 the stems' k8/s2/p3
+convolutions run on ``ops.stem.stem_conv`` (``csrc/stem.cu`` on the card)
+over channels-last activations, in every mode and at every batch; in f32
+they, like every other convolution here, are ``F.conv2d``.  The chained
+groups are this module's constant and remat is the train step's
+(``trainer.make_train_step``): the JAX package's environment switches for
+either have no counterpart.
 Parameter names do not change.
 """
 
@@ -40,9 +43,17 @@ from torch import nn
 from deflow_tpu_torch import dist
 from deflow_tpu_torch.models.running_stats import update_running_
 from deflow_tpu_torch.ops.cbg import cbg_chain
+from deflow_tpu_torch.ops.stem import stem_conv
 
 
 def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``conv`` in ``dtype``; a bf16 stem (8x8, stride 2, padding 3) returns a
+    channels-last NCHW view."""
+    if (dtype == torch.bfloat16 and conv.kernel_size == (8, 8)
+            and conv.stride == (2, 2) and conv.padding == (3, 3)):
+        x = x.to(dtype, memory_format=torch.channels_last).permute(0, 2, 3, 1)
+        y = stem_conv(x, conv.weight, conv.bias)
+        return y.permute(0, 3, 1, 2)
     return F.conv2d(x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype),
                     conv.stride, conv.padding)
 

@@ -24,7 +24,7 @@ from typing import Callable, Dict
 import torch
 
 KERNELS = ("segment_sum", "sorted_gather", "fused_gru", "fused_gru_bwd", "cbg",
-           "segment_sum_lanes", "cell_sweep", "chamfer_brute")
+           "segment_sum_lanes", "cell_sweep", "chamfer_brute", "stem")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

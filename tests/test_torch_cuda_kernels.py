@@ -1251,3 +1251,111 @@ def test_masked_attention_finfo_min_on_the_card(dev, dtype):
     torch.testing.assert_close(outs["cuda"][0][2], uniform, rtol=tol, atol=tol)
     for got, want in zip(outs["cuda"], outs["cpu"]):
         assert _rel_err(got, want) <= (2e-5 if dtype == torch.float32 else 2 ** -6)
+
+
+STEM_SHAPES = [  # (N, H, W, C, O): the three stems' channel plans at small
+    # maps, ragged tiles (map widths not a multiple of 32, heights not of
+    # 16), maps narrower than a tile, 16 and 48 input channels, a batch of 5
+    (1, 16, 16, 32, 64), (3, 34, 18, 32, 64), (2, 20, 36, 64, 128),
+    (5, 18, 10, 128, 256), (1, 6, 4, 16, 64), (2, 2, 66, 48, 192),
+    (1, 40, 70, 64, 64), (2, 8, 8, 128, 128)]
+
+
+def _stem_inputs(g, shape, dev):
+    n, h, w, c, o = shape
+    x = torch.randn(n, h, w, c, generator=g).to(dev, torch.bfloat16)
+    wt = (torch.randn(o, c, 8, 8, generator=g) * (64 * c) ** -0.5).to(dev)
+    bias = (0.1 * torch.randn(o, generator=g)).to(dev)
+    dy = torch.randn(n, h // 2, w // 2, o, generator=g).to(dev, torch.bfloat16)
+    return x, wt, bias, dy
+
+
+@pytest.mark.parametrize("shape", STEM_SHAPES)
+def test_stem_conv(dev, shape):
+    """The stem's forward, dgrad and wgrad kernels against their plain s2d
+    versions (bf16 operands, f32 sums), 2^-6 of the largest element."""
+    from deflow_tpu_torch.ops import stem
+
+    g = torch.Generator().manual_seed(sum(shape))
+    x, wt, bias, dy = _stem_inputs(g, shape, dev)
+    n, h, w, c, o = shape
+    y = stem.stem_fwd(x, wt, bias)
+    dx = stem.stem_dgrad(dy, wt, h, w)
+    dw, db = stem.stem_wgrad(x, dy)
+    torch.cuda.synchronize()
+    assert y.shape == (n, h // 2, w // 2, o) and y.dtype == torch.bfloat16
+    assert dx.shape == x.shape and dx.dtype == torch.bfloat16
+    assert dw.shape == wt.shape and dw.dtype == torch.float32 and db.shape == (o,)
+    tol = GRAD_TOL[torch.bfloat16]
+    assert _rel_err(y, stem.stem_fwd_plain(x, wt, bias)) <= tol
+    assert _rel_err(dx, stem.stem_dgrad_plain(dy, wt, h, w)) <= tol
+    dw_ref, db_ref = stem.stem_wgrad_plain(x, dy)
+    assert _rel_err(dw, dw_ref) <= tol
+    assert _rel_err(db, db_ref) <= tol
+
+
+@pytest.mark.parametrize("shape", [(3, 34, 18, 32, 64), (2, 20, 36, 64, 128)])
+def test_stem_conv_is_deterministic(dev, shape):
+    """No float atomics: two launches of each kernel agree bit for bit."""
+    from deflow_tpu_torch.ops import stem
+
+    g = torch.Generator().manual_seed(5)
+    x, wt, bias, dy = _stem_inputs(g, shape, dev)
+    h, w = shape[1:3]
+    runs = [(stem.stem_fwd(x, wt, bias), stem.stem_dgrad(dy, wt, h, w), *stem.stem_wgrad(x, dy))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b_ in zip(*runs):
+        assert torch.equal(a, b_)
+
+
+def test_stem_conv_refuses_bad_inputs(dev):
+    """The wrappers raise on odd maps, on non-contiguous NHWC input and on
+    what the kernels do not take (f32 on the card, C % 16, O % 64): no
+    fallback."""
+    from deflow_tpu_torch.ops import stem
+
+    g = torch.Generator().manual_seed(1)
+    x, wt, bias, dy = _stem_inputs(g, (1, 16, 16, 32, 64), dev)
+    with pytest.raises(ValueError, match="even"):
+        stem.stem_fwd(x[:, :15].contiguous(), wt, bias)
+    with pytest.raises(ValueError, match="even"):
+        stem.stem_dgrad(dy, wt, 15, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        stem.stem_fwd(x.permute(0, 2, 1, 3), wt, bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        stem.stem_wgrad(x, dy.transpose(1, 2))
+    with pytest.raises(ValueError, match="bf16"):
+        stem.stem_fwd(x.float(), wt, bias)
+    with pytest.raises(ValueError, match="C % 16"):
+        stem.stem_fwd(x[..., :24].contiguous(), wt[:, :24].contiguous(), bias)
+    with pytest.raises(ValueError, match="O % 64"):
+        stem.stem_fwd(x, wt[:48].contiguous(), bias[:48].contiguous())
+
+
+def test_stem_conv_autograd_launches(dev):
+    """``stem_conv`` under autograd: one forward, one dgrad and one wgrad
+    launch, and the gradients of ``F.conv2d`` in f32 on the same bf16
+    operands (2^-6 of the largest element)."""
+    import torch.nn.functional as F
+
+    from deflow_tpu_torch.ops import stem
+
+    g = torch.Generator().manual_seed(2)
+    x, wt, bias, dy = _stem_inputs(g, (2, 20, 36, 64, 128), dev)
+    x32 = x.float().requires_grad_()
+    w32 = wt.to(torch.bfloat16).float().requires_grad_()
+    b32 = bias.clone().requires_grad_()
+    ref = F.conv2d(x32.permute(0, 3, 1, 2), w32, b32, stride=2, padding=3)
+    ref.permute(0, 2, 3, 1).backward(dy.float())
+    xk, wk, bk = x.clone().requires_grad_(), wt.clone().requires_grad_(), bias.clone().requires_grad_()
+    before = (stem.stem_fwd.launches, stem.stem_dgrad.launches, stem.stem_wgrad.launches)
+    y = stem.stem_conv(xk, wk, bk)
+    y.backward(dy)
+    after = (stem.stem_fwd.launches, stem.stem_dgrad.launches, stem.stem_wgrad.launches)
+    assert after == tuple(b + 1 for b in before)
+    assert wk.grad.dtype == torch.float32 and bk.grad.dtype == torch.float32
+    tol = GRAD_TOL[torch.bfloat16]
+    assert _rel_err(y, ref.permute(0, 2, 3, 1)) <= tol
+    for got, want in ((xk.grad, x32.grad), (wk.grad, w32.grad), (bk.grad, b32.grad)):
+        assert _rel_err(got, want) <= tol

@@ -174,6 +174,7 @@ def _wrapper_calls(device):
     from deflow_tpu_torch.ops.gru import fused_gru, fused_gru_bwd
     from deflow_tpu_torch.ops.nn import chamfer_min
     from deflow_tpu_torch.ops.scatter import segment_sum_lanes, sorted_segment_sum
+    from deflow_tpu_torch.ops.stem import stem_dgrad, stem_fwd, stem_wgrad
     from deflow_tpu_torch.ops.sweep import cell_sweep
 
     from deflow_tpu_torch.ops import voxel
@@ -203,6 +204,9 @@ def _wrapper_calls(device):
         "cell_sweep": lambda: cell_sweep(
             f(256, 8), f(1, 8, 512), ids.new_zeros(1, 3), ids.new_zeros(1, 3),
             ids.new_zeros(1)),
+        "stem_fwd": lambda: stem_fwd(f(1, 4, 4, 16), f(64, 16, 8, 8), f(64)),
+        "stem_dgrad": lambda: stem_dgrad(f(1, 2, 2, 64), f(64, 16, 8, 8), 4, 4),
+        "stem_wgrad": lambda: stem_wgrad(f(1, 4, 4, 16), f(1, 2, 2, 64))[0],
         "chamfer_min": lambda: chamfer_min(f(2, 5, 3), f(2, 7, 3),
                                            torch.ones(2, 7, dtype=torch.bool,
                                                       device=device))[0],
